@@ -10,13 +10,18 @@ an NHWC-contiguous tensor is ``torch.channels_last`` memory, so
 row-major ``[N*H*W, C]`` buffer. Submodules are named after their flax
 paths (``Conv_0``, ``PallasBatchNorm_0`` or ``BatchNorm_0``,
 ``BasicBlock_3``, ``Dense_0``), so weight conversion is a path map
-(``models/convert.py``). Only the NHWC body is ported; ``conv_impl``
-``"lanes"`` and ``"packed"`` raise ``NotImplementedError``.
+(``models/convert.py``).
+
+``conv_impl="lanes"`` runs the stages of width <= 32 on the lanes layout
+``[N, C, H*W]`` (``ops/conv_lanes.py``): their 3x3 convs go through the
+hand-written kernels K3/K4 and their BatchNorms are the plain
+``BatchNorm(axis=1)``; the stem and wider stages stay NHWC. The lanes modules
+keep the NHWC names, so both bodies share one state dict. ``"packed"``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -24,16 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.models import ModelBundle, register_model
+from fedml_tpu_torch.models.initializers import lecun_normal_
 from fedml_tpu_torch.models.norm import PallasBatchNorm
-
-
-def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
-    """flax ``lecun_normal``: truncated normal on [-2, 2] std, scaled so
-    the variance is 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    with torch.no_grad():
-        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        w.mul_(std)
+from fedml_tpu_torch.ops import conv_lanes
 
 
 def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -55,7 +53,7 @@ class Conv(nn.Module):
 
     def reset_parameters(self, generator=None) -> None:
         o, i, kh, kw = self.weight.shape
-        _lecun_normal_(self.weight, i * kh * kw, generator)
+        lecun_normal_(self.weight, i * kh * kw, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
@@ -80,7 +78,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def reset_parameters(self, generator=None) -> None:
-        _lecun_normal_(self.weight, self.weight.shape[1], generator)
+        lecun_normal_(self.weight, self.weight.shape[1], generator)
         with torch.no_grad():
             self.bias.zero_()
 
@@ -88,30 +86,50 @@ class Dense(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-def _norm(features: int, bn_impl: str, fuse_relu: bool = False) -> tuple[str, PallasBatchNorm]:
+def _norm(features: int, bn_impl: str, fuse_relu: bool = False,
+          axis: int = -1) -> tuple[str, PallasBatchNorm]:
     """(flax class name, module) of one train-mode BatchNorm."""
     name = "PallasBatchNorm" if bn_impl == "pallas" else "BatchNorm"
     return name, PallasBatchNorm(features, momentum=0.9, fuse_relu=fuse_relu,
-                                 use_kernel=bn_impl == "pallas")
+                                 use_kernel=bn_impl == "pallas", axis=axis)
 
 
 class BasicBlock(nn.Module):
-    def __init__(self, in_features: int, filters: int, strides: int = 1, bn_impl: str = "xla"):
+    """NHWC body, or with ``conv_impl="lanes"`` the lanes body
+    (``fedml_tpu/models/resnet.py:_call_lanes``), whose ``forward`` also
+    takes the input's (H, W)."""
+
+    def __init__(self, in_features: int, filters: int, strides: int = 1, bn_impl: str = "xla",
+                 conv_impl: str = "xla"):
         super().__init__()
-        bn, n0 = _norm(filters, bn_impl, fuse_relu=True)
-        _, n1 = _norm(filters, bn_impl)
-        self.Conv_0 = Conv(in_features, filters, 3, strides)
+        lanes = conv_impl == "lanes"
+        conv = conv_lanes.Conv if lanes else Conv
+        axis = 1 if lanes else -1
+        bn, n0 = _norm(filters, bn_impl, fuse_relu=True, axis=axis)
+        _, n1 = _norm(filters, bn_impl, axis=axis)
+        self.Conv_0 = conv(in_features, filters, 3, strides)
         self.add_module(f"{bn}_0", n0)
-        self.Conv_1 = Conv(filters, filters, 3)
+        self.Conv_1 = conv(filters, filters, 3)
         self.add_module(f"{bn}_1", n1)
         self.project = strides != 1 or in_features != filters
         if self.project:
-            self.Conv_2 = Conv(in_features, filters, 1, strides)
-            self.add_module(f"{bn}_2", _norm(filters, bn_impl)[1])
+            self.Conv_2 = conv(in_features, filters, 1, strides)
+            self.add_module(f"{bn}_2", _norm(filters, bn_impl, axis=axis)[1])
         self._bn = bn
+        self.lanes = lanes
+        self.strides = strides
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, hw: Optional[tuple] = None) -> torch.Tensor:
         bn = self._bn
+        if self.lanes:
+            h, w = hw
+            s = self.strides
+            y = getattr(self, f"{bn}_0")(self.Conv_0(x, (h, w)))      # BN + fused ReLU
+            y = getattr(self, f"{bn}_1")(self.Conv_1(y, (h // s, w // s)))
+            residual = x
+            if self.project:
+                residual = getattr(self, f"{bn}_2")(self.Conv_2(x, (h, w)))
+            return torch.relu(y + residual)
         y = getattr(self, f"{bn}_0")(self.Conv_0(x))      # BN + fused ReLU
         y = getattr(self, f"{bn}_1")(self.Conv_1(y))
         residual = x
@@ -127,21 +145,28 @@ class CifarResNet(nn.Module):
                  dtype: torch.dtype = torch.float32, widths: tuple = (16, 32, 64),
                  bn_impl: str = "xla", conv_impl: str = "xla"):
         super().__init__()
-        if conv_impl != "xla":
-            raise NotImplementedError(
-                f"conv_impl={conv_impl!r} is not ported yet; only the NHWC body is")
+        if conv_impl == "packed":
+            raise NotImplementedError("conv_impl='packed' is not ported yet")
+        if conv_impl not in ("xla", "lanes"):
+            raise ValueError(f"conv_impl must be 'xla', 'lanes' or 'packed', got {conv_impl!r}")
         if bn_impl not in ("xla", "pallas"):
             raise ValueError(f"bn_impl must be 'xla' or 'pallas', got {bn_impl!r}")
+        if conv_impl == "lanes" and bn_impl == "pallas":
+            raise ValueError("conv_impl='lanes' uses the plain BatchNorm on its own layout; "
+                             "combine it with bn_impl='xla'")
         self.dtype = dtype
         self.Conv_0 = Conv(3, widths[0], 3)         # RGB input
         bn, stem_norm = _norm(widths[0], bn_impl, fuse_relu=True)
         self.add_module(f"{bn}_0", stem_norm)
         self._stem_norm = f"{bn}_0"
+        # lanes: the stages of width <= 32 run on the lanes layout
         blocks, cin, i = [], widths[0], 0
         for stage, filters in enumerate(widths):
+            lanes = conv_impl == "lanes" and filters <= 32
             for block in range(blocks_per_stage):
                 strides = 2 if stage > 0 and block == 0 else 1
-                self.add_module(f"BasicBlock_{i}", BasicBlock(cin, filters, strides, bn_impl))
+                self.add_module(f"BasicBlock_{i}", BasicBlock(
+                    cin, filters, strides, bn_impl, "lanes" if lanes else "xla"))
                 blocks.append(f"BasicBlock_{i}")
                 cin, i = filters, i + 1
         self._blocks = blocks
@@ -157,8 +182,19 @@ class CifarResNet(nn.Module):
         """x: [N, H, W, C] images -> [N, output_dim] f32 logits."""
         x = x.to(self.dtype)
         x = getattr(self, self._stem_norm)(self.Conv_0(x))
+        h, w = x.shape[1], x.shape[2]
+        in_lanes = False
         for name in self._blocks:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if in_lanes and not block.lanes:
+                x, in_lanes = conv_lanes.from_lanes(x, h, w), False
+            elif block.lanes and not in_lanes:
+                x, in_lanes = conv_lanes.to_lanes(x), True
+            x = block(x, (h, w)) if in_lanes else block(x)
+            if block.strides == 2:
+                h, w = h // 2, w // 2
+        if in_lanes:
+            x = conv_lanes.from_lanes(x, h, w)
         # the mean is taken in f32 and rounded to the compute dtype, as
         # jnp.mean does, before the f32 head
         pooled = x.to(torch.float32).mean((1, 2)).to(x.dtype)

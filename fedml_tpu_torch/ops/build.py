@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: every kernel source, by stem
-SOURCES = ("batchnorm",)
+SOURCES = ("batchnorm", "conv_lanes")
 BUILD_TIMEOUT_S = 600
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 

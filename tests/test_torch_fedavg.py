@@ -108,6 +108,37 @@ def test_one_and_two_rounds_match_jax(apis):
     np.testing.assert_allclose(ev_t["acc"], ev_j["acc"], rtol=1e-5)
 
 
+def test_lanes_round_matches_jax():
+    """One round of a small lanes model (16x16 images, so stage 1's convs
+    and stage 2's first take conv3x3_lanes, here its plain version) against
+    the JAX FedAvg of the NHWC model with XLA convs, from the same
+    variables (the two trees are equal) and with JAX's orders. The JAX
+    package pins its own lanes model to its XLA model at 5e-3
+    (tests/test_conv_lanes.py:104-122); the port's plain K3/K4 sum in f32,
+    so it stays at this file's tolerances."""
+    data = {**DATA, "input_shape": (16, 16, 3), "name": "fedavg-lanes"}
+    jbundle = JaxModelBundle(
+        name="cifar-small", module=JaxCifarResNet(1, 10, widths=(8, 16, 16)),
+        input_shape=(16, 16, 3), has_batch_stats=True)
+    japi = JaxFedAvgAPI(jax_synthetic(**data),
+                        JaxFedConfig(**RUN, bucket_quantum_batches=0, pack_lanes=0), jbundle)
+    ds = make_synthetic_classification(**data)
+    n_pad = ds.train_x.shape[1]
+    bundle = ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16), conv_impl="lanes"),
+                         (16, 16, 3))
+    api = FedAvgAPI(ds, FedConfig(**RUN), bundle, device="cpu",
+                    order_hook=lambda r, i: _jax_orders(r, 2, n_pad)[i])
+    api.variables = flax_to_torch(jax.tree.map(np.asarray, japi.variables))
+    np.testing.assert_allclose(api.run_round(0), japi.run_round(0), rtol=1e-5)
+    got = torch_to_flax(api.variables)
+    want = jax.tree.map(np.asarray, japi.variables)
+    la, ta = jax.tree_util.tree_flatten_with_path(want)
+    lb, tb = jax.tree_util.tree_flatten_with_path(got)
+    assert ta == tb
+    for (path, a), (_, b) in zip(la, lb):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5, err_msg=str(path))
+
+
 @pytest.mark.parametrize("total,per_round,seed",
                          [(32, 8, 0), (32, 8, 3), (10, 10, 0), (1000, 17, 5)])
 def test_sample_clients_is_bit_equal(total, per_round, seed):

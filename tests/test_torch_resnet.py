@@ -140,10 +140,95 @@ def test_stride2_conv_pads_like_flax_same():
                                np.asarray(jproj.apply(pv, x)), rtol=1e-5, atol=1e-5)
 
 
-def test_unported_conv_impls_raise():
-    for impl in ("lanes", "packed"):
-        with pytest.raises(NotImplementedError):
-            create_model("resnet56", 10, conv_impl=impl)
+@pytest.mark.parametrize("conv_impl,bn_impl,error", [("packed", "xla", NotImplementedError),
+                                                     ("lanes", "pallas", ValueError)])
+def test_unported_conv_impls_raise(conv_impl, bn_impl, error):
+    """``packed`` is not ported; ``lanes`` runs the plain BN on its own
+    layout and, as in the JAX package (models/resnet.py:226-229), refuses
+    the BN kernel."""
+    with pytest.raises(error):
+        create_model("resnet56", 10, conv_impl=conv_impl, bn_impl=bn_impl)
+
+
+def test_small_lanes_resnet_matches_jax():
+    """A lanes CifarResNet (stages of width <= 32 on [N, C, H*W]; at 16x16
+    stage 1's and stage 2's first conv pass ``supported()`` and run the JAX
+    Pallas kernel in interpret mode, the rest its XLA fallback) against the
+    JAX lanes model, at the tolerances of test_small_resnet_matches_jax.
+    The variables come from the NHWC model's init: the trees are equal."""
+    jmod = JaxCifarResNet(1, 10, widths=(8, 16, 16), conv_impl="lanes")
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(8, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 10, size=(8,)).astype(np.int32)
+    m = np.array([1, 1, 1, 1, 1, 1, 1, 0], np.float32)
+    variables = _np_tree(JaxCifarResNet(1, 10, widths=(8, 16, 16)).init(
+        jax.random.key(1), jnp.asarray(x), train=False))
+
+    def loss_j(params):
+        logits, upd = jmod.apply({**variables, "params": params}, x, train=True,
+                                 mutable=["batch_stats"])
+        return jax_loss(logits, y, m), (logits, upd)
+
+    (l_j, (logits_j, upd_j)), g_j = jax.jit(jax.value_and_grad(loss_j, has_aux=True))(
+        variables["params"])
+    eval_j = jax.jit(lambda v: jmod.apply(v, x, train=False))({**variables, **upd_j})
+
+    model = CifarResNet(1, 10, widths=(8, 16, 16), conv_impl="lanes")
+    model.load_state_dict(flax_to_torch(variables), strict=True)
+    model.train()
+    logits_t = model(torch.tensor(x))
+    l_t = classification_loss(logits_t, torch.tensor(y), torch.tensor(m))
+    l_t.backward()
+
+    np.testing.assert_allclose(logits_t.detach().numpy(), np.asarray(logits_j), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(float(l_t.detach()), float(l_j), rtol=1e-5)
+    grads_t = torch_to_flax({k: p.grad for k, p in model.named_parameters()})
+    la, _ = jax.tree_util.tree_flatten_with_path(_np_tree(g_j))
+    lb, _ = jax.tree_util.tree_flatten_with_path(grads_t["params"])
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, a), (_, b) in zip(la, lb):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5, err_msg=str(path))
+    stats_t = torch_to_flax(dict(model.named_buffers()))["batch_stats"]
+    for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(_np_tree(upd_j["batch_stats"]))[0],
+                                 jax.tree_util.tree_flatten_with_path(stats_t)[0]):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-5, err_msg=str(path))
+    model.eval()
+    with torch.no_grad():
+        eval_t = model(torch.tensor(x))
+    np.testing.assert_allclose(eval_t.numpy(), np.asarray(eval_j), rtol=1e-5, atol=1e-5)
+
+
+def test_lanes_state_dict_equals_nhwc():
+    """Same keys, shapes and module order as the NHWC model, so the
+    converter and FedAvg's state handling need no change
+    (tests/test_conv_lanes.py:80-87 pins the same for the JAX trees)."""
+    nhwc = create_model("resnet20", 10).module.state_dict()
+    lanes = create_model("resnet20", 10, conv_impl="lanes").module.state_dict()
+    assert [(k, tuple(v.shape)) for k, v in lanes.items()] == \
+        [(k, tuple(v.shape)) for k, v in nhwc.items()]
+
+
+def test_resnet56_lanes_routes_36_convs_through_the_kernel(monkeypatch):
+    """chip_smoke.py's lanes launch counts rest on this: at 32x32, stage 1's
+    18 convs (16->16), stage 2's first (16->32 at 32x32) and its 17 others
+    (32->32 at 16x16) take conv3x3_lanes; stage 3 (C = 64) stays NHWC."""
+    from collections import Counter
+
+    from fedml_tpu_torch.ops import conv_lanes
+
+    seen = Counter()
+    real = conv_lanes.conv3x3_lanes
+
+    def counting(xf, weight, h, w):
+        seen[(xf.shape[1], weight.shape[0], h, w)] += 1
+        return real(xf, weight, h, w)
+
+    monkeypatch.setattr(conv_lanes, "conv3x3_lanes", counting)
+    model = create_model("resnet56", 10, conv_impl="lanes").module
+    with torch.no_grad():
+        model.eval()(torch.zeros(1, 32, 32, 3))
+    assert seen == {(16, 16, 32, 32): 18, (16, 32, 32, 32): 1, (32, 32, 16, 16): 17}
 
 
 def test_resnet56_has_57_train_mode_batchnorms():
