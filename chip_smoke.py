@@ -31,8 +31,26 @@ Phases (any failure raises and the script exits non-zero):
    check the loss and the launch counts (72 K3 and 36 K4 per live step, 36
    K3 per eval batch, no BN kernel).
 
-Phases 4 and 8 end with a profile of 5 local steps of one client (wall and
-device ms per step, device busy share, device time by kernel family).
+9. Hold K6 (flash attention) and K5 (fused cross-entropy) against their
+   plain versions: K6 at path (B)'s and path (A)'s shapes, causal and not,
+   a shifted query window, ragged T at each head dim, 4 merged K/V chunks
+   with a fully future one, f32 and bf16; K5 at 16384 x 10004, vocab 90,
+   1003 and a ragged N, f32 and bf16 logits, int32 and int64 labels; then
+   a small TransformerLM through both on the card against the CPU.
+10. Time K6 and K5 at path (B)'s shapes beside their plain versions,
+   ``F.scaled_dot_product_attention`` / ``F.cross_entropy`` and bounds.
+11. Path (A): 2 FedAvg rounds of ``transformer`` (dim 256, 8 heads, 4
+   layers, bf16) on the synthetic fed_shakespeare federation (100 clients,
+   10 a round, batch 4, sequences of 80); 4 K6 per live step and per eval
+   batch, no other kernel.
+12. Path (B): 5 steps of the one-card LM step (``transformer_nwp``
+   widths, vocab 10004, T = 8192, batch 2, bf16, remat, SGD lr 0.1) on one
+   fixed batch; 8 K6 and 1 K5 per step, the loss falls; tokens/s, ms/step
+   and peak memory.
+
+Phases 4, 8 and 11 end with a profile of 5 local steps of one client (wall
+and device ms per step, device busy share, device time by kernel family);
+phase 12 profiles one more step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -86,6 +104,16 @@ CONV_BATCH = 64
 CONV_RAGGED = [(3, 12, 20, 10, 14), (3, 20, 12, 10, 14), (3, 20, 12, 37, 13), (1, 8, 8, 3, 300)]
 PROBE_SHAPES = [(16, 16, 32, 32), (32, 32, 16, 16)]
 EVAL_BATCH = 256      # make_eval_fn's default batch
+
+# The transformer LM paths. (B): q, k, v [B, H, T, D] of the one-card LM
+# step (transformer_nwp widths: 8 heads of 32; T = 8192, batch 2) and its
+# K5 rows (B*T of vocab 10004); with remat each of the 4 blocks runs K6
+# twice per step. (A): FedAvg of `transformer` at batch 4, sequences of 80.
+LM_BATCH, LM_SEQ = 2, 8192
+ATTN_B = (LM_BATCH, 8, LM_SEQ, LM_SEQ, 32)
+ATTN_A = (4, 8, 80, 80, 32)
+XENT_B = (LM_BATCH * LM_SEQ, 10004)
+LM_K6_PER_STEP = 8
 
 # K3 (and K7 "kernel") against its plain version: f32, the sum over 9*Ci
 # terms runs in another order (up to ~1e-6 at |y| ~ 2); bf16 outputs: both
@@ -537,6 +565,10 @@ def phase_probe():
 
 def kernel_family(name: str) -> str:
     low = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "attention kernel (K6)"
+    if "xent_kernel" in name:
+        return "cross-entropy kernel (K5)"
     if "conv_fwd_kernel" in name or "conv_wgrad_" in name:
         return "lanes conv kernels (K3/K4)"
     if any(f"::{k}" in name or name.startswith(k) for k in
@@ -681,6 +713,362 @@ def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
             "real_images_per_s": sum(r["real_images"] for r in rounds) / train_s}
 
 
+def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
+                    ) -> tuple[float, float]:
+    """(bytes, flops) of one K6 call at offsets 0: q, k, v read once, the
+    f32 o, m, l written once; 2 FLOPs per multiply-add of q.k and of p.v
+    over the live (query, key) pairs."""
+    live = int(np.clip(np.arange(tq) + 1, 0, tk).sum()) if causal else tq * tk
+    nbytes = elt * b * h * (tq + 2 * tk) * d + 4 * b * h * tq * (d + 2)
+    return nbytes, 4 * b * h * live * d
+
+
+def xent_bound(n: int, v: int, elt: int = 4, label_bytes: int = 8) -> tuple[float, float]:
+    """(bytes, flops) of one K5 call: the logits and labels read once, the
+    f32 losses written once; max, subtract, exp and add per logit."""
+    return elt * n * v + (label_bytes + 4) * n, 4 * n * v
+
+
+def _close_partial(name, got, want) -> float:
+    """K6's (o, m, l) against the plain version's. Both sum in f32 in other
+    orders over up to Tk terms: m within 1e-5; l rtol 1e-5; o compared
+    after dividing both by the plain l (its scale: o's row is a sum of l's
+    worth of v rows), atol 2e-5."""
+    import torch
+
+    (o, m, l), (po, pm, pl) = got, want
+    assert_close(f"{name} m", m, pm, 0.0, 1e-5)
+    assert_close(f"{name} l", l, pl, 1e-5, 1e-5)
+    den = torch.where(pl == 0, torch.ones_like(pl), pl)[..., None]
+    return assert_close(f"{name} o/l", o / den, po / den, 0.0, 2e-5)
+
+
+def phase_check_lm():
+    """K6 and K5 against their plain versions on the same card tensors, then
+    a small TransformerLM through both kernels on the card against the same
+    model on the CPU."""
+    import torch
+
+    from fedml_tpu_torch.ops import attention as att
+    from fedml_tpu_torch.ops import xent as xe
+
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device("cuda")
+    err = {"attention": 0.0, "xent": 0.0}
+    cases = []
+
+    def qkv(b, h, tq, tk, d, dtype):
+        return [torch.tensor(rng.normal(size=s).astype(np.float32), device=dev).to(dtype)
+                for s in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d))]
+
+    # (B, H, Tq, Tk, D, q_offset, k_offset, causal): path (B), path (A), a
+    # shifted query window, ragged T at each head dim, one non-causal case
+    shapes = [ATTN_B + (0, 0, True), ATTN_B + (0, 0, False), ATTN_A + (0, 0, True),
+              (2, 2, 32, 64, 32, 32, 0, True), (2, 2, 37, 37, 16, 0, 0, True),
+              (1, 3, 300, 300, 64, 0, 0, True), (2, 2, 300, 37, 128, 263, 0, True),
+              (2, 2, 64, 64, 128, 0, 0, False)]
+    for b, h, tq, tk, d, qo, ko, causal in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = (f"[{b},{h},{tq},{tk},{d}] offsets {qo},{ko} causal={causal} "
+                   f"{str(dtype).split('.')[1]}")
+            q, k, v = qkv(b, h, tq, tk, d, dtype)
+            args = (qo, ko, causal, d ** -0.5)
+            e = _close_partial(f"K6 {tag}", att.block_partial_cuda(q, k, v, *args),
+                               att.block_partial_plain(q, k, v, *args))
+            err["attention"] = max(err["attention"], e)
+            cases.append({"case": f"K6 {tag}", "o_over_l": e})
+            log(f"[check] K6 {tag}: max|err| o/l {e:.3g}")
+            del q, k, v
+    # 4 K/V chunks with nonzero k_offset merged by merge_partials; the query
+    # rows 0..15 see nothing of chunks 1-3, and chunk 3 of rows 0..47
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(2, 2, 64, 64, 32, dtype)
+        got = want = None
+        for i in range(4):
+            sl = slice(16 * i, 16 * (i + 1))
+            args = (q, k[:, :, sl].contiguous(), v[:, :, sl].contiguous(), 0, 16 * i, True,
+                    32 ** -0.5)
+            pg, pw = att.block_partial_cuda(*args), att.block_partial_plain(*args)
+            got = pg if got is None else att.merge_partials(got, pg)
+            want = pw if want is None else att.merge_partials(want, pw)
+        dead = att.block_partial_cuda(q[:, :, :16].contiguous(), k[:, :, 48:].contiguous(),
+                                      v[:, :, 48:].contiguous(), 0, 48, True, 32 ** -0.5)
+        if not (bool((dead[1] == att.NEG_INF).all()) and bool((dead[2] == 0).all())
+                and bool((dead[0] == 0).all())):
+            raise AssertionError("K6: a fully future chunk must give m=-1e30, l=0, o=0")
+        e = assert_close(f"K6 4-chunk merge {dtype}", att.normalize_partial(*got),
+                         att.normalize_partial(*want), 0.0, 2e-5)
+        err["attention"] = max(err["attention"], e)
+        cases.append({"case": f"K6 4-chunk merge {dtype}", "out": e})
+        log(f"[check] K6 4 chunks merged, {dtype}: max|err| {e:.3g}; dead chunk exact")
+    torch.cuda.synchronize()
+
+    # K5: the LM path's rows, the char vocab, an odd vocab, ragged N
+    for n, v in ((XENT_B[0], XENT_B[1]), (4 * 80, 90), (100, 1003), (37, 33)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"[{n}x{v} {str(dtype).split('.')[1]}]"
+            lg = torch.tensor((rng.normal(size=(n, v)) * 3).astype(np.float32), device=dev).to(dtype)
+            lb = torch.tensor(rng.integers(0, v, n), device=dev)
+            # f32 sums over V terms in other orders: 2e-5 absolute at losses ~10
+            e = assert_close(f"K5 {tag}", xe.xent_cuda(lg, lb), xe.xent_plain(lg, lb), 0.0, 2e-5)
+            e32 = assert_close(f"K5 int32 labels {tag}", xe.xent_cuda(lg, lb.int()),
+                               xe.xent_plain(lg, lb), 0.0, 2e-5)
+            err["xent"] = max(err["xent"], e, e32)
+            cases.append({"case": f"K5 {tag}", "loss": max(e, e32)})
+            log(f"[check] K5 {tag}: max|err| {max(e, e32):.3g}")
+    torch.cuda.synchronize()
+
+    # a small TransformerLM (head dim 32, remat) on the card through K6/K5
+    # vs the CPU's plain path, same weights and tokens (f32, TF32 off)
+    from fedml_tpu_torch.models.transformer import TransformerLM
+
+    kw = dict(vocab_size=97, dim=64, heads=2, layers=2, max_len=64, remat=True,
+              attn_impl="pallas")
+    cpu = TransformerLM(**kw)
+    cpu.reset_parameters(torch.Generator().manual_seed(SEED))
+    gpu = TransformerLM(**kw)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.to(dev)
+    x = torch.tensor(rng.integers(0, 97, (3, 40)))
+    y = torch.tensor(rng.integers(0, 97, (3, 40)))
+    att.reset_launches()
+    xe.reset_launches()
+    losses = []
+    for m, dv in ((cpu, "cpu"), (gpu, dev)):
+        logits = m(x.to(dv))
+        loss = xe.masked_cross_entropy(logits, y.to(dv), impl="pallas").mean()
+        loss.backward()
+        losses.append((logits.detach().cpu(), loss.detach().cpu()))
+    torch.cuda.synchronize()
+    ran = (att.LAUNCHES["attention"], xe.LAUNCHES["xent"])
+    if ran != (4, 1):
+        raise AssertionError(f"small LM: expected 4 K6 (2 blocks, forward + remat) and 1 K5 "
+                             f"launches on the card, got {ran}")
+    worst = 0.0
+    pairs = [("logits", losses[1][0], losses[0][0]), ("loss", losses[1][1], losses[0][1])]
+    pairs += [(k, p.grad, cpu.get_parameter(k).grad) for k, p in gpu.named_parameters()]
+    for name, a, ref in pairs:
+        rel = float((a.cpu() - ref).norm() / (ref.norm() + 1e-4 * ref.numel() ** 0.5))
+        worst = max(worst, rel)
+        if not rel < 1e-4:
+            raise AssertionError(f"small LM {name}: relative L2 error {rel:.3g} >= 1e-4")
+    log(f"[check] small TransformerLM GPU kernels vs CPU plain: worst relative L2 error "
+        f"{worst:.3g}")
+    return err, cases, worst
+
+
+def phase_time_lm():
+    """K6 and K5 at path (B)'s shapes (bf16 q, k, v [2, 8, 8192, 32] causal;
+    f32 logits [16384, 10004]) beside their plain versions, the library
+    yardsticks and their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.ops import attention as att
+    from fedml_tpu_torch.ops import xent as xe
+
+    rng = np.random.default_rng(SEED + 6)
+    dev = torch.device("cuda")
+    slow = dict(iters=5, repeats=3, warmup=2)
+    b, h, tq, tk, d = ATTN_B
+    q, k, v = (torch.tensor(rng.normal(size=(b, h, tq, d)).astype(np.float32), device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    sc = d ** -0.5
+    fns = {"": lambda: att.block_partial_cuda(q, k, v, 0, 0, True, sc),
+           "plain_": lambda: att.block_partial_plain(q, k, v, 0, 0, True, sc),
+           "library_": lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)}
+    rows = []
+    rec = {}
+    for prefix, fn in fns.items():
+        rec[f"{prefix}ms"] = cuda_time_ms(fn, **slow)
+        rec[f"{prefix}device_ms"] = device_ms(fn, iters=5)
+    nbytes, flops = attention_bound(b, h, tq, tk, d, True)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    rec.update(kernel="attention", shape=[b, h, tq, tk, d], dtype="bfloat16", causal=True,
+               calls_per_step=LM_K6_PER_STEP, gflop=flops / 1e9)
+    rows.append(rec)
+    del q, k, v
+    n, vv = XENT_B
+    lg = torch.tensor(rng.normal(size=(n, vv)).astype(np.float32), device=dev)
+    lb = torch.tensor(rng.integers(0, vv, n), device=dev)
+    fns = {"": lambda: xe.xent_cuda(lg, lb), "plain_": lambda: xe.xent_plain(lg, lb),
+           "library_": lambda: F.cross_entropy(lg, lb, reduction="none")}
+    rec = {}
+    for prefix, fn in fns.items():
+        rec[f"{prefix}ms"] = cuda_time_ms(fn, iters=20)
+        rec[f"{prefix}device_ms"] = device_ms(fn)
+    nbytes, flops = xent_bound(n, vv)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    rec.update(kernel="xent", shape=[n, vv], dtype="float32", calls_per_step=1)
+    rows.append(rec)
+    for rec in rows:
+        us = {k: ("n/m" if val is None else f"{val:.4f}") for k, val in rec.items()
+              if k.endswith("ms") and k != "bound_ms"}
+        log(f"[time] {rec['kernel']} {rec['shape']} {rec['dtype']}: kernel {us['ms']} ms "
+            f"(device {us['device_ms']}), plain {us['plain_ms']} (device "
+            f"{us['plain_device_ms']}), library {us['library_ms']} (device "
+            f"{us['library_device_ms']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    torch.cuda.synchronize()
+    return rows
+
+
+def phase_train_lm_fedavg(smi: str):
+    """Path (A): 2 FedAvg rounds of the registered ``transformer`` (dim 256,
+    8 heads, 4 layers, bf16 compute, f32 parameters) on the synthetic
+    fed_shakespeare federation (100 clients, vocab 90, sequences of 80),
+    10 clients a round, batch 4, SGD lr 0.1 momentum 0.9; then
+    evaluate_global. Checks 4 K6 per live step and per eval batch, and no
+    other kernel."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.shakespeare import load_fed_shakespeare
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import attention as att
+    from fedml_tpu_torch.ops import batchnorm as bn
+    from fedml_tpu_torch.ops import conv_lanes as cl
+    from fedml_tpu_torch.ops import xent as xe
+
+    tag = "[train transformer/fed_shakespeare]"
+    t0 = time.perf_counter()
+    ds = load_fed_shakespeare(data_dir=str(ROOT / "data" / "fed_shakespeare" / "datasets"),
+                              client_num_in_total=100, batch_size=4, seed=SEED)
+    cfg = FedConfig(model="transformer", dataset="fed_shakespeare", client_num_in_total=100,
+                    client_num_per_round=10, comm_round=2, batch_size=4, epochs=1, lr=0.1,
+                    momentum=0.9, dtype="bfloat16", frequency_of_the_test=10_000, seed=SEED,
+                    async_rounds=True)
+    bundle = create_model("transformer", ds.class_num, input_shape=ds.train_x.shape[2:],
+                          dtype=torch.bfloat16, attn_impl="auto")
+    api = FedAvgAPI(ds, cfg, bundle)
+    torch.cuda.synchronize()
+    seq_len = ds.train_x.shape[2]
+    log(f"{tag} set-up (data {ds.train_x.shape}, {ds.name}, model, placement) "
+        f"{time.perf_counter() - t0:.1f} s")
+    steps = sum(api.round_counts(r)[1] // cfg.batch_size for r in range(cfg.comm_round))
+    mods = (att, xe, bn, cl)
+    for mod in mods:
+        mod.reset_launches()
+    rounds = []
+    for r in range(cfg.comm_round):
+        t = time.perf_counter()
+        loss = float(api.run_round(r))
+        dt = time.perf_counter() - t
+        real, executed = api.round_counts(r)
+        rounds.append({"round": r, "loss": loss, "seconds": dt, "real_sequences": real,
+                       "executed_sequences": executed, "real_tokens_per_s": real * seq_len / dt})
+        log(f"{tag} round {r}: loss {loss:.4f}, {dt:.2f} s, {real} real sequences "
+            f"({executed} executed), {real * seq_len / dt:.1f} real tokens/s")
+        if not np.isfinite(loss):
+            raise AssertionError(f"round {r} loss is not finite: {loss}")
+    trained = {k: val for mod in mods for k, val in mod.LAUNCHES.items()}
+    t = time.perf_counter()
+    metrics = api.evaluate_global()
+    eval_s = time.perf_counter() - t
+    launches = {k: val for mod in mods for k, val in mod.LAUNCHES.items()}
+    train_s = sum(r["seconds"] for r in rounds)
+    tokens = sum(r["real_sequences"] for r in rounds) * seq_len
+    log(f"{tag} evaluate_global: {metrics} in {eval_s:.2f} s; launches {launches}")
+    log(f"{tag} {len(rounds)} rounds in {train_s:.2f} s: {len(rounds) / train_s:.4f} rounds/s, "
+        f"{tokens / train_s:.1f} real tokens/s over {steps} live steps; {smi}")
+    if not (np.isfinite(metrics["loss"]) and 0.0 <= metrics["acc"] <= 1.0):
+        raise AssertionError(f"evaluate_global gave {metrics}")
+    eval_batches = -(-ds.test_x.shape[0] // EVAL_BATCH)
+    layers = bundle.module.layers
+    for k in trained:
+        want = layers * steps if k == "attention" else 0
+        if trained[k] != want:
+            raise AssertionError(f"{tag} {k} launched {trained[k]} times over the rounds; "
+                                 f"expected {want}")
+        want_eval = layers * eval_batches if k == "attention" else 0
+        if launches[k] - trained[k] != want_eval:
+            raise AssertionError(f"{tag} {k} launched {launches[k] - trained[k]} times in "
+                                 f"evaluate_global; expected {want_eval}")
+    prof = step_profile(api)
+    log(f"{tag} one client's local step: wall {prof['wall_ms_per_step']:.2f} ms, device "
+        f"{prof['device_ms_per_step']:.3f} ms (busy share {prof['device_busy_share']:.3f}), "
+        f"{prof['gpu_activities_per_step']:.0f} GPU activities; device ms by family "
+        + ", ".join(f"{k} {v:.3f}" for k, v in prof["device_ms_per_step_by_family"].items()))
+    return {"rounds": rounds, "eval": metrics, "eval_s": eval_s, "steps": steps,
+            "eval_batches": eval_batches, "launches_train": trained, "launches": launches,
+            "rounds_per_s": len(rounds) / train_s, "real_tokens_per_s": tokens / train_s,
+            "step_profile": prof}
+
+
+def phase_train_lm_step(smi: str, steps: int = 5):
+    """Path (B): the one-card LM train step (make_sp_lm_train_step on a 1x1
+    mesh) of ``transformer_nwp`` at its widths (vocab 10004, dim 256, 8
+    heads, 4 layers), T = 8192, batch 2, bf16, remat, attn_impl="pallas",
+    SGD lr 0.1, ``steps`` steps on one fixed batch cut from a synthetic
+    token stream. Checks 8 K6 and 1 K5 per step and a falling loss, then
+    profiles one more step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fedml_tpu_torch.data.shakespeare import _synthetic_nwp
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import attention as att
+    from fedml_tpu_torch.ops import xent as xe
+    from fedml_tpu_torch.parallel.local import make_optimizer
+    from fedml_tpu_torch.parallel.sequence import make_sp_lm_train_step, sp_mesh
+
+    tag = "[lm step T=8192]"
+    dev = torch.device("cuda")
+    b, vocab = LM_BATCH, XENT_B[1]
+    t0 = time.perf_counter()
+    ds = _synthetic_nwp("lm-stream", 1, vocab, LM_SEQ, b, SEED)
+    x = torch.from_numpy(ds.train_x[0, :b]).to(dev)
+    y = torch.from_numpy(ds.train_y[0, :b]).to(dev)
+    mask = torch.ones((b, LM_SEQ), dtype=torch.float32, device=dev)
+    bundle = create_model("transformer_nwp", vocab, seq_len=LM_SEQ, attn_impl="pallas", remat=True,
+                          dtype=torch.bfloat16)
+    bundle.init(SEED, dev)
+    module = bundle.module
+    step = make_sp_lm_train_step(module, sp_mesh(1, 1), attn_impl="pallas")
+    opt = make_optimizer("sgd", 0.1)(module.parameters())
+    torch.cuda.synchronize()
+    log(f"{tag} set-up {time.perf_counter() - t0:.1f} s; batch {tuple(x.shape)}")
+    att.reset_launches()
+    xe.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(step(opt, x, y, mask)))
+        secs.append(time.perf_counter() - t1)
+    launches = {**att.LAUNCHES, **xe.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = b * LM_SEQ
+    steady = secs[1:] or secs
+    ms = float(np.mean(steady)) * 1e3
+    log(f"{tag} losses {[round(v, 4) for v in losses]}; ms/step {[round(s * 1e3, 1) for s in secs]}"
+        f" (mean of steps 2-{steps}: {ms:.1f}); {tokens / ms * 1e3:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}; {smi}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} loss must be finite and fall: {losses}")
+    want = {"attention": LM_K6_PER_STEP * steps, "xent": steps}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}; expected {want}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(opt, x, y, mask)
+        torch.cuda.synchronize()
+    by_family, n = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n += 1
+            fam = kernel_family(e.name)
+            by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+    total = sum(by_family.values())
+    log(f"{tag} profiled step: device {total:.2f} ms (busy share {total / ms:.3f} of the "
+        f"unprofiled step), {n} GPU activities; device ms by family "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_family.items(), key=lambda kv: -kv[1])))
+    return {"losses": losses, "seconds": secs, "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+            "peak_memory_bytes": peak, "launches": launches, "device_ms_per_step": total,
+            "device_busy_share": total / ms, "gpu_activities_per_step": n,
+            "device_ms_per_step_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1]))}
+
+
 def main() -> int:
     import torch
 
@@ -717,7 +1105,12 @@ def main() -> int:
     conv_timing = timed("time_conv", phase_time_conv)
     probe, probe_launches = timed("probe", phase_probe)
     train_lanes = timed("train_lanes", phase_train, smi, bn_impl="xla", conv_impl="lanes")
+    lm_err, lm_cases, lm_model_err = timed("check_lm", phase_check_lm)
+    lm_timing = timed("time_lm", phase_time_lm)
+    train_lm = timed("train_lm_fedavg", phase_train_lm_fedavg, smi)
+    lm_step = timed("train_lm_step", phase_train_lm_step, smi)
     err.update(conv_err)
+    err.update(lm_err)
 
     def per_step(rows, key):
         vals = [r[key] for r in rows]
@@ -763,6 +1156,30 @@ def main() -> int:
         "library_ms": None, "device_ms": None if None in devs else sum(devs),
         "per_call": probe,
     })
+    # K6 and K5: one path (B) step's calls at its shapes (8 K6, 1 K5);
+    # K6's launches count both transformer paths, K5's path (B)'s
+    k6_launches = {"fedavg_transformer": train_lm["launches"]["attention"],
+                   "lm_step": lm_step["launches"]["attention"]}
+    for rec, replaces, launches in (
+            (lm_timing[0], "fedml_tpu/ops/attention.py:63 (_flash_kernel, pallas_call at :158)",
+             sum(k6_launches.values())),
+            (lm_timing[1], "fedml_tpu/ops/xent.py:31 (_xent_kernel, pallas_call at :81)",
+             lm_step["launches"]["xent"])):
+        name, calls = rec["kernel"], rec["calls_per_step"]
+
+        def step_ms(key, rec=rec, calls=calls):
+            return None if rec[key] is None else rec[key] * calls
+
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"fedml_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err[name],
+            "ms": step_ms("ms"), "plain_ms": step_ms("plain_ms"), "bound_ms": step_ms("bound_ms"),
+            "bound_by": rec["bound_by"], "library_ms": step_ms("library_ms"),
+            "device_ms": step_ms("device_ms"), "plain_device_ms": step_ms("plain_device_ms"),
+            "library_device_ms": step_ms("library_device_ms"),
+            "per_call": {k: v for k, v in rec.items() if k != "kernel"},
+            **({"launches_by_path": k6_launches} if name == "attention" else {}),
+        })
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
@@ -772,6 +1189,8 @@ def main() -> int:
         "train": train, "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,
+        "lm_check_cases": lm_cases, "small_lm_rel_err": lm_model_err, "lm_timing": lm_timing,
+        "train_lm_fedavg": train_lm, "train_lm_step": lm_step,
         "kernels": kernels}, indent=1))
     log(smi)
     print(json.dumps({"kernels": kernels}))

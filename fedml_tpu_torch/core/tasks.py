@@ -1,5 +1,6 @@
 """Task families: mask-aware loss and metric sums (counterpart of
-``fedml_tpu/core/tasks.py``; classification only on the ported path).
+``fedml_tpu/core/tasks.py``; classification and next-word prediction on
+the ported paths).
 
 Padded records carry mask 0 and contribute nothing to loss or metrics.
 """
@@ -48,7 +49,27 @@ def classification_metrics(logits, targets, mask) -> dict:
 
 classification = Task(classification_loss, classification_metrics)
 
-TASKS: dict[str, Task] = {"classification": classification}
+
+# next-word / next-char prediction: logits [B, T, V], targets [B, T]; the
+# mask may be [B] (whole sequence) or [B, T]
+
+def _seq_mask(mask: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    if mask.dim() < targets.dim():
+        mask = mask[..., None].expand(targets.shape)
+    return mask
+
+
+def nwp_loss(logits, targets, mask) -> torch.Tensor:
+    return classification_loss(logits, targets, _seq_mask(mask, targets))
+
+
+def nwp_metrics(logits, targets, mask) -> dict:
+    return classification_metrics(logits, targets, _seq_mask(mask, targets))
+
+
+nwp = Task(nwp_loss, nwp_metrics)
+
+TASKS: dict[str, Task] = {"classification": classification, "nwp": nwp}
 
 
 def get_task(name: str, class_num=None) -> Task:

@@ -75,7 +75,7 @@ class ModelBundle:
 def create_model(model_name: str, output_dim: int,
                  input_shape: Optional[Sequence[int]] = None, **kw) -> ModelBundle:
     """Factory keyed by the reference's --model flag values."""
-    from fedml_tpu_torch.models import resnet  # noqa: F401
+    from fedml_tpu_torch.models import resnet, transformer  # noqa: F401
 
     if model_name not in _REGISTRY:
         raise KeyError(f"unknown or unported model {model_name!r}; known: {sorted(_REGISTRY)}")

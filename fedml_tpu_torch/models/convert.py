@@ -4,12 +4,12 @@ Flax variables are nested dicts of numpy arrays
 (``{"params": {...}, "batch_stats": {...}}``); the port's state dict is
 flat, keyed by the same module path joined with dots. The map is:
 
-- ``Conv_i/kernel`` HWIO  <->  ``Conv_i.weight`` OIHW;
-- ``Dense_i/kernel`` [in, out]  <->  ``Dense_i.weight`` [out, in];
-  ``Dense_i/bias``  <->  ``Dense_i.bias``;
-- ``<BN>/scale``, ``<BN>/bias`` (params) and ``<BN>/mean``, ``<BN>/var``
-  (batch_stats)  <->  the BN module's tensors of the same names, where
-  ``<BN>`` is ``BatchNorm_i`` or ``PallasBatchNorm_i``.
+- a 4-D ``kernel`` (a conv's, HWIO)  <->  ``weight`` OIHW;
+- a 2-D ``kernel`` (a Dense's, [in, out], whatever its owner is called:
+  ``Dense_i``, ``qkv``, ``out``, ``lm_head``)  <->  ``weight`` [out, in];
+- every other leaf (``bias``, ``scale``, ``embedding``, and ``mean``,
+  ``var`` in batch_stats)  <->  the tensor of the same name. The BN
+  modules are ``BatchNorm_i`` or ``PallasBatchNorm_i``.
 
 Both directions only transpose, so a round trip is bit-exact.
 """
@@ -48,13 +48,13 @@ def flax_to_torch(variables: dict, bn_name: Optional[str] = None) -> dict:
         for path, leaf in _walk(variables.get(coll, {})):
             path = _rename_bn(path, bn_name)
             a = np.asarray(leaf)
-            owner, name = path[-2], path[-1]
-            if name == "kernel" and owner.startswith("Conv_"):
+            name = path[-1]
+            if name == "kernel" and a.ndim == 4:
                 a, name = a.transpose(3, 2, 0, 1), "weight"
-            elif name == "kernel" and owner.startswith("Dense_"):
+            elif name == "kernel" and a.ndim == 2:
                 a, name = a.T, "weight"
             elif name == "kernel":
-                raise ValueError(f"unknown kernel owner {'/'.join(path)}")
+                raise ValueError(f"kernel {'/'.join(path)} is neither 2-D nor 4-D")
             out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(a, order="C"))
     return out
 
@@ -65,12 +65,14 @@ def torch_to_flax(state: dict, bn_name: Optional[str] = None) -> dict:
     for key, t in state.items():
         path = _rename_bn(tuple(key.split(".")), bn_name)
         a = t.detach().cpu().numpy()
-        owner, name = path[-2], path[-1]
+        name = path[-1]
         coll = "params"
-        if name == "weight" and owner.startswith("Conv_"):
+        if name == "weight" and a.ndim == 4:
             a, name = a.transpose(2, 3, 1, 0), "kernel"
-        elif name == "weight" and owner.startswith("Dense_"):
+        elif name == "weight" and a.ndim == 2:
             a, name = a.T, "kernel"
+        elif name == "weight":
+            raise ValueError(f"weight {key} is neither 2-D nor 4-D")
         elif name in ("mean", "var"):
             coll = "batch_stats"
         node = out[coll]

@@ -30,6 +30,7 @@ from torch import nn
 
 from fedml_tpu_torch.models import ModelBundle, register_model
 from fedml_tpu_torch.models.initializers import lecun_normal_
+from fedml_tpu_torch.models.layers import Dense
 from fedml_tpu_torch.models.norm import PallasBatchNorm
 from fedml_tpu_torch.ops import conv_lanes
 
@@ -67,23 +68,6 @@ class Conv(nn.Module):
             pad = 0
         y = F.conv2d(xc, self.weight.to(x.dtype), stride=self.stride, padding=pad)
         return y.permute(0, 2, 3, 1).contiguous()
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense``: ``weight`` [out, in], zero-initialised bias."""
-
-    def __init__(self, in_features: int, features: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def reset_parameters(self, generator=None) -> None:
-        lecun_normal_(self.weight, self.weight.shape[1], generator)
-        with torch.no_grad():
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
 
 
 def _norm(features: int, bn_impl: str, fuse_relu: bool = False,

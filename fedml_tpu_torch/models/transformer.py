@@ -1,0 +1,142 @@
+"""Decoder-only transformer LM (counterpart of
+``fedml_tpu/models/transformer.py``).
+
+Attention goes through :mod:`fedml_tpu_torch.ops.attention` (kernel K6 on
+CUDA tensors). Submodules and parameters keep the flax names
+(``tok_embed``, ``pos_embed``, ``block{i}/attn/qkv``, ``attn/out``,
+``LayerNorm_0/1``, ``Dense_0/1``, the final ``LayerNorm_0`` and
+``lm_head``), so weight conversion is a path map (``models/convert.py``).
+
+Numerics follow flax: ``dtype`` is the compute type of every Dense,
+Embed and LayerNorm (parameters stay f32), LayerNorms keep f32 statistics
+with epsilon 1e-6, GELU is the tanh form, and ``lm_head`` computes in f32,
+so the logits are f32. ``remat=True`` recomputes each block's activations
+during the backward (``torch.utils.checkpoint``, non-reentrant), as
+``nn.remat`` does; the attention kernel then runs twice per block and step.
+
+Not ported yet, and refused with ``NotImplementedError``: sequence
+parallelism (``ring_size > 1``) and dropout (``dropout > 0``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from fedml_tpu_torch.models import ModelBundle, register_model
+from fedml_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from fedml_tpu_torch.ops.attention import attention
+
+
+def _check_unported(ring_size: int, dropout: float) -> None:
+    if ring_size > 1:
+        raise NotImplementedError("ring_size > 1: sequence parallelism is not ported yet")
+    if dropout > 0:
+        raise NotImplementedError("dropout > 0: dropout is not ported yet")
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, dim: int, heads: int, attn_impl: str = "auto",
+                 ring_axis: Optional[str] = None, ring_size: int = 1, sp_mode: str = "ring",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _check_unported(ring_size, 0.0)
+        self.dim, self.heads, self.attn_impl = dim, heads, attn_impl
+        self.qkv = Dense(dim, 3 * dim, dtype=dtype)
+        self.out = Dense(dim, dim, dtype=dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        b, t, _ = h.shape
+        d = self.dim // self.heads
+        q, k, v = torch.chunk(self.qkv(h), 3, dim=-1)
+
+        def heads_first(a):
+            return a.reshape(b, t, self.heads, d).transpose(1, 2)
+
+        o = attention(heads_first(q), heads_first(k), heads_first(v), causal=True,
+                      impl=self.attn_impl)
+        return self.out(o.transpose(1, 2).reshape(b, t, self.dim))
+
+
+class Block(nn.Module):
+    def __init__(self, dim: int, heads: int, mlp_ratio: int = 4, dropout: float = 0.0,
+                 attn_impl: str = "auto", ring_axis: Optional[str] = None, ring_size: int = 1,
+                 sp_mode: str = "ring", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _check_unported(ring_size, dropout)
+        self.attn = SelfAttention(dim, heads, attn_impl, ring_axis, ring_size, sp_mode, dtype)
+        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
+        self.LayerNorm_1 = LayerNorm(dim, dtype=dtype)
+        self.Dense_0 = Dense(dim, mlp_ratio * dim, dtype=dtype)
+        self.Dense_1 = Dense(mlp_ratio * dim, dim, dtype=dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        h = h + self.attn(self.LayerNorm_0(h))
+        m = F.gelu(self.Dense_0(self.LayerNorm_1(h)), approximate="tanh")
+        return h + self.Dense_1(m)
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, vocab_size: int, dim: int = 256, heads: int = 8, layers: int = 4,
+                 mlp_ratio: int = 4, max_len: int = 4096, dropout: float = 0.0,
+                 attn_impl: str = "auto", ring_axis: Optional[str] = None, ring_size: int = 1,
+                 sp_mode: str = "ring", remat: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _check_unported(ring_size, dropout)
+        self.remat = remat
+        self.tok_embed = Embed(vocab_size, dim, dtype=dtype)
+        self.pos_embed = Embed(max_len, dim, dtype=dtype)
+        self.layers = layers
+        for i in range(layers):
+            self.add_module(f"block{i}", Block(dim, heads, mlp_ratio, dropout, attn_impl,
+                                               ring_axis, ring_size, sp_mode, dtype))
+        self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
+        self.lm_head = Dense(dim, vocab_size, dtype=torch.float32)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Fresh weights from ``generator``, in module order."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
+        """x: [B, T] token ids -> [B, T, vocab] f32 logits."""
+        t = x.shape[1]
+        h = self.tok_embed(x)
+        pos = pos_offset + torch.arange(t, device=x.device)
+        h = h + self.pos_embed(pos)[None]
+        for i in range(self.layers):
+            block = getattr(self, f"block{i}")
+            if self.remat and torch.is_grad_enabled():
+                h = checkpoint(block, h, use_reentrant=False)
+            else:
+                h = block(h)
+        return self.lm_head(self.LayerNorm_0(h))
+
+
+def _bundle(name: str, vocab: int, seq_len: int, **kw) -> ModelBundle:
+    sizes = dict(dim=kw.pop("dim", 256), heads=kw.pop("heads", 8),
+                 layers=kw.pop("layers", 4), dropout=kw.pop("dropout", 0.0),
+                 mlp_ratio=kw.pop("mlp_ratio", 4))
+    module = TransformerLM(vocab_size=vocab, max_len=max(4096, seq_len),
+                           attn_impl=kw.pop("attn_impl", "auto"),
+                           ring_axis=kw.pop("ring_axis", None),
+                           ring_size=kw.pop("ring_size", 1),
+                           sp_mode=kw.pop("sp_mode", "ring"),
+                           remat=kw.pop("remat", False),
+                           dtype=kw.pop("dtype", torch.float32), **sizes)
+    return ModelBundle(name=name, module=module, input_shape=(seq_len,))
+
+
+@register_model("transformer")
+def _transformer(output_dim: int = 90, seq_len: int = 80, **kw):
+    return _bundle("transformer", output_dim or 90, seq_len, **kw)
+
+
+@register_model("transformer_nwp")
+def _transformer_nwp(output_dim: int = 10004, seq_len: int = 20, **kw):
+    return _bundle("transformer_nwp", output_dim or 10004, seq_len, **kw)
