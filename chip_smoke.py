@@ -20,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
    momentum 0.9), evaluate, and check the loss and the kernel launch counts.
 5. Hold K3 (lanes 3x3 conv, also the dgrad), K4 (its wgrad) and K7 (K3's
    probe variants) against their plain versions at the lanes path's conv
-   shapes at batch 64 and four ragged shapes, f32 and bf16; then a small
-   lanes CifarResNet on the card against the same model on the CPU.
+   shapes at batch 64, 1 and 3 and four ragged shapes, f32 and bf16, K4
+   bit-identical over two calls; then a small lanes CifarResNet on the
+   card against the same model on the CPU.
 6. Time K3 and K4 at those shapes in bf16 beside their plain versions,
    ``F.conv2d`` / ``torch.nn.grad.conv2d_weight`` and their bounds.
 7. The K7 probe (the counterpart of ``tools/lanes_probe.py``): per-call
@@ -34,11 +35,16 @@ Phases (any failure raises and the script exits non-zero):
 9. Hold K6 (flash attention) and K5 (fused cross-entropy) against their
    plain versions: K6 at path (B)'s and path (A)'s shapes, causal and not,
    a shifted query window, ragged T at each head dim, 4 merged K/V chunks
-   with a fully future one, f32 and bf16; K5 at 16384 x 10004, vocab 90,
+   with a fully future one, f32 and bf16, and in bf16 every Tq, Tk at the
+   tensor-core kernel's tile edges (63, 64, 65, 129) and the diagonal
+   mid-tile, each bf16 case bit-identical over two calls; K5 at 16384 x 10004, vocab 90,
    1003 and a ragged N, f32 and bf16 logits, int32 and int64 labels; then
    a small TransformerLM through both on the card against the CPU.
 10. Time K6 and K5 at path (B)'s shapes beside their plain versions,
-   ``F.scaled_dot_product_attention`` / ``F.cross_entropy`` and bounds.
+   ``F.scaled_dot_product_attention`` / ``F.cross_entropy`` and bounds
+   (K6's: the largest of its bytes, its tensor-core FLOPs and one
+   exponential per live score at 16 per clock per SM and the card's
+   ``nvidia-smi clocks.max.sm``).
 11. Path (A): 2 FedAvg rounds of ``transformer`` (dim 256, 8 heads, 4
    layers, bf16) on the synthetic fed_shakespeare federation (100 clients,
    10 a round, batch 4, sequences of 80); 4 K6 per live step and per eval
@@ -77,6 +83,9 @@ EPS = 1e-5
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# exponentials per clock per SM on the special-function units (K6's third
+# bound: one exp per live score)
+EXP_PER_CLOCK_PER_SM = 16
 
 # ResNet-56 train-mode BNs per local step at batch 64, by (rows, C, relu):
 # stage 1 (32x32x16): stem + 9 first-of-block BNs with ReLU, 9 without;
@@ -152,6 +161,17 @@ def assert_close(name, got, want, rtol, atol) -> float:
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite values")
     return float(err.max())
+
+
+def _same_bits(name, first, second) -> None:
+    """Two calls of a deterministic kernel on the same inputs must agree
+    bit for bit (a tensor or a tuple of tensors)."""
+    import torch
+
+    firsts = first if isinstance(first, tuple) else (first,)
+    seconds = second if isinstance(second, tuple) else (second,)
+    if not all(torch.equal(a, b) for a, b in zip(firsts, seconds)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
 
 
 def cuda_time_ms(fn, iters: int = 40, repeats: int = 5, warmup: int = 5) -> float:
@@ -403,7 +423,9 @@ def phase_check_conv():
     dev = torch.device("cuda")
     err = {"conv_fwd": 0.0, "conv_wgrad": 0.0, "conv_variant": 0.0}
     cases = []
-    shapes = [(CONV_BATCH, *s) for s in CONV_CALLS] + CONV_RAGGED
+    # the path's shapes at batch 64, and at 1 and 3 images (fewer items
+    # than the bf16 K4 has blocks), then the ragged ones
+    shapes = [(nb, *s) for nb in (CONV_BATCH, 1, 3) for s in CONV_CALLS] + CONV_RAGGED
     for n, ci, co, h, w in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
@@ -413,8 +435,9 @@ def phase_check_conv():
                                cl.conv_fwd_plain(x, w2, h, w), *CONV_TOL[dname])
             dw_p = cl.conv_wgrad_plain(x, dy, h, w)
             scale = float(dw_p.abs().max())
-            e_w = assert_close(f"K4 {tag}", cl.conv_wgrad_cuda(x, dy, h, w), dw_p,
-                               WGRAD_RTOL, WGRAD_RTOL * scale)
+            dw_k = cl.conv_wgrad_cuda(x, dy, h, w)
+            e_w = assert_close(f"K4 {tag}", dw_k, dw_p, WGRAD_RTOL, WGRAD_RTOL * scale)
+            _same_bits(f"K4 {tag}", dw_k, cl.conv_wgrad_cuda(x, dy, h, w))
             rec = {"case": tag, "conv_fwd": e_y, "conv_wgrad": e_w, "dw2_max": scale}
             for mode in cl.VARIANT_MODES:
                 if mode == "copy" and co > ci:
@@ -432,7 +455,8 @@ def phase_check_conv():
             err["conv_fwd"] = max(err["conv_fwd"], e_y)
             err["conv_wgrad"] = max(err["conv_wgrad"], e_w)
             cases.append(rec)
-            log(f"[check] {tag}: max|err| K3 {e_y:.3g}, K4 {e_w:.3g} (max|dW2| {scale:.3g}), "
+            log(f"[check] {tag}: max|err| K3 {e_y:.3g}, K4 {e_w:.3g} (max|dW2| {scale:.3g}; "
+                f"repeat bit-identical), "
                 f"K7 {', '.join(f'{k[13:]} {v:.3g}' for k, v in rec.items() if k.startswith('conv_variant'))}")
     torch.cuda.synchronize()
 
@@ -565,7 +589,7 @@ def phase_probe():
 
 def kernel_family(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in name:
+    if "flash_fwd_" in name:
         return "attention kernel (K6)"
     if "xent_kernel" in name:
         return "cross-entropy kernel (K5)"
@@ -714,13 +738,20 @@ def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
 
 
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
-                    ) -> tuple[float, float]:
-    """(bytes, flops) of one K6 call at offsets 0: q, k, v read once, the
-    f32 o, m, l written once; 2 FLOPs per multiply-add of q.k and of p.v
-    over the live (query, key) pairs."""
-    live = int(np.clip(np.arange(tq) + 1, 0, tk).sum()) if causal else tq * tk
+                    ) -> tuple[float, float, int]:
+    """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
+    read once, the f32 o, m, l written once; 2 FLOPs per multiply-add of
+    q.k and of p.v over the live (query, key) pairs, each of which also
+    takes one exponential."""
+    live = b * h * (int(np.clip(np.arange(tq) + 1, 0, tk).sum()) if causal else tq * tk)
     nbytes = elt * b * h * (tq + 2 * tk) * d + 4 * b * h * tq * (d + 2)
-    return nbytes, 4 * b * h * live * d
+    return nbytes, 4 * live * d, live
+
+
+def exp_ms(n_exp: int, sm_clock_mhz: float, n_sm: int) -> float:
+    """Least time of ``n_exp`` f32 exponentials on the special-function
+    units: 16 per clock per SM (Hopper's MUFU rate) at the SM clock."""
+    return n_exp / (EXP_PER_CLOCK_PER_SM * n_sm * sm_clock_mhz * 1e6) * 1e3
 
 
 def xent_bound(n: int, v: int, elt: int = 4, label_bytes: int = 8) -> tuple[float, float]:
@@ -767,18 +798,30 @@ def phase_check_lm():
               (2, 2, 32, 64, 32, 32, 0, True), (2, 2, 37, 37, 16, 0, 0, True),
               (1, 3, 300, 300, 64, 0, 0, True), (2, 2, 300, 37, 128, 263, 0, True),
               (2, 2, 64, 64, 128, 0, 0, False)]
-    for b, h, tq, tk, d, qo, ko, causal in shapes:
-        for dtype in (torch.float32, torch.bfloat16):
-            tag = (f"[{b},{h},{tq},{tk},{d}] offsets {qo},{ko} causal={causal} "
-                   f"{str(dtype).split('.')[1]}")
-            q, k, v = qkv(b, h, tq, tk, d, dtype)
-            args = (qo, ko, causal, d ** -0.5)
-            e = _close_partial(f"K6 {tag}", att.block_partial_cuda(q, k, v, *args),
-                               att.block_partial_plain(q, k, v, *args))
-            err["attention"] = max(err["attention"], e)
-            cases.append({"case": f"K6 {tag}", "o_over_l": e})
-            log(f"[check] K6 {tag}: max|err| o/l {e:.3g}")
-            del q, k, v
+    cases_by_dtype = [(s, dt) for s in shapes for dt in (torch.float32, torch.bfloat16)]
+    # the bf16 kernel's tiles (64 query rows, 64 keys): every Tq, Tk at a
+    # tile edge, the diagonal mid-tile by a query or key offset, D = 16 and
+    # 128 at T = 300, a non-causal ragged case
+    edges = (63, 64, 65, 129)
+    tiles = [(2, 2, tq, tk, 32, 0, 0, True) for tq in edges for tk in edges]
+    tiles += [(2, 2, 64, 129, 32, 29, 0, True), (2, 2, 129, 129, 64, 0, 37, True),
+              (2, 2, 300, 300, 16, 0, 0, True), (2, 2, 300, 300, 128, 0, 0, True),
+              (2, 2, 65, 129, 32, 0, 0, False)]
+    cases_by_dtype += [(s, torch.bfloat16) for s in tiles]
+    for (b, h, tq, tk, d, qo, ko, causal), dtype in cases_by_dtype:
+        tag = (f"[{b},{h},{tq},{tk},{d}] offsets {qo},{ko} causal={causal} "
+               f"{str(dtype).split('.')[1]}")
+        q, k, v = qkv(b, h, tq, tk, d, dtype)
+        args = (qo, ko, causal, d ** -0.5)
+        got = att.block_partial_cuda(q, k, v, *args)
+        e = _close_partial(f"K6 {tag}", got, att.block_partial_plain(q, k, v, *args))
+        if dtype == torch.bfloat16:
+            _same_bits(f"K6 {tag}", got, att.block_partial_cuda(q, k, v, *args))
+        err["attention"] = max(err["attention"], e)
+        cases.append({"case": f"K6 {tag}", "o_over_l": e})
+        log(f"[check] K6 {tag}: max|err| o/l {e:.3g}"
+            + ("; repeat bit-identical" if dtype == torch.bfloat16 else ""))
+        del q, k, v, got
     # 4 K/V chunks with nonzero k_offset merged by merge_partials; the query
     # rows 0..15 see nothing of chunks 1-3, and chunk 3 of rows 0..47
     for dtype in (torch.float32, torch.bfloat16):
@@ -857,10 +900,11 @@ def phase_check_lm():
     return err, cases, worst
 
 
-def phase_time_lm():
+def phase_time_lm(sm_clock_mhz: float):
     """K6 and K5 at path (B)'s shapes (bf16 q, k, v [2, 8, 8192, 32] causal;
     f32 logits [16384, 10004]) beside their plain versions, the library
-    yardsticks and their bounds."""
+    yardsticks and their bounds. K6's bound is the largest of its bytes,
+    its tensor-core FLOPs and its exponentials at ``sm_clock_mhz``."""
     import torch
     import torch.nn.functional as F
 
@@ -880,12 +924,19 @@ def phase_time_lm():
     rows = []
     rec = {}
     for prefix, fn in fns.items():
-        rec[f"{prefix}ms"] = cuda_time_ms(fn, **slow)
+        rec[f"{prefix}ms"] = cuda_time_ms(fn, **(slow if prefix == "plain_" else {}))
         rec[f"{prefix}device_ms"] = device_ms(fn, iters=5)
-    nbytes, flops = attention_bound(b, h, tq, tk, d, True)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+    nbytes, flops, live = attention_bound(b, h, tq, tk, d, True)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "tensor-core FLOPs": flops / PEAK_BF16_FLOPS * 1e3,
+             "exponentials": exp_ms(live, sm_clock_mhz, n_sm)}
+    rec["bound_ms"] = max(terms.values())
+    rec["bound_by"] = "bytes" if terms["bytes"] == rec["bound_ms"] else "operations"
     rec.update(kernel="attention", shape=[b, h, tq, tk, d], dtype="bfloat16", causal=True,
-               calls_per_step=LM_K6_PER_STEP, gflop=flops / 1e9)
+               calls_per_step=LM_K6_PER_STEP, gflop=flops / 1e9, live_scores=live,
+               bound_parts=terms, sm_clock_mhz=sm_clock_mhz, n_sm=n_sm)
+    log(f"[time] attention bound terms at {sm_clock_mhz:.0f} MHz x {n_sm} SMs: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in terms.items()))
     rows.append(rec)
     del q, k, v
     n, vv = XENT_B
@@ -1069,6 +1120,13 @@ def phase_train_lm_step(smi: str, steps: int = 5):
             "device_ms_per_step_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1]))}
 
 
+def sm_clock() -> float:
+    """The card's maximum SM clock in MHz (``nvidia-smi clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def main() -> int:
     import torch
 
@@ -1085,8 +1143,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    sm_clock_mhz = sm_clock()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
+        f"CUDA {torch.version.cuda}; nvidia-smi: {smi}; max SM clock {sm_clock_mhz:.0f} MHz")
 
     seconds = {}
 
@@ -1106,7 +1165,7 @@ def main() -> int:
     probe, probe_launches = timed("probe", phase_probe)
     train_lanes = timed("train_lanes", phase_train, smi, bn_impl="xla", conv_impl="lanes")
     lm_err, lm_cases, lm_model_err = timed("check_lm", phase_check_lm)
-    lm_timing = timed("time_lm", phase_time_lm)
+    lm_timing = timed("time_lm", phase_time_lm, sm_clock_mhz)
     train_lm = timed("train_lm_fedavg", phase_train_lm_fedavg, smi)
     lm_step = timed("train_lm_step", phase_train_lm_step, smi)
     err.update(conv_err)
@@ -1183,7 +1242,8 @@ def main() -> int:
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps({
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "build": build_info,
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "sm_clock_max_mhz": sm_clock_mhz,
+        "build": build_info,
         "phase_seconds": seconds,
         "check_cases": cases, "small_model_rel_err": model_err, "timing": timing,
         "train": train, "conv_check_cases": conv_cases,

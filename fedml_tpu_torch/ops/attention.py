@@ -96,8 +96,9 @@ def _lib():
 def block_partial_cuda(q, k, v, q_offset: int, k_offset: int, causal: bool,
                        sm_scale: float):
     """K6 on the card: contiguous ``[B, H, T, D]`` q, k, v of one dtype
-    (float32 or bfloat16), D in ``HEAD_DIMS``. The kernel picks its own
-    tiles (see ``csrc/attention.cu``)."""
+    (float32 or bfloat16), D in ``HEAD_DIMS``. bfloat16 runs the
+    tensor-core kernel, float32 the CUDA-core one; each picks its own tiles
+    (see ``csrc/attention.cu``)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("the CUDA kernel takes CUDA tensors only")
     if q.dim() != 4 or q.dtype not in _DTYPES:
@@ -113,6 +114,9 @@ def block_partial_cuda(q, k, v, q_offset: int, k_offset: int, causal: bool,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"the bfloat16 kernel copies 16-byte rows; {name} is not "
+                             f"16-byte aligned")
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {HEAD_DIMS}; got {d}")
     if b * h < 1 or b * h > 65535 or tq < 1 or tk < 1:

@@ -147,9 +147,9 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fedml_conv_fwd.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.fedml_conv_fwd.restype = i
-    lib.fedml_conv_wgrad_blocks.argtypes = [i, i, i, i, i]
+    lib.fedml_conv_wgrad_blocks.argtypes = [i, i, i, i, i, i]
     lib.fedml_conv_wgrad_blocks.restype = i
-    lib.fedml_conv_wgrad.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.fedml_conv_wgrad.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.fedml_conv_wgrad.restype = i
     lib.fedml_conv_error_string.argtypes = [i]
     lib.fedml_conv_error_string.restype = ctypes.c_char_p
@@ -207,23 +207,40 @@ def conv_variant_cuda(mode: str, xf, w2, h: int, w: int):
     return _fwd_launch("conv_variant", mode, xf, w2, h, w)
 
 
+#: K4's grid-barrier words, two zeroed int32 per (device, stream): the bf16
+#: kernel's blocks meet on them once per call and leave them zero
+_BARRIERS: dict = {}
+
+
+def _barrier(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _BARRIERS[key]
+
+
 def conv_wgrad_cuda(xf, dyf, h: int, w: int):
-    """K4 on the card: dW2 [Co, 9*Ci] f32."""
+    """K4 on the card: dW2 [Co, 9*Ci] f32. bfloat16 runs the tensor-core
+    kernel (one launch), float32 the CUDA-core partials and finalize (see
+    ``csrc/conv_lanes.cu``)."""
     _check_act("xf", xf, h, w)
     n, ci, hw = xf.shape
     co = dyf.shape[1]
     _check_like("dyf", dyf, xf, (n, co, hw))
     lib = _lib()
-    blocks = lib.fedml_conv_wgrad_blocks(n, ci, co, h, w)
-    if blocks < 1:
-        raise ValueError(f"K4 cannot stage Ci={ci}, W={w} in shared memory")
+    dtype = _DTYPES[xf.dtype]
     with torch.cuda.device(xf.device):
+        blocks = lib.fedml_conv_wgrad_blocks(n, ci, co, h, w, dtype)
+        if blocks < 1:
+            raise ValueError(f"K4 cannot stage Ci={ci}, W={w} in shared memory")
         dw2 = torch.empty((co, 9 * ci), dtype=torch.float32, device=xf.device)
         partial = torch.empty((blocks, co, 9 * ci), dtype=torch.float32, device=xf.device)
         stream = torch.cuda.current_stream(xf.device).cuda_stream
+        barrier = _barrier(xf.device, stream)
         LAUNCHES["conv_wgrad"] += 1
         code = lib.fedml_conv_wgrad(xf.data_ptr(), dyf.data_ptr(), partial.data_ptr(),
-                                    dw2.data_ptr(), n, ci, co, h, w, _DTYPES[xf.dtype], stream)
+                                    dw2.data_ptr(), barrier.data_ptr(), n, ci, co, h, w, dtype,
+                                    stream)
     _check(code, "conv_wgrad")
     return dw2
 

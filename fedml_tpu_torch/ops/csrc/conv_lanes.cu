@@ -13,44 +13,74 @@
 //   dW2[o, tap*Ci + c] = sum_{n, y, x} dY[n, o, y, x] * X[n, c, y+dy, x+dx].
 //
 // What bounds it on this card: at ResNet-56's shapes (C = 16/32, batch 64)
-// one call moves 2-6 MB and does 0.3-0.6 GFLOP, so on the tensor cores it
-// would be bound by device-memory bytes (about 1 us). This first version
-// runs on the CUDA cores in f32 (no wgmma), so it is bound by FMAs and
-// shared-memory loads instead; it reads each input byte from device memory
-// once per block plus a one-row halo, and writes each output once.
+// one call moves 2-6 MB and does 0.3-0.6 GFLOP, so the least time is the
+// bytes (0.6-1.9 us at 3.35 TB/s). K3 and K7 run on the CUDA cores in f32
+// (no wgmma), bound by FMAs and shared-memory loads instead; they read each
+// input byte from device memory once per block plus a one-row halo, and
+// write each output once.
 //
-// Design, against the TPU kernel:
+// Design of K3 and K7, against the TPU kernel:
 // - No padded copy in device memory. The TPU kernel pads rows (_pad_rows) so
 //   that every tap is a static slice; here a block stages its image rows, a
 //   one-row halo above and below and a one-column border, into shared memory
 //   as f32, with zeros outside the image. The 9 taps are then plain offsets
 //   into that tile and need no edge masks.
 // - Shared memory. A block covers one image and a tile of TR whole image
-//   rows (TR*W ~ 256 pixels). At Ci = 32, W = 32 (the dgrad of stage 2,
-//   block 0) the K3 stage is 62 KB and K4's 113 KB, above the 48 KB a
-//   block gets by default, so the pixels are tiled (TR rows, not the whole
-//   image) AND the host raises the kernel's dynamic shared-memory limit with
-//   cudaFuncAttributeMaxDynamicSharedMemorySize (up to the card's 227 KB);
-//   TR shrinks until the stage fits. A shape whose stage does not fit even
-//   at TR = 1 is refused with cudaErrorInvalidValue.
+//   rows (TR*W ~ 256 pixels). The host raises the kernel's dynamic
+//   shared-memory limit with cudaFuncAttributeMaxDynamicSharedMemorySize
+//   (up to the card's 227 KB) where the stage needs more than 48 KB; TR
+//   shrinks until the stage fits. A shape whose stage does not fit even at
+//   TR = 1 is refused with cudaErrorInvalidValue.
 // - K3: one thread per output pixel and 16 output channels (a Co tile per
 //   blockIdx.y); the W2 tile sits in shared memory as [9*Ci][16] f32 so each
 //   (tap, c) costs one tile load and four float4 weight loads (broadcast
 //   across the warp) for 16 FMAs. Sums in f32 in tap-major order, output in
 //   the input's dtype.
-// - K4: the TPU kernel sums dW2 in one accumulator across a sequential grid;
-//   CUDA blocks run in no order, so each block sums a fixed range of
-//   (image, row tile) items into its own [Co, 9*Ci] f32 partial in a scratch
-//   buffer, and a second launch adds the partials in a fixed order in f64.
-//   No float atomics: the result is the same from run to run. Inside a
-//   block each thread owns 4x4 (o, k) micro-tiles and loops over pixels.
 // - K7 (MODE): kCopy writes the first Co channels of the image (no staging,
 //   one copy); kPatches writes the first Co rows of the patch matrix (row r
 //   = tap r / Ci, channel r % Ci, zero outside the image) from the staged
 //   tile, no dot; kConv is K3 itself.
+//
+// K4, two kernels behind one entry point; the dtype picks one. The TPU
+// kernel sums dW2 in one f32 accumulator across a sequential grid; CUDA
+// blocks run in no order, so both sum fixed ranges of (image, row tile)
+// items into per-block f32 partials and add those in a fixed order: no
+// float atomics, the same result on every run.
+// - bf16 inputs: conv_wgrad_mma, on the tensor cores. The TPU kernel keeps
+//   the patch matrix and dY in bf16 and sums dY.P^T with f32 accumulation,
+//   which is exactly mma.sync m16n8k16 bf16 -> f32: dW2[Co, 9*Ci] =
+//   dY[Co, positions] . P[9*Ci, positions]^T, M = Co, N = the patch rows,
+//   the depth the pixels. An item is 4 image rows of one image, so every
+//   path shape gives 256-512 items and 2 blocks on each SM (at most what
+//   the card holds at once). A block stages an item as bf16 (16-byte
+//   copies where W % 8 == 0): x rows with a one-row halo at a row pitch of
+//   W + 8 (W + 1 for other W) whose extra columns are zero (the left and
+//   right borders), and
+//   dY at the same pitch with zeros in those columns, so that a tap is a
+//   plain offset into the staged x and the border positions add nothing.
+//   Each warp owns up to 9 m16n8 output tiles; A fragments are 32-bit
+//   shared loads of dY, B fragments pairs of 16-bit loads of the staged x
+//   (a tap's offset may be odd), row pitches 8 mod 64 elements so that
+//   neither conflicts. After its items a block writes its partial, the
+//   grid meets at a barrier (a cooperative launch, so every block is
+//   resident; two counter words per stream, zero between calls), and
+//   every block then adds the partials of some 32-entry groups of dW2 in
+//   block order in f64, 16 loads in flight per thread. One launch a call.
+//   The mma work is ~1 us of the card; the time is latency: staging
+//   (~1-2 us a round trip), the barrier (~2 us) and the partials, 2.4-9.4
+//   MB written and read back through L2. (The last block adding every
+//   partial alone, as a counter would have it, reads those megabytes
+//   through one SM: tens of microseconds.)
+// - f32 inputs: conv_wgrad_partials and conv_wgrad_finalize, on the CUDA
+//   cores. f32 operands on the tensor cores would be TF32 (10-bit
+//   mantissa) and break the f32 parity, so the port's first K4 stays for
+//   them: each thread owns 4x4 (o, k) micro-tiles of a block's [Co tile,
+//   9*Ci] partial and loops over the staged pixels; a second launch adds
+//   the partials in a fixed order in f64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -347,6 +377,304 @@ int wgrad_launch(const void* x, const void* dy, float* partial, float* dw2, int 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K4, bf16 inputs: tensor cores, one cooperative launch
+// ---------------------------------------------------------------------------
+
+constexpr int kWgWarps = kThreads / 32;  // 8
+constexpr int kTilesPerWarp = 9;         // m16n8 output tiles one warp accumulates
+constexpr int kWgMaxRows = 4;            // image rows per item
+constexpr int kXPad = 8;                 // zeros ahead of a channel's staged rows
+constexpr int kWgBlocksPerSm = 2;
+constexpr int kWgLoads = 16;             // partials one thread has in flight in the sum
+
+// Stage geometry of the bf16 K4, the same on host and device.
+struct WgGeom {
+  int TR;      // image rows per item
+  int Wp;      // staged row pitch: W + 8 (W % 8 == 0) or W + 1; columns >= W are zero
+  int KP;      // padded positions per item (TR * Wp rounded up to 16): the mma depth
+  int CS;      // staged x elements per channel
+  int DP;      // staged dY elements per output channel
+  int MT;      // m16 tiles over Co
+  int ntiles;  // m16n8 output tiles over [Co, 9*Ci]
+  int vec;     // 16-byte copies (W % 8 == 0 and aligned inputs)
+};
+
+// n rounded up to a multiple of 8 that is 8 mod 64 elements: a row pitch of
+// 4 mod 32 words, so that 8 rows x 4 words of a fragment hit 32 banks.
+int bank_pitch(int n) {
+  const int p = (n + 7) / 8 * 8;
+  return p + (72 - p % 64) % 64;
+}
+
+size_t wg_mma_smem(int Ci, const WgGeom& g) {
+  const size_t stage = 2 * ((size_t)Ci * g.CS + (size_t)g.MT * 16 * g.DP);
+  return stage > 2048 ? stage : 2048;  // the reduction reuses 8 x 32 doubles
+}
+
+// False when even one image row does not fit in shared memory.
+bool wg_geometry(int Ci, int Co, int H, int W, bool aligned, WgGeom* g) {
+  g->vec = W % 8 == 0 && aligned;
+  g->Wp = W % 8 == 0 ? W + 8 : W + 1;
+  g->MT = (Co + 15) / 16;
+  g->ntiles = g->MT * ((9 * Ci + 7) / 8);
+  int tr = 128 / W;
+  tr = tr < 1 ? 1 : (tr > kWgMaxRows ? kWgMaxRows : tr);
+  tr = tr < H ? tr : H;
+  for (;; tr = (tr + 1) / 2) {
+    g->TR = tr;
+    g->KP = (tr * g->Wp + 15) / 16 * 16;
+    g->CS = bank_pitch(kXPad + g->KP + 2 * g->Wp + 2);
+    g->DP = bank_pitch(g->KP);
+    if (wg_mma_smem(Ci, *g) <= kMaxSmem) return true;
+    if (tr == 1) return false;
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stages one item (image n, rows r0 .. r0+TR-1) in units of U (8 bf16 as a
+// uint4, or one): x rows r0-1 .. r0+TR to xt[c][kXPad + R*Wp + X] and dY
+// rows r0 .. r0+TR-1 to ds[o][r*Wp + X]; rows outside the image are zeros.
+// Four loads are in flight per thread before their stores.
+template <typename U>
+__device__ void stage_wgrad_item(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ dy, __nv_bfloat16* xt,
+                                 __nv_bfloat16* ds, int n, int r0, int Ci, int Co, int H, int W,
+                                 const WgGeom& g) {
+  constexpr int V = sizeof(U) / 2;
+  const int WV = W / V, xr = (g.TR + 2) * WV, dr = g.TR * WV;
+  const int nx = Ci * xr, total = nx + Co * dr;
+  const long long HW = (long long)H * W;
+  for (int i0 = threadIdx.x; i0 < total; i0 += 4 * blockDim.x) {
+    U val[4];
+    __nv_bfloat16* dst[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * blockDim.x;
+      dst[u] = nullptr;
+      val[u] = U{};
+      if (i >= total) continue;
+      if (i < nx) {
+        const int c = i / xr, rem = i - c * xr, R = rem / WV, xv = rem - R * WV;
+        const int gy = r0 - 1 + R;
+        dst[u] = xt + c * g.CS + kXPad + R * g.Wp + xv * V;
+        if (gy >= 0 && gy < H)
+          val[u] = *reinterpret_cast<const U*>(x + ((long long)n * Ci + c) * HW +
+                                               (long long)gy * W + xv * V);
+      } else {
+        const int j = i - nx, o = j / dr, rem = j - o * dr, r = rem / WV, xv = rem - r * WV;
+        const int gy = r0 + r;
+        dst[u] = ds + o * g.DP + r * g.Wp + xv * V;
+        if (gy < H)
+          val[u] = *reinterpret_cast<const U*>(dy + ((long long)n * Co + o) * HW +
+                                               (long long)gy * W + xv * V);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (dst[u]) *reinterpret_cast<U*>(dst[u]) = val[u];
+  }
+}
+
+// All blocks of the (cooperative, hence co-resident) grid meet here.
+// bar[0] counts arrivals and is reset by the last block, which then bumps
+// the generation bar[1] that the others wait on.
+__device__ void grid_barrier(unsigned int* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* gen = bar + 1;
+    const unsigned int g0 = *gen;
+    __threadfence();  // this block's partial is visible before it arrives
+    const unsigned int blocks = gridDim.x * gridDim.y;
+    if (atomicAdd(bar, 1u) == blocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g0) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// K4 for bf16 x and dY: dW2[Co, 9*Ci] = dY[Co, pixels] . P[9*Ci, pixels]^T.
+// Grid (B, chunks), cooperative. Block (b, k) sums items [b*items/B,
+// (b+1)*items/B) of the (image, row tile) list on the tensor cores for the
+// output tiles of chunk k and writes them to partial[b]; after a grid
+// barrier every block adds the B partials of some 32-entry groups of dW2 in
+// block order (f64), so the result is the same on every run.
+__global__ void __launch_bounds__(kThreads, kWgBlocksPerSm)
+conv_wgrad_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+               float* __restrict__ partial, float* __restrict__ dw2, unsigned int* bar, int N,
+               int Ci, int Co, int H, int W, WgGeom g) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* xt = reinterpret_cast<__nv_bfloat16*>(smem4);  // [Ci][CS]
+  __nv_bfloat16* ds = xt + Ci * g.CS;                            // [MT*16][DP]
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(xt);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane >> 2, t = lane & 3;
+  const int K = 9 * Ci;
+  const long long M = (long long)Co * K;
+  const int row_tiles = (H + g.TR - 1) / g.TR;
+  const long long items = (long long)N * row_tiles;
+  const long long i0 = items * blockIdx.x / gridDim.x;
+  const long long i1 = items * (blockIdx.x + 1) / gridDim.x;
+
+  // zero the stage once: pads, columns past W and rows past Co stay zero
+  {
+    uint4* s4 = reinterpret_cast<uint4*>(smem4);
+    const int n16 = (Ci * g.CS + g.MT * 16 * g.DP) / 8;
+    for (int i = threadIdx.x; i < n16; i += blockDim.x) s4[i] = make_uint4(0, 0, 0, 0);
+  }
+
+  // this thread's output tiles: A rows of dY, and the staged offset of its
+  // B column (patch row nt*8 + gq: tap (dy, dx), channel c) at position 0
+  float acc[kTilesPerWarp][4];
+  int arow[kTilesPerWarp], boff[kTilesPerWarp];
+#pragma unroll
+  for (int j = 0; j < kTilesPerWarp; ++j) {
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    const int ti = (blockIdx.y * kTilesPerWarp + j) * kWgWarps + warp;
+    const int mt = ti % g.MT, nrow = (ti / g.MT) * 8 + gq;
+    const int tap = nrow / Ci, c = nrow - tap * Ci;
+    arow[j] = (mt * 16 + gq) * g.DP + 2 * t;
+    boff[j] = nrow < K ? c * g.CS + kXPad + (tap / 3) * g.Wp + tap % 3 - 1 + 2 * t : -1;
+  }
+
+  for (long long it = i0; it < i1; ++it) {
+    const int n = (int)(it / row_tiles), r0 = (int)(it % row_tiles) * g.TR;
+    __syncthreads();  // the previous item's readers are done with the stage
+    if (g.vec)
+      stage_wgrad_item<uint4>(x, dy, xt, ds, n, r0, Ci, Co, H, W, g);
+    else
+      stage_wgrad_item<unsigned short>(x, dy, xt, ds, n, r0, Ci, Co, H, W, g);
+    __syncthreads();
+    for (int q0 = 0; q0 < g.KP; q0 += 16) {
+#pragma unroll
+      for (int j = 0; j < kTilesPerWarp; ++j) {
+        if ((blockIdx.y * kTilesPerWarp + j) * kWgWarps + warp >= g.ntiles) break;  // warp-uniform
+        const uint32_t* ar = reinterpret_cast<const uint32_t*>(ds + arow[j] + q0);
+        const int dp2 = 4 * g.DP;  // 8 rows, in 32-bit words
+        const uint32_t a[4] = {ar[0], ar[dp2], ar[4], ar[dp2 + 4]};
+        uint32_t b0 = 0, b1 = 0;
+        if (boff[j] >= 0) {
+          const unsigned short* bp = xs + boff[j] + q0;
+          b0 = bp[0] | (uint32_t)bp[1] << 16;
+          b1 = bp[8] | (uint32_t)bp[9] << 16;
+        }
+        mma_bf16(acc[j], a, b0, b1);
+      }
+    }
+  }
+
+  // this block's partial of its tiles: C rows gq, gq+8 (o), columns 2t, 2t+1
+  float* pb = partial + (long long)blockIdx.x * M;
+#pragma unroll
+  for (int j = 0; j < kTilesPerWarp; ++j) {
+    const int ti = (blockIdx.y * kTilesPerWarp + j) * kWgWarps + warp;
+    if (ti >= g.ntiles) break;
+    const int o = (ti % g.MT) * 16 + gq, col = (ti / g.MT) * 8 + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int oo = o + h * 8;
+      if (oo >= Co) continue;
+      float* dst = pb + (long long)oo * K + col;
+      if (K % 2 == 0 && col + 1 < K)  // K even: every pair is 8-byte aligned
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      else
+        for (int e = 0; e < 2 && col + e < K; ++e) dst[e] = acc[j][2 * h + e];
+    }
+  }
+
+  grid_barrier(bar);
+
+  // dW2 entry e = the sum over b of partial[b][e]: warp w adds partials w,
+  // w + 8, ... in order, then a fixed tree over the 8 warps
+  double* red = reinterpret_cast<double*>(smem4);  // [kWgWarps][32]
+  const int blocks = gridDim.x * gridDim.y, me = blockIdx.y * gridDim.x + blockIdx.x;
+  const long long groups = (M + 31) / 32;
+  for (long long grp = me; grp < groups; grp += blocks) {
+    const long long e = grp * 32 + lane;
+    double s = 0.0;
+    if (e < M) {
+      // kWgLoads loads in flight, then added in order
+      for (int b0 = warp; b0 < (int)gridDim.x; b0 += kWgWarps * kWgLoads) {
+        float v[kWgLoads];
+#pragma unroll
+        for (int u = 0; u < kWgLoads; ++u) {
+          const int b = b0 + u * kWgWarps;
+          v[u] = b < (int)gridDim.x ? __ldcg(partial + (long long)b * M + e) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kWgLoads; ++u) s += v[u];
+      }
+    }
+    red[warp * 32 + lane] = s;
+    __syncthreads();
+    for (int half = kWgWarps / 2; half > 0; half /= 2) {
+      if (warp < half) red[warp * 32 + lane] += red[(warp + half) * 32 + lane];
+      __syncthreads();
+    }
+    if (warp == 0 && e < M) dw2[e] = (float)red[lane];
+    __syncthreads();
+  }
+}
+
+int wg_chunks(const WgGeom& g) {
+  const int per = kWgWarps * kTilesPerWarp;
+  return (g.ntiles + per - 1) / per;
+}
+
+// Geometry and partial count of the bf16 K4: 2 blocks per SM over the
+// chunks, no more than the card holds at once (a cooperative launch) and
+// no more than there are items.
+cudaError_t wg_mma_plan(int N, int Ci, int Co, int H, int W, bool aligned, WgGeom* g, int* B) {
+  static size_t allowed = kDefaultSmem;
+  if (!wg_geometry(Ci, Co, H, W, aligned, g)) return cudaErrorInvalidValue;
+  const size_t smem = wg_mma_smem(Ci, *g);
+  cudaError_t e = allow_smem(conv_wgrad_mma, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, occ = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, conv_wgrad_mma, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  const int chunks = wg_chunks(*g);
+  int b = (occ < kWgBlocksPerSm ? occ : kWgBlocksPerSm) * sms / chunks;
+  const long long items = (long long)N * ((H + g->TR - 1) / g->TR);
+  if (b > items) b = (int)items;
+  if (b < 1) return cudaErrorInvalidValue;
+  *B = b;
+  return cudaSuccess;
+}
+
+int wgrad_mma_launch(const void* x, const void* dy, float* partial, float* dw2,
+                     unsigned int* bar, int N, int Ci, int Co, int H, int W,
+                     cudaStream_t stream) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy)) % 16 == 0;
+  WgGeom g;
+  int B = 0;
+  cudaError_t e = wg_mma_plan(N, Ci, Co, H, W, aligned, &g, &B);
+  if (e != cudaSuccess) return (int)e;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
+  void* args[] = {(void*)&xb, (void*)&dyb, (void*)&partial, (void*)&dw2, (void*)&bar,
+                  (void*)&N, (void*)&Ci, (void*)&Co, (void*)&H, (void*)&W, (void*)&g};
+  e = cudaLaunchCooperativeKernel((const void*)conv_wgrad_mma, dim3(B, wg_chunks(g)),
+                                  dim3(kThreads), args, wg_mma_smem(Ci, g), stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int N, int Ci, int Co, int H, int W) {
   return N < 1 || N > 65535 || Ci < 1 || Co < 1 || H < 1 || W < 1 || Co > 65535 * kCoTile;
 }
@@ -376,21 +704,31 @@ int fedml_conv_fwd(const void* x, const void* w2, void* y, int N, int Ci, int Co
   return fwd_launch<float, kCopy>(x, w2, y, N, Ci, Co, H, W, s);
 }
 
-// Partials K4 writes (the scratch holds blocks * Co * 9 * Ci floats); 0
-// when the shape's stage does not fit in shared memory.
-int fedml_conv_wgrad_blocks(int N, int Ci, int Co, int H, int W) {
+// Partials K4 writes for a dtype on the current device (the scratch holds
+// blocks * Co * 9 * Ci floats); 0 when the shape's stage does not fit in
+// shared memory. bf16 assumes 16-byte aligned inputs; unaligned ones need
+// no more.
+int fedml_conv_wgrad_blocks(int N, int Ci, int Co, int H, int W, int dtype) {
   if (bad_shape(N, Ci, Co, H, W)) return 0;
+  if (dtype == 1) {
+    WgGeom g;
+    int B = 0;
+    return wg_mma_plan(N, Ci, Co, H, W, true, &g, &B) == cudaSuccess ? B : 0;
+  }
   return wgrad_blocks(N, Ci, Co, H, W);
 }
 
-// K4. x [N, Ci, H*W] and dy [N, Co, H*W] of one dtype (0 = float32,
-// 1 = bfloat16); partial the f32 scratch; dw2 [Co, 9*Ci] float32.
-int fedml_conv_wgrad(const void* x, const void* dy, float* partial, float* dw2, int N, int Ci,
-                     int Co, int H, int W, int dtype, void* stream) {
+// K4. x [N, Ci, H*W] and dy [N, Co, H*W] of one dtype (0 = float32: the
+// CUDA-core partials and finalize; 1 = bfloat16: the tensor-core kernel,
+// one cooperative launch); partial the f32 scratch; dw2 [Co, 9*Ci]
+// float32; barrier two zeroed words of the device that no other launch
+// uses at the same time (bf16 only; they are zero again after each call).
+int fedml_conv_wgrad(const void* x, const void* dy, float* partial, float* dw2,
+                     unsigned int* barrier, int N, int Ci, int Co, int H, int W, int dtype,
+                     void* stream) {
   if (bad_shape(N, Ci, Co, H, W)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return wgrad_launch<__nv_bfloat16>(x, dy, partial, dw2, N, Ci, Co, H, W, s);
+  if (dtype == 1) return wgrad_mma_launch(x, dy, partial, dw2, barrier, N, Ci, Co, H, W, s);
   return wgrad_launch<float>(x, dy, partial, dw2, N, Ci, Co, H, W, s);
 }
 

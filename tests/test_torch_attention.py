@@ -148,6 +148,67 @@ def test_bf16_inputs_keep_f32_partials_and_q_dtype_output():
     np.testing.assert_allclose(out.float().numpy(), want.numpy(), rtol=1e-2, atol=1e-2)
 
 
+def _tensor_core_partial(q, k, v, q_offset, k_offset, causal, sm_scale):
+    """The bf16 CUDA kernel's rounding, in plain PyTorch: bf16 q, k, v;
+    scores summed in f32 (a bf16 x bf16 product is exact in f32); the f32
+    p split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), o = p_hi.v +
+    p_lo.v summed in f32; l from the f32 p."""
+    q, k, v = (t.to(torch.bfloat16).to(torch.float32) for t in (q, k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sm_scale
+    if causal:
+        qpos = q_offset + torch.arange(q.shape[2])
+        kpos = k_offset + torch.arange(k.shape[2])
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, torch.full((), ta.NEG_INF))
+    m = torch.amax(s, dim=-1)
+    p = torch.where(s <= ta.NEG_INF / 2, torch.zeros(()), torch.exp(s - m[..., None]))
+    p_hi = p.to(torch.bfloat16).to(torch.float32)
+    p_lo = (p - p_hi).to(torch.bfloat16).to(torch.float32)
+    o = torch.einsum("bhqk,bhkd->bhqd", p_hi, v) + torch.einsum("bhqk,bhkd->bhqd", p_lo, v)
+    return o, m, p.sum(-1)
+
+
+def _bf16_qkv(t, d, seed):
+    """bf16-rounded inputs as f32 numpy arrays, so JAX sees the same values."""
+    return tuple(torch.tensor(a).to(torch.bfloat16).to(torch.float32).numpy()
+                 for a in _qkv(t=t, d=d, seed=seed))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_rounding_matches_pallas_interpret(causal):
+    """The split-p numerics of the bf16 kernel against the JAX Pallas
+    kernel on the same bf16 values (atol 1e-4, as
+    test_plain_matches_pallas_interpret)."""
+    q, k, v = _bf16_qkv(160, 32, seed=11)
+    want = ja.attention(q, k, v, causal=causal, impl="pallas", interpret=True,
+                        block_q=32, block_k=32)
+    got = ta.normalize_partial(*_tensor_core_partial(*_t(q, k, v), 0, 0, causal, 32 ** -0.5))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("q_offset,k_offset,causal",
+                         [(0, 0, True), (0, 0, False), (40, 8, True)])
+def test_tensor_core_rounding_within_kernel_tolerance_of_plain(q_offset, k_offset, causal):
+    """The same emulation against the plain partial on bf16 inputs, at the
+    tolerances chip_smoke.py holds the kernel to: m 1e-5, l rtol 1e-5, o/l
+    2e-5. A single bf16 p (2^-9 relative) would miss o/l by far."""
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(t=192, d=32, seed=12)))
+    args = (q_offset, k_offset, causal, 32 ** -0.5)
+    o, m, l = _tensor_core_partial(q, k, v, *args)
+    po, pm, pl = ta.block_partial_plain(q, k, v, *args)
+    np.testing.assert_allclose(m.numpy(), pm.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), pl.numpy(), rtol=1e-5, atol=1e-5)
+    den = torch.where(pl == 0, torch.ones_like(pl), pl)[..., None]
+    np.testing.assert_allclose((o / den).numpy(), (po / den).numpy(), rtol=0, atol=2e-5)
+    # p rounded once to bf16 instead: far outside the o/l tolerance
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * args[3]
+    if causal:
+        live = (q_offset + torch.arange(192))[:, None] >= (k_offset + torch.arange(192))[None, :]
+        s = torch.where(live, s, torch.full((), ta.NEG_INF))
+    p = torch.where(s <= ta.NEG_INF / 2, torch.zeros(()), torch.exp(s - pm[..., None]))
+    o1 = torch.einsum("bhqk,bhkd->bhqd", p.to(torch.bfloat16).float(), v.float())
+    assert float(((o1 - po) / den).abs().max()) > 10 * 2e-5
+
+
 def test_cpu_tensors_never_reach_the_kernel():
     """Every impl runs the plain version for CPU tensors; the CUDA wrapper
     refuses them instead of falling back."""

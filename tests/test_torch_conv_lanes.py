@@ -77,6 +77,20 @@ def test_wgrad_matches_jax_kernel(ci, co, h, w):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("ci,co,h,w", SHAPES[:3])
+def test_bf16_wgrad_matches_jax_kernel(ci, co, h, w):
+    """K4's bf16 numerics: bf16 x and dY, products exact in f32, f32 sums
+    (the tensor-core kernel's mma.sync bf16 -> f32; the TPU kernel's bf16
+    patch matrix and preferred_element_type=f32), on the same bf16 values."""
+    x = torch.tensor(_rand((3, ci, h * w), seed=13)).to(torch.bfloat16)
+    dy = torch.tensor(_rand((3, co, h * w), seed=14)).to(torch.bfloat16)
+    want = np.asarray(jcl._conv_wgrad(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                                      jnp.asarray(dy.float().numpy(), jnp.bfloat16), h, w))
+    got = cl.conv_wgrad(x, dy, h, w)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
 def test_grads_match_jax():
     h = w = 32
     x = _rand((2, 16, h * w))
