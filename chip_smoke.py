@@ -9,9 +9,13 @@ Phases (any failure raises and the script exits non-zero):
 1. Build every CUDA kernel from ``fedml_tpu_torch/ops/csrc`` with nvcc, one
    process per source, all started together.
 2. Hold K1 (BN forward) and K2 (BN backward) against their plain versions
-   on the card: ResNet-56's BN shapes at batch 64 plus a ragged row count,
-   f32 and bf16, ReLU on and off; then a small CifarResNet forward and
-   backward through the kernels against the same model on the CPU.
+   on the card: ResNet-56's BN shapes at batch 64, a ragged row count, one
+   row, fewer rows than the card holds blocks, scalar-load channel counts
+   and shapes past K2's on-chip capacity (planned C = 64, C = 16, then C =
+   64 again), f32 and bf16, ReLU on and off, K2 bit-identical over two
+   calls; then a small CifarResNet forward and backward through the kernels
+   against the same model on the CPU, and two steps of ResNet-56 through
+   them at batch 512.
 3. Time each kernel at the main path's shapes with CUDA events, beside its
    plain version, ``F.batch_norm`` (+ReLU) as a library yardstick, and its
    byte/operation bound.
@@ -20,9 +24,10 @@ Phases (any failure raises and the script exits non-zero):
    momentum 0.9), evaluate, and check the loss and the kernel launch counts.
 5. Hold K3 (lanes 3x3 conv, also the dgrad), K4 (its wgrad) and K7 (K3's
    probe variants) against their plain versions at the lanes path's conv
-   shapes at batch 64, 1 and 3 and four ragged shapes, f32 and bf16, K4
-   bit-identical over two calls; then a small lanes CifarResNet on the
-   card against the same model on the CPU.
+   shapes at batch 64, 1 and 3 and five ragged shapes (the last takes the
+   CUDA-core K3 in bf16: its tensor-core stage does not fit), f32 and bf16, K3,
+   K4 and K7's kernel mode bit-identical over two calls; then a small lanes
+   CifarResNet on the card against the same model on the CPU.
 6. Time K3 and K4 at those shapes in bf16 beside their plain versions,
    ``F.conv2d`` / ``torch.nn.grad.conv2d_weight`` and their bounds.
 7. The K7 probe (the counterpart of ``tools/lanes_probe.py``): per-call
@@ -96,7 +101,23 @@ MAIN_PATH_BNS = {
     (4096, 64, True): 9, (4096, 64, False): 10,
 }
 BNS_PER_STEP = sum(MAIN_PATH_BNS.values())      # 57
+# K1 and K2 checks: the path's shapes and a ragged row count; then K2 alone
+# at one row, fewer rows than the card holds blocks, C = 300 (scalar loads,
+# two columns a thread), C = 7 (scalar loads) and a shape past K2's on-chip
+# capacity, whose second pass reads rows again from device memory. (K1, as
+# the TPU kernel, takes var = E[x^2] - mean^2, which at a row or two misses
+# the plain two-pass variance by more than its tolerance.)
 CHECK_SHAPES = [(65536, 16), (16384, 32), (4096, 64), (12347, 24)]   # last: ragged
+REREAD_SHAPE = (1_000_000, 16)
+# K2's plans set its kernel's shared-memory limit, and a plan past its
+# on-chip rows asks for more at C = 64 than at C = 16: a C = 64 plan, a new
+# C = 16 plan, then the C = 64 shape again, which must still launch.
+K2_PLAN_ORDER = [(100_003, 64), (200_003, 16), (100_003, 64)]
+REREAD_SHAPES = {REREAD_SHAPE, *K2_PLAN_ORDER}
+K2_ONLY_SHAPES = [(1, 16), (200, 64), (1000, 300), (37, 7), *K2_PLAN_ORDER, REREAD_SHAPE]
+# ResNet-56 on the BN kernels at this batch: its C = 32 and C = 16 layers
+# keep a block's full budget of rows on chip, at two sizes of shared memory
+BN_BIG_BATCH = 512
 
 # ResNet-56 lanes (conv_impl="lanes") K3 calls per local step at batch 64,
 # by (Ci, Co, H, W): stage 1's 18 convs forward and as dgrad; stage 2
@@ -109,8 +130,11 @@ CONV_PER_STEP = sum(CONV_CALLS.values())       # 72
 WGRAD_PER_STEP = sum(WGRAD_CALLS.values())     # 36
 CONV_BATCH = 64
 # ragged (N, Ci, Co, H, W): one row tile; several with a partial last one;
-# rows wider than a block's 256 threads
-CONV_RAGGED = [(3, 12, 20, 10, 14), (3, 20, 12, 10, 14), (3, 20, 12, 37, 13), (1, 8, 8, 3, 300)]
+# rows wider than a block's 256 threads; 3 channels on rows so wide that the
+# bf16 K3's tensor-core stage (Ci padded to 16) does not fit even at one row,
+# so that it runs the CUDA-core kernel
+CONV_RAGGED = [(3, 12, 20, 10, 14), (3, 20, 12, 10, 14), (3, 20, 12, 37, 13), (1, 8, 8, 3, 300),
+               (1, 3, 8, 2, 1200)]
 PROBE_SHAPES = [(16, 16, 32, 32), (32, 32, 16, 16)]
 EVAL_BATCH = 256      # make_eval_fn's default batch
 
@@ -214,6 +238,9 @@ def device_ms(fn, iters: int = 20, attempts: int = 3):
             torch.cuda.synchronize()
         total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA)
+        if total_us <= 0:   # the device events themselves, as step_profile reads them
+            total_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                           if e.device_type == DeviceType.CUDA)
         if total_us > 0:
             return total_us / 1e3 / iters
     return None
@@ -278,7 +305,7 @@ def phase_check():
     dev = torch.device("cuda")
     err = {"bn_fwd": 0.0, "bn_bwd": 0.0}
     cases = []
-    for n, C in CHECK_SHAPES:
+    for n, C in CHECK_SHAPES + K2_ONLY_SHAPES:
         x_np = (rng.normal(size=(n, C)) * 1.5 + 0.3).astype(np.float32)
         dy_np = rng.normal(size=(n, C)).astype(np.float32)
         g = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
@@ -289,25 +316,37 @@ def phase_check():
             dy = torch.tensor(dy_np, device=dev).to(dtype)
             for relu in (True, False):
                 tag = f"[{n}x{C} {str(dtype).split('.')[1]} relu={relu}]"
-                y_k, m_k, r_k, v_k = bn.bn_fwd_cuda(x, g, b, EPS, relu)
                 y_p, m_p, r_p, v_p = bn.bn_relu_fwd_plain(x, g, b, EPS, relu)
-                e_y = assert_close(f"K1 y {tag}", y_k, y_p, *tol["y"])
-                assert_close(f"K1 mean {tag}", m_k, m_p, *tol["stat"])
-                assert_close(f"K1 var {tag}", v_k, v_p, *tol["stat"])
-                assert_close(f"K1 rstd {tag}", r_k, r_p, *tol["stat"])
-                if y_k.dtype != x.dtype:
-                    raise AssertionError(f"K1 y dtype {y_k.dtype} != {x.dtype}")
+                e_y = None
+                if (n, C) in CHECK_SHAPES:
+                    y_k, m_k, r_k, v_k = bn.bn_fwd_cuda(x, g, b, EPS, relu)
+                    e_y = assert_close(f"K1 y {tag}", y_k, y_p, *tol["y"])
+                    assert_close(f"K1 mean {tag}", m_k, m_p, *tol["stat"])
+                    assert_close(f"K1 var {tag}", v_k, v_p, *tol["stat"])
+                    assert_close(f"K1 rstd {tag}", r_k, r_p, *tol["stat"])
+                    if y_k.dtype != x.dtype:
+                        raise AssertionError(f"K1 y dtype {y_k.dtype} != {x.dtype}")
+                    err["bn_fwd"] = max(err["bn_fwd"], e_y)
                 # K2 on the plain forward's outputs, so only the backward differs
                 dx_k, dg_k, db_k = bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, relu)
+                _same_bits(f"K2 {tag}", (dx_k, dg_k, db_k),
+                           bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, relu))
                 dx_p, dg_p, db_p = bn.bn_relu_bwd_plain(x, y_p, dy, g, m_p, r_p, relu)
                 e_dx = assert_close(f"K2 dx {tag}", dx_k, dx_p, *tol["dx"])
                 e_dg = assert_close(f"K2 dgamma {tag}", dg_k, dg_p, *tol["dgb"])
                 e_db = assert_close(f"K2 dbeta {tag}", db_k, db_p, *tol["dgb"])
-                err["bn_fwd"] = max(err["bn_fwd"], e_y)
                 err["bn_bwd"] = max(err["bn_bwd"], e_dx)
-                cases.append({"case": tag, "y": e_y, "dx": e_dx, "dgamma": e_dg, "dbeta": e_db})
-                log(f"[check] {tag}: max|err| y {e_y:.3g}, dx {e_dx:.3g}, "
-                    f"dgamma {e_dg:.3g}, dbeta {e_db:.3g}")
+                plan = bn.bwd_plan(x, relu)
+                if (n, C) in REREAD_SHAPES and not plan["rows_per_block"] > plan["cap"]:
+                    raise AssertionError(f"K2 {tag} was meant to exceed the on-chip rows: {plan}")
+                cases.append({"case": tag, "y": e_y, "dx": e_dx, "dgamma": e_dg, "dbeta": e_db,
+                              "k2_plan": plan})
+                ys = "(K1 not checked)" if e_y is None else f"{e_y:.3g}"
+                log(f"[check] {tag}: max|err| y {ys}, dx {e_dx:.3g}, "
+                    f"dgamma {e_dg:.3g}, dbeta {e_db:.3g}; K2 repeat bit-identical, "
+                    f"{plan['blocks']} blocks x {plan['threads']} threads, loads of "
+                    f"{plan['V']}, {min(plan['cap'], plan['rows_per_block'])} of "
+                    f"{plan['rows_per_block']} rows a block on chip")
     torch.cuda.synchronize()
 
     # a small CifarResNet through the kernels on the card vs its plain
@@ -341,6 +380,30 @@ def phase_check():
         if not rel < 1e-3:
             raise AssertionError(f"small model {name}: relative L2 error {rel:.3g} >= 1e-3")
     log(f"[check] small CifarResNet GPU kernels vs CPU plain: worst relative L2 error {worst:.3g}")
+
+    # ResNet-56 in bf16 through the kernels at a large batch, two steps: the
+    # second launches the plans the first made, after every later plan
+    big = CifarResNet(9, 10, dtype=torch.bfloat16, bn_impl="pallas")
+    big.reset_parameters(torch.Generator().manual_seed(SEED))
+    big.to(dev)
+    xb = torch.tensor(rng.normal(size=(BN_BIG_BATCH, 32, 32, 3)).astype(np.float32), device=dev)
+    bn.reset_launches()
+    losses = []
+    for _ in range(2):
+        big.zero_grad(set_to_none=True)
+        loss = big(xb).float().square().mean()
+        loss.backward()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    if bn.LAUNCHES != {"bn_fwd": 2 * BNS_PER_STEP, "bn_bwd": 2 * BNS_PER_STEP}:
+        raise AssertionError(f"ResNet-56 at batch {BN_BIG_BATCH} did not run its BNs through "
+                             f"the kernels: {bn.LAUNCHES}")
+    if not (np.isfinite(losses).all()
+            and all(bool(torch.isfinite(p.grad).all()) for p in big.parameters())):
+        raise AssertionError(f"ResNet-56 at batch {BN_BIG_BATCH}: non-finite loss or gradient")
+    log(f"[check] ResNet-56 BN path at batch {BN_BIG_BATCH}: 2 steps through K1/K2, "
+        f"finite losses {losses[0]:.4f}, {losses[1]:.4f} and gradients")
+    cases.append({"case": f"[ResNet-56 bf16 batch {BN_BIG_BATCH}, 2 steps]", "losses": losses})
     return err, cases, worst
 
 
@@ -431,8 +494,9 @@ def phase_check_conv():
             dname = str(dtype).split(".")[1]
             tag = f"[{n}x{ci}->{co} @{h}x{w} {dname}]"
             x, w2, dy = _conv_inputs(rng, n, ci, co, h, w, dtype, dev)
-            e_y = assert_close(f"K3 {tag}", cl.conv_fwd_cuda(x, w2, h, w),
-                               cl.conv_fwd_plain(x, w2, h, w), *CONV_TOL[dname])
+            y_k = cl.conv_fwd_cuda(x, w2, h, w)
+            e_y = assert_close(f"K3 {tag}", y_k, cl.conv_fwd_plain(x, w2, h, w), *CONV_TOL[dname])
+            _same_bits(f"K3 {tag}", y_k, cl.conv_fwd_cuda(x, w2, h, w))
             dw_p = cl.conv_wgrad_plain(x, dy, h, w)
             scale = float(dw_p.abs().max())
             dw_k = cl.conv_wgrad_cuda(x, dy, h, w)
@@ -447,6 +511,7 @@ def phase_check_conv():
                 if mode == "kernel":
                     rec[f"conv_variant_{mode}"] = assert_close(
                         f"K7 {mode} {tag}", got, want, *CONV_TOL[dname])
+                    _same_bits(f"K7 {mode} {tag}", got, cl.conv_variant_cuda(mode, x, w2, h, w))
                 elif not torch.equal(got, want):
                     raise AssertionError(f"K7 {mode} {tag} is not bit-exact")
                 else:
@@ -456,7 +521,7 @@ def phase_check_conv():
             err["conv_wgrad"] = max(err["conv_wgrad"], e_w)
             cases.append(rec)
             log(f"[check] {tag}: max|err| K3 {e_y:.3g}, K4 {e_w:.3g} (max|dW2| {scale:.3g}; "
-                f"repeat bit-identical), "
+                f"K3, K4 and K7 kernel repeats bit-identical), "
                 f"K7 {', '.join(f'{k[13:]} {v:.3g}' for k, v in rec.items() if k.startswith('conv_variant'))}")
     torch.cuda.synchronize()
 
@@ -593,11 +658,10 @@ def kernel_family(name: str) -> str:
         return "attention kernel (K6)"
     if "xent_kernel" in name:
         return "cross-entropy kernel (K5)"
-    if "conv_fwd_kernel" in name or "conv_wgrad_" in name:
+    if "conv_fwd_" in name or "conv_wgrad_" in name:
         return "lanes conv kernels (K3/K4)"
     if any(f"::{k}" in name or name.startswith(k) for k in
-           ("fwd_partials", "fwd_finalize", "fwd_normalize", "bwd_partials", "bwd_finalize",
-            "bwd_dx")):
+           ("fwd_partials", "fwd_finalize", "fwd_normalize", "bn_bwd_onepass")):
         return "bn kernels (K1/K2)"
     if any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "gemm",
                               "nchw", "nhwc")):

@@ -1,12 +1,14 @@
 """Fused train-mode BatchNorm(+ReLU): kernels K1 (forward) and K2 (backward).
 
 Counterpart of ``fedml_tpu/ops/batchnorm.py``. The CUDA kernels live in
-``csrc/batchnorm.cu`` (three launches each: per-block partial sums, a
-fixed-order finalize, an elementwise pass; see the note there). Numerics
-follow flax ``nn.BatchNorm(use_running_average=False)``: biased variance
-over all leading axes, f32 statistics, scale and bias applied in f32,
-output cast back to the input dtype, and no gradient through the returned
-``mean``/``var``.
+``csrc/batchnorm.cu`` (see the note there): K1 is three launches (per-block
+partial sums, a fixed-order finalize, an elementwise pass); K2 is one
+cooperative launch that reads its inputs once, keeps its rows on chip
+across a grid barrier and sums the per-block partials in a fixed order.
+Numerics follow flax ``nn.BatchNorm(use_running_average=False)``: biased
+variance over all leading axes, f32 statistics, scale and bias applied in
+f32, output cast back to the input dtype, and no gradient through the
+returned ``mean``/``var``.
 
 Which path runs is decided by where the tensor lies: a CPU tensor takes the
 plain PyTorch version in this module; a CUDA tensor launches the kernel, or
@@ -20,6 +22,8 @@ import ctypes
 import functools
 
 import torch
+
+from fedml_tpu_torch.ops.grid_barrier import barrier_words
 
 #: calls of each kernel wrapper (one per BN forward or backward, however
 #: many CUDA launches each makes); read by chip_smoke.py
@@ -74,7 +78,11 @@ def _lib():
     lib.fedml_bn_stat_blocks.restype = i
     lib.fedml_bn_fwd.argtypes = [p, p, p, p, p, p, p, p, ll, i, ctypes.c_float, i, i, p]
     lib.fedml_bn_fwd.restype = i
-    lib.fedml_bn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, ll, i, i, i, p]
+    lib.fedml_bn_bwd_plan_ints.argtypes = []
+    lib.fedml_bn_bwd_plan_ints.restype = i
+    lib.fedml_bn_bwd_plan.argtypes = [ll, i, i, i, p]
+    lib.fedml_bn_bwd_plan.restype = i
+    lib.fedml_bn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, p, p]
     lib.fedml_bn_bwd.restype = i
     lib.fedml_cuda_error_string.argtypes = [i]
     lib.fedml_cuda_error_string.restype = ctypes.c_char_p
@@ -120,6 +128,41 @@ def _scratch(x2d: torch.Tensor) -> torch.Tensor:
     return torch.empty((blocks, 2, C), dtype=torch.float32, device=x2d.device)
 
 
+#: K2's plan fields (csrc/batchnorm.cu BwdGeom), in order
+BWD_PLAN_FIELDS = ("V", "vpr", "threads", "R", "cols", "cap", "blocks", "scratch_off",
+                   "coef_off")
+_PLAN_BLOCKS = BWD_PLAN_FIELDS.index("blocks")
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(n: int, C: int, dtype: int, aligned: bool, device: int):
+    """K2's launch plan (an occupancy query and the grid) for one shape on
+    one device, computed once: a ctypes int array passed to every launch."""
+    lib = _lib()
+    if lib.fedml_bn_bwd_plan_ints() != len(BWD_PLAN_FIELDS):
+        raise RuntimeError("csrc/batchnorm.cu's BwdGeom does not match BWD_PLAN_FIELDS")
+    plan = (ctypes.c_int * len(BWD_PLAN_FIELDS))()
+    with torch.cuda.device(device):
+        _check(lib.fedml_bn_bwd_plan(n, C, dtype, int(aligned), plan), "bn_bwd plan")
+    return plan
+
+
+def _bwd_plan_for(x2d, y, dy, dx, relu: bool):
+    n, C = x2d.shape
+    ptrs = [x2d.data_ptr(), dy.data_ptr(), dx.data_ptr()] + ([y.data_ptr()] if relu else [])
+    aligned = all(q % 16 == 0 for q in ptrs)
+    return _bwd_plan(n, C, _DTYPES[x2d.dtype], aligned, x2d.device.index)
+
+
+def bwd_plan(x2d, relu: bool = True) -> dict:
+    """K2's plan for a CUDA tensor's shape (fresh, aligned tensors), with
+    ``rows_per_block``: more than ``cap`` means rows are read again from
+    device memory in the second pass."""
+    plan = dict(zip(BWD_PLAN_FIELDS, _bwd_plan_for(x2d, x2d, x2d, x2d, relu)))
+    plan["rows_per_block"] = -(-x2d.shape[0] // plan["blocks"])
+    return plan
+
+
 def bn_fwd_cuda(x2d, gamma, beta, eps: float = 1e-5, relu: bool = True):
     """K1 on the card. Returns (y, mean, rstd, var)."""
     _check_x(x2d)
@@ -142,7 +185,7 @@ def bn_fwd_cuda(x2d, gamma, beta, eps: float = 1e-5, relu: bool = True):
 
 
 def bn_bwd_cuda(x2d, y, dy, gamma, mean, rstd, relu: bool = True):
-    """K2 on the card. Returns (dx, dgamma, dbeta)."""
+    """K2 on the card, one launch. Returns (dx, dgamma, dbeta)."""
     _check_x(x2d)
     _check_rows("dy", dy, x2d)
     if relu:
@@ -154,14 +197,16 @@ def bn_bwd_cuda(x2d, y, dy, gamma, mean, rstd, relu: bool = True):
         dx = torch.empty_like(dy)
         dgamma = torch.empty(C, dtype=torch.float32, device=x2d.device)
         dbeta = torch.empty(C, dtype=torch.float32, device=x2d.device)
-        partial = _scratch(x2d)
+        plan = _bwd_plan_for(x2d, y, dy, dx, relu)
+        partial = torch.empty((plan[_PLAN_BLOCKS], 2, C), dtype=torch.float32, device=x2d.device)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        barrier = barrier_words(x2d.device, stream)
         LAUNCHES["bn_bwd"] += 1
         code = _lib().fedml_bn_bwd(
             x2d.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
             gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), partial.data_ptr(),
-            n, C, int(relu), _DTYPES[x2d.dtype], stream)
+            dgamma.data_ptr(), dbeta.data_ptr(), partial.data_ptr(), barrier.data_ptr(),
+            n, C, int(relu), _DTYPES[x2d.dtype], plan, stream)
     _check(code, "bn_bwd")
     return dx, dgamma, dbeta
 

@@ -2,7 +2,8 @@
 
 Each source in ``csrc/`` compiles with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, loaded with ``ctypes``. Builds
-are cached in ``_build/`` keyed by a hash of the source and the flags, and
+are cached in ``_build/`` keyed by a hash of the source, the headers in
+``csrc/`` (``*.cuh``, which any source may include) and the flags, and
 land there by an atomic rename, so concurrent processes never load a
 half-written library. Every failure raises: a missing ``nvcc``, a compile
 error or a timeout.
@@ -45,8 +46,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

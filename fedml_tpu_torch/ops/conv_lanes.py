@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.models.initializers import lecun_normal_
+from fedml_tpu_torch.ops.grid_barrier import barrier_words
 
 TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 
@@ -196,7 +197,8 @@ def _fwd_launch(counter: str, mode: str, xf, w2, h: int, w: int):
 
 
 def conv_fwd_cuda(xf, w2, h: int, w: int):
-    """K3 on the card; w2 in xf's dtype."""
+    """K3 on the card; w2 in xf's dtype. bfloat16 runs the tensor-core
+    kernel, float32 the CUDA-core one (see ``csrc/conv_lanes.cu``)."""
     return _fwd_launch("conv_fwd", "kernel", xf, w2, h, w)
 
 
@@ -207,22 +209,10 @@ def conv_variant_cuda(mode: str, xf, w2, h: int, w: int):
     return _fwd_launch("conv_variant", mode, xf, w2, h, w)
 
 
-#: K4's grid-barrier words, two zeroed int32 per (device, stream): the bf16
-#: kernel's blocks meet on them once per call and leave them zero
-_BARRIERS: dict = {}
-
-
-def _barrier(device: torch.device, stream: int) -> torch.Tensor:
-    key = (device.index, stream)
-    if key not in _BARRIERS:
-        _BARRIERS[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _BARRIERS[key]
-
-
 def conv_wgrad_cuda(xf, dyf, h: int, w: int):
     """K4 on the card: dW2 [Co, 9*Ci] f32. bfloat16 runs the tensor-core
-    kernel (one launch), float32 the CUDA-core partials and finalize (see
-    ``csrc/conv_lanes.cu``)."""
+    kernel (one cooperative launch on the stream's barrier words), float32
+    the CUDA-core partials and finalize (see ``csrc/conv_lanes.cu``)."""
     _check_act("xf", xf, h, w)
     n, ci, hw = xf.shape
     co = dyf.shape[1]
@@ -236,7 +226,7 @@ def conv_wgrad_cuda(xf, dyf, h: int, w: int):
         dw2 = torch.empty((co, 9 * ci), dtype=torch.float32, device=xf.device)
         partial = torch.empty((blocks, co, 9 * ci), dtype=torch.float32, device=xf.device)
         stream = torch.cuda.current_stream(xf.device).cuda_stream
-        barrier = _barrier(xf.device, stream)
+        barrier = barrier_words(xf.device, stream)
         LAUNCHES["conv_wgrad"] += 1
         code = lib.fedml_conv_wgrad(xf.data_ptr(), dyf.data_ptr(), partial.data_ptr(),
                                     dw2.data_ptr(), barrier.data_ptr(), n, ci, co, h, w, dtype,

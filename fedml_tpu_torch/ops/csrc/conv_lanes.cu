@@ -2,7 +2,8 @@
 // K4 (weight gradient) and K7 (K3's probe variants).
 //
 // Replaces the Pallas TPU kernels
-//   K3 _fwd_kernel     fedml_tpu/ops/conv_lanes.py  (launched by _conv_fwd)
+//   K3 _fwd_kernel     fedml_tpu/ops/conv_lanes.py  (launched by _conv_fwd, also the
+//                      dgrad in _vjp_bwd)
 //   K4 _wgrad_kernel   fedml_tpu/ops/conv_lanes.py  (launched by _conv_wgrad)
 //   K7 _variant_kernel tools/lanes_probe.py         (launched by _conv_variant)
 //
@@ -14,32 +15,55 @@
 //
 // What bounds it on this card: at ResNet-56's shapes (C = 16/32, batch 64)
 // one call moves 2-6 MB and does 0.3-0.6 GFLOP, so the least time is the
-// bytes (0.6-1.9 us at 3.35 TB/s). K3 and K7 run on the CUDA cores in f32
-// (no wgmma), bound by FMAs and shared-memory loads instead; they read each
-// input byte from device memory once per block plus a one-row halo, and
-// write each output once.
+// bytes (0.6-1.9 us at 3.35 TB/s); the same FLOPs are ~0.3-0.6 us of the
+// tensor cores. What a call costs beyond that is latency: staging, the
+// launch and, for K4, the cross-block sum.
 //
-// Design of K3 and K7, against the TPU kernel:
-// - No padded copy in device memory. The TPU kernel pads rows (_pad_rows) so
-//   that every tap is a static slice; here a block stages its image rows, a
-//   one-row halo above and below and a one-column border, into shared memory
-//   as f32, with zeros outside the image. The 9 taps are then plain offsets
-//   into that tile and need no edge masks.
-// - Shared memory. A block covers one image and a tile of TR whole image
-//   rows (TR*W ~ 256 pixels). The host raises the kernel's dynamic
-//   shared-memory limit with cudaFuncAttributeMaxDynamicSharedMemorySize
-//   (up to the card's 227 KB) where the stage needs more than 48 KB; TR
-//   shrinks until the stage fits. A shape whose stage does not fit even at
-//   TR = 1 is refused with cudaErrorInvalidValue.
-// - K3: one thread per output pixel and 16 output channels (a Co tile per
-//   blockIdx.y); the W2 tile sits in shared memory as [9*Ci][16] f32 so each
-//   (tap, c) costs one tile load and four float4 weight loads (broadcast
-//   across the warp) for 16 FMAs. Sums in f32 in tap-major order, output in
-//   the input's dtype.
+// K3, two kernels behind one entry point (fedml_conv_fwd mode 0); the dtype
+// picks one. Neither writes a padded copy to device memory: the TPU kernel
+// pads rows (_pad_rows) so that every tap is a static slice; here a block
+// stages its image rows, a one-row halo above and below and a one-column
+// zero border, into shared memory, so that the 9 taps are plain offsets
+// into that tile with no edge masks.
+// - bf16 inputs (every path): conv_fwd_mma, on the tensor cores. The TPU
+//   kernel is jnp.dot(bf16 W2, bf16 P, preferred_element_type=f32) cast to
+//   bf16: exact products, f32 sums, which is mma.sync m16n8k16 bf16 -> f32
+//   up to the order of the sums (fixed within a call, so two calls give the
+//   same bits). An implicit GEMM: M = pixels, N = Co, a depth of one tap's
+//   16 channels. A block (8 warps) covers one image and ~256 pixels of
+//   whole rows (~128 when 256 would leave SMs idle, as at 16x16 and batch
+//   64) and stages them once as bf16 transposed to [pixel][channel]
+//   (Ci padded to 16 with zeros) at a pixel pitch of an odd number of 16
+//   bytes, so ldmatrix reads 16 pixels x 16 channels of a tap without bank
+//   conflicts. For each 32 output channels it stages that part of W2
+//   ([Co, 9*Ci] row-major is B in column-major order; ldmatrix again; the
+//   first part with cp.async, in flight while the rows stage), each warp
+//   computes pairs of 16-pixel tiles over 9 * CiP / 16 k-steps, and the
+//   f32 sums go through a shared [Co][pixel] tile so that Y is written in
+//   16-byte stores along pixels. The input is staged once per block for all
+//   of Co. What bounds it: the mma work is ~0.3-0.6 us of the card and the
+//   bytes 0.6-1.9 us; the rest is latency — the launch, the staging round
+//   trips, each warp's chain of 9-18 dependent k-steps of ldmatrix and mma,
+//   the copy-out. (On an H100 at the path's shapes, loading the next
+//   k-step's fragments ahead of this step's mma timed no faster.)
+// - f32 inputs: conv_fwd_kernel<float, kConv>, on the CUDA cores (f32 on the
+//   tensor cores would be TF32 and break the f32 parity). A block covers one
+//   image, TR whole image rows (TR*W ~ 256 pixels) and 16 output channels
+//   (a Co tile per blockIdx.y); it stages rows as f32 and the W2 tile as
+//   [9*Ci][16] f32, so each (tap, c) costs one tile load and four float4
+//   weight loads (broadcast across the warp) for 16 FMAs; bound by FMAs and
+//   shared-memory issue. bf16 shapes whose tensor-core stage does not fit
+//   take it too.
+// - Shared memory: the host raises a kernel's dynamic shared-memory limit
+//   with cudaFuncAttributeMaxDynamicSharedMemorySize (up to the card's 227
+//   KB) where the stage needs more than 48 KB; rows per block shrink until
+//   the stage fits, and a shape that does not fit even at one row is
+//   refused with cudaErrorInvalidValue.
 // - K7 (MODE): kCopy writes the first Co channels of the image (no staging,
 //   one copy); kPatches writes the first Co rows of the patch matrix (row r
-//   = tap r / Ci, channel r % Ci, zero outside the image) from the staged
-//   tile, no dot; kConv is K3 itself.
+//   = tap r / Ci, channel r % Ci, zero outside the image) from the f32
+//   stage of conv_fwd_kernel, no dot; kConv is K3 itself, the same entry
+//   point, so in bf16 it runs conv_fwd_mma.
 //
 // K4, two kernels behind one entry point; the dtype picks one. The TPU
 // kernel sums dW2 in one f32 accumulator across a sequential grid; CUDA
@@ -65,7 +89,7 @@
 //   grid meets at a barrier (a cooperative launch, so every block is
 //   resident; two counter words per stream, zero between calls), and
 //   every block then adds the partials of some 32-entry groups of dW2 in
-//   block order in f64, 16 loads in flight per thread. One launch a call.
+//   block order in f64 (the barrier is grid_barrier.cuh's), 16 loads in flight per thread. One launch a call.
 //   The mma work is ~1 us of the card; the time is latency: staging
 //   (~1-2 us a round trip), the barrier (~2 us) and the partials, 2.4-9.4
 //   MB written and read back through L2. (The last block adding every
@@ -81,6 +105,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "grid_barrier.cuh"
 
 namespace {
 
@@ -121,7 +147,9 @@ __device__ void stage_rows(const T* __restrict__ xn, float* __restrict__ tile, i
   }
 }
 
-// K3 (MODE kConv) and K7 (kPatches, kCopy). Grid: (row tiles, Co tiles, N).
+// K3 on the CUDA cores (MODE kConv: f32 inputs, and bf16 shapes too large
+// for conv_fwd_mma's stage) and K7 (kPatches, kCopy). Grid: (row tiles, Co
+// tiles, N).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
 conv_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w2, T* __restrict__ y, int Ci,
@@ -484,28 +512,6 @@ __device__ void stage_wgrad_item(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// All blocks of the (cooperative, hence co-resident) grid meet here.
-// bar[0] counts arrivals and is reset by the last block, which then bumps
-// the generation bar[1] that the others wait on.
-__device__ void grid_barrier(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g0 = *gen;
-    __threadfence();  // this block's partial is visible before it arrives
-    const unsigned int blocks = gridDim.x * gridDim.y;
-    if (atomicAdd(bar, 1u) == blocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g0) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // K4 for bf16 x and dY: dW2[Co, 9*Ci] = dY[Co, pixels] . P[9*Ci, pixels]^T.
 // Grid (B, chunks), cooperative. Block (b, k) sums items [b*items/B,
 // (b+1)*items/B) of the (image, row tile) list on the tensor cores for the
@@ -675,6 +681,297 @@ int wgrad_mma_launch(const void* x, const void* dy, float* partial, float* dw2,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K3, bf16 inputs: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kFwThreads = 256;                // 8 warps
+constexpr int kFwWarps = kFwThreads / 32;
+constexpr int kFwPixels = 256;                 // output pixels a block aims at (whole rows),
+constexpr int kFwPixelsSmall = 128;            // or this many when the grid would not fill the SMs
+constexpr int kFwCoChunk = 32;                 // output channels per pass: 4 n8 tiles
+constexpr int kFwMi = 2;                       // m16 pixel tiles a warp computes at once
+constexpr int kFwLoads = 8;                    // staging loads in flight per thread
+
+// Stage geometry of the bf16 K3, the same on host and device.
+struct FwGeom {
+  int TR;     // image rows per block
+  int Wp;     // staged row width: W + 2, the border columns zero
+  int CiP;    // Ci rounded up to 16 (zero channels): the mma depth per tap
+  int PP;     // staged pixel pitch, bf16: CiP + 8, an odd number of 16-byte units
+  int KP;     // staged W2 row pitch, bf16: 9 * CiP + 8, likewise
+  int YP;     // output tile row pitch, bf16: TR * W rounded up to whole tile pairs, + 8
+  int xpair;  // x loaded two pixels (4 bytes) at a time: W even, x aligned
+  int wvec;   // W2 loaded 8 channels (16 bytes) at a time: Ci % 8 == 0, w2 aligned
+  int yvec;   // Y stored 8 pixels (16 bytes) at a time: W % 8 == 0, y aligned
+};
+
+size_t fw_smem(const FwGeom& g) {
+  return 2 * ((size_t)(g.TR + 2) * g.Wp * g.PP + (size_t)kFwCoChunk * g.KP +
+              (size_t)kFwCoChunk * g.YP);
+}
+
+// Rows per block for ~pixels output pixels; false when even one image row
+// does not fit in shared memory.
+bool fw_geometry(int Ci, int H, int W, int pixels, uintptr_t x, uintptr_t w2, uintptr_t y,
+                 FwGeom* g) {
+  g->Wp = W + 2;
+  g->CiP = (Ci + 15) / 16 * 16;
+  g->PP = g->CiP + 8;
+  g->KP = 9 * g->CiP + 8;
+  g->xpair = W % 2 == 0 && x % 4 == 0;
+  g->wvec = Ci % 8 == 0 && w2 % 16 == 0;
+  g->yvec = W % 8 == 0 && y % 16 == 0;
+  int tr = pixels / W;
+  tr = tr < 1 ? 1 : (tr > H ? H : tr);
+  for (;; tr = (tr + 1) / 2) {
+    g->TR = tr;
+    g->YP = (tr * W + 16 * kFwMi - 1) / (16 * kFwMi) * (16 * kFwMi) + 8;
+    if (fw_smem(*g) <= kMaxSmem) return true;
+    if (tr == 1) return false;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// A 16-byte global -> shared copy that bypasses the registers; src_bytes 0
+// writes zeros. cp.async.wait_all waits for this thread's copies.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Stages rows r0-1 .. r0+TR of image n transposed, as 32-bit words of two
+// channels: word (R*Wp + X)*PP/2 + c/2 holds channels c, c+1 of X[gy =
+// r0-1+R, gx = X-1], zero outside the image and for channels >= Ci.
+// Consecutive threads read consecutive pixels of one channel pair
+// (kFwLoads loads in flight per thread); the transposing stores may meet in
+// a bank, which costs little beside the loads' latency.
+__device__ void stage_fwd_rows(const __nv_bfloat16* __restrict__ x, uint32_t* st, int n, int r0,
+                               int Ci, int H, int W, const FwGeom& g) {
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const int PW = g.PP / 2, pairs = g.CiP / 2, rows = g.TR + 2;
+  const long long HW = (long long)H * W;
+  for (int i = threadIdx.x; i < rows * 2 * pairs; i += blockDim.x) {  // border columns
+    const int cp = i % pairs, e = i / pairs, R = e / 2, X = (e % 2) * (W + 1);
+    st[(R * g.Wp + X) * PW + cp] = 0u;
+  }
+  const int U = g.xpair ? 2 : 1, WU = W / U, total = pairs * rows * WU;
+  for (int i0 = threadIdx.x; i0 < total; i0 += kFwLoads * blockDim.x) {
+    uint32_t lo[kFwLoads], hi[kFwLoads];
+    int dst[kFwLoads];
+#pragma unroll
+    for (int u = 0; u < kFwLoads; ++u) {
+      const int i = i0 + u * blockDim.x;
+      lo[u] = hi[u] = 0u;
+      dst[u] = -1;
+      if (i >= total) continue;
+      const int xu = i % WU, e = i / WU, R = e % rows, cp = e / rows;
+      const int c = 2 * cp, gy = r0 - 1 + R;
+      dst[u] = (R * g.Wp + 1 + xu * U) * PW + cp;
+      if (gy < 0 || gy >= H) continue;
+      const long long off = ((long long)n * Ci + c) * HW + (long long)gy * W + xu * U;
+      if (U == 2) {
+        if (c < Ci) lo[u] = *reinterpret_cast<const uint32_t*>(xs + off);
+        if (c + 1 < Ci) hi[u] = *reinterpret_cast<const uint32_t*>(xs + off + HW);
+      } else {
+        if (c < Ci) lo[u] = xs[off];
+        if (c + 1 < Ci) hi[u] = xs[off + HW];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kFwLoads; ++u) {
+      if (dst[u] < 0) continue;
+      if (U == 2) {  // lo / hi hold two pixels of channel c / c+1
+        st[dst[u]] = (lo[u] & 0xffffu) | (hi[u] << 16);
+        st[dst[u] + PW] = (lo[u] >> 16) | (hi[u] & 0xffff0000u);
+      } else {
+        st[dst[u]] = lo[u] | (hi[u] << 16);
+      }
+    }
+  }
+}
+
+// Stages rows co0 .. co0+31 of W2 as ws[o][tap*CiP + c], zero for o >= Co
+// and c >= Ci. With wvec the copies are cp.async (16 bytes, zero-filled
+// past the edges) that the caller waits for; else plain loads and stores.
+__device__ void stage_fwd_weights(const __nv_bfloat16* __restrict__ w2, __nv_bfloat16* ws,
+                                  int co0, int Ci, int Co, const FwGeom& g) {
+  const int K = 9 * Ci;
+  if (g.wvec) {
+    const int units = g.CiP / 8, total = kFwCoChunk * 9 * units;
+    const uint32_t ws_s = smem_addr(ws);
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int cu = i % units, e = i / units, tap = e % 9, o = e / 9;
+      const bool live = co0 + o < Co && cu * 8 < Ci;
+      const __nv_bfloat16* src = live ? w2 + (long long)(co0 + o) * K + tap * Ci + cu * 8 : w2;
+      cp_async16(ws_s + 2u * (uint32_t)(o * g.KP + tap * g.CiP + cu * 8), src, live ? 16 : 0);
+    }
+  } else {
+    const int total = kFwCoChunk * 9 * g.CiP;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int c = i % g.CiP, e = i / g.CiP, tap = e % 9, o = e / 9;
+      ws[o * g.KP + tap * g.CiP + c] = co0 + o < Co && c < Ci
+                                           ? w2[(long long)(co0 + o) * K + tap * Ci + c]
+                                           : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// K3 for bf16 x and W2: Y[n] = W2 . P[n] as an implicit GEMM on the tensor
+// cores, mma.sync m16n8k16 bf16 -> f32 with M = pixels, N = Co and a depth
+// of one tap's 16 channels. Grid (row tiles, N). A block stages its rows
+// once (transposed to [pixel][channel], so an A fragment, 16 pixels x 16
+// channels of one tap, is 16 rows that ldmatrix reads; a tap is a fixed
+// offset into the stage), then for each chunk of 32 output channels stages
+// that chunk of W2 (B, read by ldmatrix too), and each warp computes pairs
+// of 16-pixel tiles over the 9 * CiP / 16 k-steps in a fixed order. The f32
+// sums go to bf16 through a shared [Co chunk][pixel] tile, from which rows
+// of Y are written contiguously.
+__global__ void __launch_bounds__(kFwThreads)
+conv_fwd_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w2,
+             __nv_bfloat16* __restrict__ y, int Ci, int Co, int H, int W, FwGeom g) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem4);  // [(TR+2)*Wp][PP]
+  __nv_bfloat16* ws = st + (size_t)(g.TR + 2) * g.Wp * g.PP;    // [32][KP]
+  __nv_bfloat16* ys = ws + (size_t)kFwCoChunk * g.KP;            // [32][YP]
+  const int n = blockIdx.y, r0 = blockIdx.x * g.TR;
+  const int P = g.TR * W, PV = min(g.TR, H - r0) * W;
+  const long long HW = (long long)H * W;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane >> 2, t = lane & 3;
+  const int pairs = ((P + 15) / 16 + kFwMi - 1) / kFwMi;
+
+  stage_fwd_weights(w2, ws, 0, Ci, Co, g);  // cp.async: in flight while the rows stage
+  stage_fwd_rows(x, reinterpret_cast<uint32_t*>(st), n, r0, Ci, H, W, g);
+
+  // ldmatrix rows of this lane: A, pixel a_pix of the tile and channels
+  // a_k..a_k+7; B, output channel (lane/16)*8 + lane%8 of the pair and k
+  // offset 8 * ((lane/8) & 1)
+  const int a_pix = lane % 8 + 8 * ((lane / 8) & 1), a_k = 8 * (lane / 16);
+  const uint32_t b_lane =
+      smem_addr(ws) + 2u * (uint32_t)(((lane / 16) * 8 + lane % 8) * g.KP + 8 * ((lane / 8) & 1));
+  const int ksteps = g.CiP / 16;
+
+  for (int co0 = 0; co0 < Co; co0 += kFwCoChunk) {
+    // the previous chunk's ws readers passed the barrier before its copy-out
+    if (co0 > 0) stage_fwd_weights(w2, ws, co0, Ci, Co, g);
+    cp_async_wait_all();
+    __syncthreads();  // the stage and this chunk's W2 are complete
+    const int ntiles = min(4, (Co - co0 + 7) / 8);
+    for (int mp = warp; mp < pairs; mp += kFwWarps) {
+      float acc[kFwMi][4][4];
+      uint32_t a_lane[kFwMi];
+#pragma unroll
+      for (int mi = 0; mi < kFwMi; ++mi) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+        const int q = min((mp * kFwMi + mi) * 16 + a_pix, P - 1);
+        a_lane[mi] = smem_addr(st) + 2u * (uint32_t)(((q / W) * g.Wp + q % W) * g.PP + a_k);
+      }
+      // k-step s is tap s / ksteps, channels 16 * (s % ksteps)
+      const int S = 9 * ksteps;
+      auto load = [&](int s, uint32_t (&a)[kFwMi][4], uint32_t (&b)[4][2]) {
+        const int tap = s / ksteps, kc = s - tap * ksteps;
+        const uint32_t toff = 2u * (uint32_t)(((tap / 3) * g.Wp + tap % 3) * g.PP) + 32u * kc;
+#pragma unroll
+        for (int mi = 0; mi < kFwMi; ++mi) ldmatrix_x4(a[mi], a_lane[mi] + toff);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          if (2 * jp >= ntiles) break;  // warp-uniform
+          uint32_t r[4];
+          ldmatrix_x4(r, b_lane + 2u * (uint32_t)(jp * 16 * g.KP + tap * g.CiP + kc * 16));
+          b[2 * jp][0] = r[0];
+          b[2 * jp][1] = r[1];
+          b[2 * jp + 1][0] = r[2];
+          b[2 * jp + 1][1] = r[3];
+        }
+      };
+      auto mma = [&](const uint32_t (&a)[kFwMi][4], const uint32_t (&b)[4][2]) {
+#pragma unroll
+        for (int mi = 0; mi < kFwMi; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)  // warp-uniform: no mma past Co or the last pixel
+            if (j < ntiles && (mp * kFwMi + mi) * 16 < P)
+              mma_bf16(acc[mi][j], a[mi], b[j][0], b[j][1]);
+      };
+      for (int s = 0; s < S; ++s) {
+        uint32_t a[kFwMi][4], b[4][2];
+        load(s, a, b);
+        mma(a, b);
+      }
+      // C fragment: pixels gq, gq+8 of the tile, output channels 2t, 2t+1
+#pragma unroll
+      for (int mi = 0; mi < kFwMi; ++mi) {
+        const int q0 = (mp * kFwMi + mi) * 16 + gq;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j >= ntiles) break;
+          __nv_bfloat16* yo = ys + (8 * j + 2 * t) * g.YP + q0;
+          yo[0] = __float2bfloat16(acc[mi][j][0]);
+          yo[g.YP] = __float2bfloat16(acc[mi][j][1]);
+          yo[8] = __float2bfloat16(acc[mi][j][2]);
+          yo[g.YP + 8] = __float2bfloat16(acc[mi][j][3]);
+        }
+      }
+    }
+    __syncthreads();
+    const int oc = min(kFwCoChunk, Co - co0);
+    __nv_bfloat16* yb = y + ((long long)n * Co + co0) * HW + (long long)r0 * W;
+    if (g.yvec) {
+      const int PU = PV / 8;
+      for (int i = threadIdx.x; i < oc * PU; i += blockDim.x) {
+        const int o = i / PU, u = i - o * PU;
+        *reinterpret_cast<uint4*>(yb + o * HW + u * 8) =
+            *reinterpret_cast<const uint4*>(ys + o * g.YP + u * 8);
+      }
+    } else {
+      for (int i = threadIdx.x; i < oc * PV; i += blockDim.x) {
+        const int o = i / PV, p = i - o * PV;
+        yb[o * HW + p] = ys[o * g.YP + p];
+      }
+    }
+  }
+}
+
+// The bf16 K3: blocks of kFwPixels, or of kFwPixelsSmall when that would
+// leave SMs without a block (ResNet-56's 16x16 stage at batch 64). Shapes
+// whose stage does not fit even at one image row take the CUDA-core kernel,
+// which stages less where Ci is far below its padding to 16: a few channels
+// on wide rows, such as 3 channels at W = 1200 (chip_smoke.py checks it).
+int fwd_mma_launch(const void* x, const void* w2, void* y, int N, int Ci, int Co, int H, int W,
+                   cudaStream_t stream) {
+  static size_t allowed = kDefaultSmem;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x), wa = reinterpret_cast<uintptr_t>(w2),
+                  ya = reinterpret_cast<uintptr_t>(y);
+  FwGeom g;
+  bool fits = fw_geometry(Ci, H, W, kFwPixels, xa, wa, ya, &g);
+  if (fits && (long long)N * ((H + g.TR - 1) / g.TR) < sms)
+    fits = fw_geometry(Ci, H, W, kFwPixelsSmall, xa, wa, ya, &g);
+  if (!fits) return fwd_launch<__nv_bfloat16, kConv>(x, w2, y, N, Ci, Co, H, W, stream);
+  const size_t smem = fw_smem(g);
+  e = allow_smem(conv_fwd_mma, smem, &allowed);
+  if (e != cudaSuccess) return (int)e;
+  conv_fwd_mma<<<dim3((H + g.TR - 1) / g.TR, N), kFwThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w2),
+      static_cast<__nv_bfloat16*>(y), Ci, Co, H, W, g);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int N, int Ci, int Co, int H, int W) {
   return N < 1 || N > 65535 || Ci < 1 || Co < 1 || H < 1 || W < 1 || Co > 65535 * kCoTile;
 }
@@ -695,7 +992,7 @@ int fedml_conv_fwd(const void* x, const void* w2, void* y, int N, int Ci, int Co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     using T = __nv_bfloat16;
-    if (mode == kConv) return fwd_launch<T, kConv>(x, w2, y, N, Ci, Co, H, W, s);
+    if (mode == kConv) return fwd_mma_launch(x, w2, y, N, Ci, Co, H, W, s);
     if (mode == kPatches) return fwd_launch<T, kPatches>(x, w2, y, N, Ci, Co, H, W, s);
     return fwd_launch<T, kCopy>(x, w2, y, N, Ci, Co, H, W, s);
   }

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from fedml_tpu.models.norm import PallasBatchNorm as JaxPallasBatchNorm
+from fedml_tpu.ops import batchnorm as jbn
 from fedml_tpu.ops.batchnorm import fused_bn_relu as jax_fused_bn_relu
 from fedml_tpu_torch.models.norm import PallasBatchNorm
 from fedml_tpu_torch.ops import batchnorm as tbn
@@ -69,6 +70,39 @@ def test_plain_backward_is_the_gradient_of_the_plain_forward(relu):
                                            torch.tensor(g), mean, rstd, relu)
     for a, r in ((dx.reshape(x.shape), xt.grad), (dg, gt.grad), (db, bt.grad)):
         np.testing.assert_allclose(a.numpy(), r.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,relu", [((4, 32, 32, 16), True), ((4, 32, 32, 16), False),
+                                        ((2, 16, 16, 32), True)])
+def test_bf16_backward_matches_jax_kernel(shape, relu):
+    """K2's bf16 numerics: the same bf16 x, y and dy and the same f32 mean
+    and rstd through the plain backward (what the one-pass kernel computes:
+    f32 sums, dx rounded once to bf16) and through the JAX package's fused
+    BN VJP, whose Pallas kernel runs in interpret mode. dx within one bf16
+    ulp (the sums run in other orders); dgamma and dbeta at the tolerances
+    above."""
+    x, g, b = _inputs(shape, seed=4)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    dyb = jnp.asarray(np.random.default_rng(5).normal(size=shape), jnp.bfloat16)
+    y_j, mean_j, rstd_j, res = jbn._fwd(xb, jnp.asarray(g), jnp.asarray(b), 1e-5, relu)
+    assert res[-1] is not None, "the JAX side must run its Pallas kernel"
+    dx_j, dg_j, db_j = jbn._fused_bwd(1e-5, relu, res, (dyb, None, None))
+
+    C = shape[-1]
+
+    def t(a):
+        return torch.tensor(np.asarray(jnp.asarray(a, jnp.float32))).reshape(-1, C)
+
+    dx_t, dg_t, db_t = tbn.bn_relu_bwd_plain(
+        t(xb).to(torch.bfloat16), t(y_j).to(torch.bfloat16), t(dyb).to(torch.bfloat16),
+        torch.tensor(g), t(mean_j)[0], t(rstd_j)[0], relu)
+    assert dx_t.dtype == torch.bfloat16 and dx_j.dtype == jnp.bfloat16
+    got = dx_t.float().numpy()
+    want = np.asarray(dx_j.astype(jnp.float32)).reshape(-1, C)
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), np.finfo(np.float32).tiny)
+    assert np.all(np.abs(got - want) <= 2.0 ** (np.floor(np.log2(mag)) - 7))
+    np.testing.assert_allclose(dg_t.numpy(), np.asarray(dg_j), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(db_t.numpy(), np.asarray(db_j), rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.parametrize("fuse_relu", [True, False])

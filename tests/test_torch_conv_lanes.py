@@ -91,6 +91,35 @@ def test_bf16_wgrad_matches_jax_kernel(ci, co, h, w):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
 
 
+def _bf16_ulp(a: np.ndarray) -> np.ndarray:
+    """One bf16 ulp at each value's magnitude (8 significant bits)."""
+    mag = np.maximum(np.abs(a), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+# the lanes path's four K3 shapes (Ci, Co, H, W): stage 1, stage 2's first
+# conv before its subsample, that conv's dgrad, stage 2
+K3_PATH_SHAPES = [(16, 16, 32, 32), (16, 32, 32, 32), (32, 16, 32, 32), (32, 32, 16, 16)]
+
+
+@pytest.mark.parametrize("ci,co,h,w", K3_PATH_SHAPES)
+def test_bf16_fwd_matches_jax_kernel(ci, co, h, w):
+    """K3's bf16 numerics: bf16 x and W2, products exact in f32, f32 sums,
+    one rounding to bf16 (the tensor-core kernel's mma.sync bf16 -> f32; the
+    TPU kernel's jnp.dot with preferred_element_type=f32), on the same bf16
+    values; the two sum in other orders, so one bf16 ulp may flip, and a sum
+    that cancels to near zero may differ by its f32 rounding (1e-6 absolute
+    at |y| ~ 1, 144-288 terms)."""
+    x = torch.tensor(_rand((3, ci, h * w), seed=15)).to(torch.bfloat16)
+    w2 = torch.tensor(_rand((co, 9 * ci), seed=16, scale=1 / np.sqrt(9 * ci))).to(torch.bfloat16)
+    want = jcl._conv_fwd(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                         jnp.asarray(w2.float().numpy(), jnp.bfloat16), h, w)
+    got = cl.conv_fwd(x, w2, h, w)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    assert np.all(np.abs(got - want) <= _bf16_ulp(np.maximum(np.abs(got), np.abs(want))) + 1e-6)
+
+
 def test_grads_match_jax():
     h = w = 32
     x = _rand((2, 16, h * w))
