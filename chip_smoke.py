@@ -9,13 +9,14 @@ Phases (any failure raises and the script exits non-zero):
 1. Build every CUDA kernel from ``fedml_tpu_torch/ops/csrc`` with nvcc, one
    process per source, all started together.
 2. Hold K1 (BN forward) and K2 (BN backward) against their plain versions
-   on the card: ResNet-56's BN shapes at batch 64, a ragged row count, one
-   row, fewer rows than the card holds blocks, scalar-load channel counts
-   and shapes past K2's on-chip capacity (planned C = 64, C = 16, then C =
-   64 again), f32 and bf16, ReLU on and off, K2 bit-identical over two
-   calls; then a small CifarResNet forward and backward through the kernels
-   against the same model on the CPU, and two steps of ResNet-56 through
-   them at batch 512.
+   on the card: ResNet-56's BN shapes at batch 64, a ragged row count,
+   scalar-load channel counts (C = 7, 300) and shapes past the kernels'
+   on-chip capacity (planned C = 64, C = 16, then C = 64 again, and 10^6
+   rows); K2 also at one row and fewer rows than the card holds blocks; f32
+   and bf16, ReLU on and off, both bit-identical over two calls; then a
+   small CifarResNet forward and backward through the kernels against the
+   same model on the CPU, and two steps of ResNet-56 through them at batch
+   512.
 3. Time each kernel at the main path's shapes with CUDA events, beside its
    plain version, ``F.batch_norm`` (+ReLU) as a library yardstick, and its
    byte/operation bound.
@@ -26,13 +27,17 @@ Phases (any failure raises and the script exits non-zero):
    probe variants) against their plain versions at the lanes path's conv
    shapes at batch 64, 1 and 3 and five ragged shapes (the last takes the
    CUDA-core K3 in bf16: its tensor-core stage does not fit), f32 and bf16, K3,
-   K4 and K7's kernel mode bit-identical over two calls; then a small lanes
+   K4 and K7's kernel mode bit-identical over two calls and K7's kernel mode
+   equal to K3, its patches and copy modes exact; then a small lanes
    CifarResNet on the card against the same model on the CPU.
 6. Time K3 and K4 at those shapes in bf16 beside their plain versions,
    ``F.conv2d`` / ``torch.nn.grad.conv2d_weight`` and their bounds.
 7. The K7 probe (the counterpart of ``tools/lanes_probe.py``): per-call
    times of the library conv, K3, its patch build, one copy, K4, forward +
-   dgrad and forward + wgrad at the probe shapes.
+   dgrad and forward + wgrad at the probe shapes, and K3's device time split
+   into the mma loop with its W2 staging (kernel - copy), the tap gather
+   (patches - copy) and staging plus copy-out (copy), each mode beside its
+   bound.
 8. Train the same 2 rounds with ``conv_impl="lanes", bn_impl="xla"`` and
    check the loss and the launch counts (72 K3 and 36 K4 per live step, 36
    K3 per eval batch, no BN kernel).
@@ -101,20 +106,27 @@ MAIN_PATH_BNS = {
     (4096, 64, True): 9, (4096, 64, False): 10,
 }
 BNS_PER_STEP = sum(MAIN_PATH_BNS.values())      # 57
-# K1 and K2 checks: the path's shapes and a ragged row count; then K2 alone
-# at one row, fewer rows than the card holds blocks, C = 300 (scalar loads,
-# two columns a thread), C = 7 (scalar loads) and a shape past K2's on-chip
-# capacity, whose second pass reads rows again from device memory. (K1, as
-# the TPU kernel, takes var = E[x^2] - mean^2, which at a row or two misses
-# the plain two-pass variance by more than its tolerance.)
+# K1 and K2 checks: the path's shapes and a ragged row count; C = 7 and C =
+# 300 (scalar loads; two columns a thread at 300 in bf16); shapes past the
+# on-chip capacity, whose second pass reads rows again from device memory.
+# K2 alone also at one row, 37 rows and fewer rows than the card holds
+# blocks: K1, as the TPU kernel, takes var = E[x^2] - mean^2, which at a row
+# or two misses the plain two-pass variance by more than its tolerance, so
+# it is checked at >= 4,096 rows.
 CHECK_SHAPES = [(65536, 16), (16384, 32), (4096, 64), (12347, 24)]   # last: ragged
+SCALAR_SHAPES = [(8_191, 7), (4_096, 300)]
 REREAD_SHAPE = (1_000_000, 16)
-# K2's plans set its kernel's shared-memory limit, and a plan past its
-# on-chip rows asks for more at C = 64 than at C = 16: a C = 64 plan, a new
-# C = 16 plan, then the C = 64 shape again, which must still launch.
+# A plan sets its kernel's shared-memory limit, and a plan past its on-chip
+# rows asks for more at C = 64 than at C = 16: a C = 64 plan, a new C = 16
+# plan, then the C = 64 shape again, which must still launch.
 K2_PLAN_ORDER = [(100_003, 64), (200_003, 16), (100_003, 64)]
+# past the rows a block keeps on chip: K2 (x and g on chip) at all of
+# these, K1 (x alone, twice the rows) at 10^6 x 16 and 100,003 x 64
 REREAD_SHAPES = {REREAD_SHAPE, *K2_PLAN_ORDER}
-K2_ONLY_SHAPES = [(1, 16), (200, 64), (1000, 300), (37, 7), *K2_PLAN_ORDER, REREAD_SHAPE]
+K1_REREAD_SHAPES = {REREAD_SHAPE, K2_PLAN_ORDER[0]}
+K1_SHAPES = [*CHECK_SHAPES, *SCALAR_SHAPES, *K2_PLAN_ORDER, REREAD_SHAPE]
+BN_CHECK_SHAPES = [*CHECK_SHAPES, (1, 16), (200, 64), (1000, 300), (37, 7), *SCALAR_SHAPES,
+                   *K2_PLAN_ORDER, REREAD_SHAPE]
 # ResNet-56 on the BN kernels at this batch: its C = 32 and C = 16 layers
 # keep a block's full budget of rows on chip, at two sizes of shared memory
 BN_BIG_BATCH = 512
@@ -305,7 +317,7 @@ def phase_check():
     dev = torch.device("cuda")
     err = {"bn_fwd": 0.0, "bn_bwd": 0.0}
     cases = []
-    for n, C in CHECK_SHAPES + K2_ONLY_SHAPES:
+    for n, C in BN_CHECK_SHAPES:
         x_np = (rng.normal(size=(n, C)) * 1.5 + 0.3).astype(np.float32)
         dy_np = rng.normal(size=(n, C)).astype(np.float32)
         g = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
@@ -317,9 +329,11 @@ def phase_check():
             for relu in (True, False):
                 tag = f"[{n}x{C} {str(dtype).split('.')[1]} relu={relu}]"
                 y_p, m_p, r_p, v_p = bn.bn_relu_fwd_plain(x, g, b, EPS, relu)
-                e_y = None
-                if (n, C) in CHECK_SHAPES:
-                    y_k, m_k, r_k, v_k = bn.bn_fwd_cuda(x, g, b, EPS, relu)
+                e_y = fplan = None
+                if (n, C) in K1_SHAPES:
+                    got = bn.bn_fwd_cuda(x, g, b, EPS, relu)
+                    _same_bits(f"K1 {tag}", got, bn.bn_fwd_cuda(x, g, b, EPS, relu))
+                    y_k, m_k, r_k, v_k = got
                     e_y = assert_close(f"K1 y {tag}", y_k, y_p, *tol["y"])
                     assert_close(f"K1 mean {tag}", m_k, m_p, *tol["stat"])
                     assert_close(f"K1 var {tag}", v_k, v_p, *tol["stat"])
@@ -327,6 +341,10 @@ def phase_check():
                     if y_k.dtype != x.dtype:
                         raise AssertionError(f"K1 y dtype {y_k.dtype} != {x.dtype}")
                     err["bn_fwd"] = max(err["bn_fwd"], e_y)
+                    fplan = bn.fwd_plan(x)
+                    if (n, C) in K1_REREAD_SHAPES and not fplan["rows_per_block"] > fplan["cap"]:
+                        raise AssertionError(f"K1 {tag} was meant to exceed the on-chip rows: "
+                                             f"{fplan}")
                 # K2 on the plain forward's outputs, so only the backward differs
                 dx_k, dg_k, db_k = bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, relu)
                 _same_bits(f"K2 {tag}", (dx_k, dg_k, db_k),
@@ -340,13 +358,17 @@ def phase_check():
                 if (n, C) in REREAD_SHAPES and not plan["rows_per_block"] > plan["cap"]:
                     raise AssertionError(f"K2 {tag} was meant to exceed the on-chip rows: {plan}")
                 cases.append({"case": tag, "y": e_y, "dx": e_dx, "dgamma": e_dg, "dbeta": e_db,
-                              "k2_plan": plan})
-                ys = "(K1 not checked)" if e_y is None else f"{e_y:.3g}"
-                log(f"[check] {tag}: max|err| y {ys}, dx {e_dx:.3g}, "
-                    f"dgamma {e_dg:.3g}, dbeta {e_db:.3g}; K2 repeat bit-identical, "
-                    f"{plan['blocks']} blocks x {plan['threads']} threads, loads of "
-                    f"{plan['V']}, {min(plan['cap'], plan['rows_per_block'])} of "
-                    f"{plan['rows_per_block']} rows a block on chip")
+                              "k1_plan": fplan, "k2_plan": plan})
+
+                def shown(p):
+                    return (f"{p['blocks']} blocks x {p['threads']} threads, loads of {p['V']}, "
+                            f"{min(p['cap'], p['rows_per_block'])} of {p['rows_per_block']} "
+                            f"rows a block on chip")
+
+                k1 = ("K1 not checked" if e_y is None
+                      else f"K1 y {e_y:.3g}, repeat bit-identical, {shown(fplan)}")
+                log(f"[check] {tag}: max|err| {k1}; K2 dx {e_dx:.3g}, dgamma {e_dg:.3g}, "
+                    f"dbeta {e_db:.3g}, repeat bit-identical, {shown(plan)}")
     torch.cuda.synchronize()
 
     # a small CifarResNet through the kernels on the card vs its plain
@@ -460,6 +482,17 @@ def phase_time():
                 f"{us['library_device_ms']}), bound {rec['bound_ms'] * 1e3:.2f} us "
                 f"({rec['bound_by']}); {count}/step")
     torch.cuda.synchronize()
+    for kern in ("bn_fwd", "bn_bwd"):
+        mine = [r for r in rows if r["kernel"] == kern]
+        total = {k: (None if any(r[k] is None for r in mine)
+                     else sum(r[k] * r["calls_per_step"] for r in mine))
+                 for k in ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+                           "library_device_ms", "bound_ms")}
+        ms = {k: "n/m" if v is None else f"{v:.4f}" for k, v in total.items()}
+        log(f"[time] {kern} per step ({BNS_PER_STEP} calls, bf16): events {ms['ms']} ms, device "
+            f"{ms['device_ms']}; plain {ms['plain_ms']} (device {ms['plain_device_ms']}); "
+            f"F.batch_norm {ms['library_ms']} (device {ms['library_device_ms']}); bound "
+            f"{ms['bound_ms']}")
     return rows
 
 
@@ -512,6 +545,8 @@ def phase_check_conv():
                     rec[f"conv_variant_{mode}"] = assert_close(
                         f"K7 {mode} {tag}", got, want, *CONV_TOL[dname])
                     _same_bits(f"K7 {mode} {tag}", got, cl.conv_variant_cuda(mode, x, w2, h, w))
+                    if not torch.equal(got, y_k):
+                        raise AssertionError(f"K7 kernel {tag} is not K3's output bit for bit")
                 elif not torch.equal(got, want):
                     raise AssertionError(f"K7 {mode} {tag} is not bit-exact")
                 else:
@@ -521,7 +556,7 @@ def phase_check_conv():
             err["conv_wgrad"] = max(err["conv_wgrad"], e_w)
             cases.append(rec)
             log(f"[check] {tag}: max|err| K3 {e_y:.3g}, K4 {e_w:.3g} (max|dW2| {scale:.3g}; "
-                f"K3, K4 and K7 kernel repeats bit-identical), "
+                f"K3, K4 and K7 kernel repeats bit-identical, K7 kernel = K3), "
                 f"K7 {', '.join(f'{k[13:]} {v:.3g}' for k, v in rec.items() if k.startswith('conv_variant'))}")
     torch.cuda.synchronize()
 
@@ -635,16 +670,32 @@ def phase_probe():
             "f+wgrad": lambda: torch.autograd.grad(cl.conv3x3_lanes(x, wg, h, w), wg, dy),
         }
         rec = {name: cuda_time_ms(fn) for name, fn in fns.items()}
-        for mode in ("patches", "copy"):
+        modes = ("kernel", "patches", "copy")
+        for mode in modes:
             rec[f"{mode}_device_ms"] = device_ms(fns[mode])
-            rec[f"{mode}_plain_ms"] = cuda_time_ms(
-                lambda m=mode: cl.conv_variant_plain(m, x, w2, h, w))
-            nbytes, flops = conv_bound(mode, n, ci, co, h * w)
+            if mode != "kernel":
+                rec[f"{mode}_plain_ms"] = cuda_time_ms(
+                    lambda m=mode: cl.conv_variant_plain(m, x, w2, h, w))
+            nbytes, flops = conv_bound("conv_fwd" if mode == "kernel" else mode, n, ci, co, h * w)
             rec[f"{mode}_bound_ms"], _ = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+        dms = [rec[f"{m}_device_ms"] for m in modes]
+        # the three modes stage the same rows and copy out through the same
+        # tile; kernel fills it from the mma loop (whose ldmatrix reads take
+        # the taps as offsets: no gather of its own), patches by gathering
+        # the patch rows, copy from the centre tap
+        rec["split_device_ms"] = None if None in dms else {
+            "mma loop and W2 (kernel - copy)": dms[0] - dms[2],
+            "tap gather (patches - copy)": dms[1] - dms[2],
+            "stage and copy-out (copy)": dms[2]}
         rec.update(n=n, ci=ci, co=co, h=h, w=w)
         rows.append(rec)
-        log(f"[probe] c{ci}-{co}@{h}x{w} bf16 batch {n}, us/call: " + ", ".join(
+        log(f"[probe] c{ci}-{co}@{h}x{w} bf16 batch {n}, us/call (events): " + ", ".join(
             f"{k} {rec[k] * 1e3:.1f}" for k in fns))
+        shown = [f"{m} " + ("n/m" if d is None else f"{d * 1e3:.2f}")
+                 + f" (bound {rec[m + '_bound_ms'] * 1e3:.2f})" for m, d in zip(modes, dms)]
+        split = ("not measured" if rec["split_device_ms"] is None else ", ".join(
+            f"{k} {v * 1e3:.2f}" for k, v in rec["split_device_ms"].items()))
+        log(f"[probe] c{ci}-{co}@{h}x{w} device us/call: {', '.join(shown)}; split: {split}")
     torch.cuda.synchronize()
     launches = dict(cl.LAUNCHES)
     if launches["conv_variant"] == 0:
@@ -661,7 +712,7 @@ def kernel_family(name: str) -> str:
     if "conv_fwd_" in name or "conv_wgrad_" in name:
         return "lanes conv kernels (K3/K4)"
     if any(f"::{k}" in name or name.startswith(k) for k in
-           ("fwd_partials", "fwd_finalize", "fwd_normalize", "bn_bwd_onepass")):
+           ("bn_fwd_onepass", "bn_bwd_onepass")):
         return "bn kernels (K1/K2)"
     if any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "gemm",
                               "nchw", "nhwc")):

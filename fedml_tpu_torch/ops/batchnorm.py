@@ -1,10 +1,11 @@
 """Fused train-mode BatchNorm(+ReLU): kernels K1 (forward) and K2 (backward).
 
 Counterpart of ``fedml_tpu/ops/batchnorm.py``. The CUDA kernels live in
-``csrc/batchnorm.cu`` (see the note there): K1 is three launches (per-block
-partial sums, a fixed-order finalize, an elementwise pass); K2 is one
+``csrc/batchnorm.cu`` (see the note there): each of K1 and K2 is one
 cooperative launch that reads its inputs once, keeps its rows on chip
 across a grid barrier and sums the per-block partials in a fixed order.
+Each launches with a plan (grid, threads, rows kept on chip) made once per
+shape, dtype, alignment and device and cached here.
 Numerics follow flax ``nn.BatchNorm(use_running_average=False)``: biased
 variance over all leading axes, f32 statistics, scale and bias applied in
 f32, output cast back to the input dtype, and no gradient through the
@@ -25,8 +26,8 @@ import torch
 
 from fedml_tpu_torch.ops.grid_barrier import barrier_words
 
-#: calls of each kernel wrapper (one per BN forward or backward, however
-#: many CUDA launches each makes); read by chip_smoke.py
+#: calls of each kernel wrapper (one launch per BN forward or backward);
+#: read by chip_smoke.py
 LAUNCHES = {"bn_fwd": 0, "bn_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,14 +75,12 @@ def _lib():
 
     lib = load_library("batchnorm")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fedml_bn_stat_blocks.argtypes = [ll, i]
-    lib.fedml_bn_stat_blocks.restype = i
-    lib.fedml_bn_fwd.argtypes = [p, p, p, p, p, p, p, p, ll, i, ctypes.c_float, i, i, p]
+    lib.fedml_bn_plan_ints.argtypes = []
+    lib.fedml_bn_plan_ints.restype = i
+    lib.fedml_bn_plan.argtypes = [i, ll, i, i, i, p]
+    lib.fedml_bn_plan.restype = i
+    lib.fedml_bn_fwd.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, ctypes.c_float, i, i, p, p]
     lib.fedml_bn_fwd.restype = i
-    lib.fedml_bn_bwd_plan_ints.argtypes = []
-    lib.fedml_bn_bwd_plan_ints.restype = i
-    lib.fedml_bn_bwd_plan.argtypes = [ll, i, i, i, p]
-    lib.fedml_bn_bwd_plan.restype = i
     lib.fedml_bn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, ll, i, i, i, p, p]
     lib.fedml_bn_bwd.restype = i
     lib.fedml_cuda_error_string.argtypes = [i]
@@ -122,49 +121,56 @@ def _check_x(x2d: torch.Tensor) -> None:
         raise ValueError(f"the kernel takes n >= 1 rows and 1 <= C <= 1024; got {n}, {C}")
 
 
-def _scratch(x2d: torch.Tensor) -> torch.Tensor:
-    n, C = x2d.shape
-    blocks = _lib().fedml_bn_stat_blocks(n, C)
-    return torch.empty((blocks, 2, C), dtype=torch.float32, device=x2d.device)
-
-
-#: K2's plan fields (csrc/batchnorm.cu BwdGeom), in order
-BWD_PLAN_FIELDS = ("V", "vpr", "threads", "R", "cols", "cap", "blocks", "scratch_off",
-                   "coef_off")
-_PLAN_BLOCKS = BWD_PLAN_FIELDS.index("blocks")
+#: the plan fields of K1 and K2 (csrc/batchnorm.cu Geom), in order
+PLAN_FIELDS = ("V", "vpr", "threads", "R", "cols", "cap", "blocks", "scratch_off",
+               "coef_off")
+_PLAN_BLOCKS = PLAN_FIELDS.index("blocks")
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_plan(n: int, C: int, dtype: int, aligned: bool, device: int):
-    """K2's launch plan (an occupancy query and the grid) for one shape on
-    one device, computed once: a ctypes int array passed to every launch."""
+def _plan(backward: bool, n: int, C: int, dtype: int, aligned: bool, device: int):
+    """K1's (``backward`` False) or K2's launch plan (an occupancy query and
+    the grid) for one shape on one device, computed once: a ctypes int
+    array passed to every launch."""
     lib = _lib()
-    if lib.fedml_bn_bwd_plan_ints() != len(BWD_PLAN_FIELDS):
-        raise RuntimeError("csrc/batchnorm.cu's BwdGeom does not match BWD_PLAN_FIELDS")
-    plan = (ctypes.c_int * len(BWD_PLAN_FIELDS))()
+    if lib.fedml_bn_plan_ints() != len(PLAN_FIELDS):
+        raise RuntimeError("csrc/batchnorm.cu's Geom does not match PLAN_FIELDS")
+    plan = (ctypes.c_int * len(PLAN_FIELDS))()
     with torch.cuda.device(device):
-        _check(lib.fedml_bn_bwd_plan(n, C, dtype, int(aligned), plan), "bn_bwd plan")
+        _check(lib.fedml_bn_plan(int(backward), n, C, dtype, int(aligned), plan),
+               "bn_bwd plan" if backward else "bn_fwd plan")
     return plan
 
 
-def _bwd_plan_for(x2d, y, dy, dx, relu: bool):
+def _plan_for(backward: bool, *rows: torch.Tensor):
+    """The plan for the [n, C] tensors of one call (``rows[0]`` is x)."""
+    x2d = rows[0]
     n, C = x2d.shape
-    ptrs = [x2d.data_ptr(), dy.data_ptr(), dx.data_ptr()] + ([y.data_ptr()] if relu else [])
-    aligned = all(q % 16 == 0 for q in ptrs)
-    return _bwd_plan(n, C, _DTYPES[x2d.dtype], aligned, x2d.device.index)
+    aligned = all(t.data_ptr() % 16 == 0 for t in rows)
+    return _plan(backward, n, C, _DTYPES[x2d.dtype], aligned, x2d.device.index)
+
+
+def _plan_dict(plan, n: int) -> dict:
+    out = dict(zip(PLAN_FIELDS, plan))
+    out["rows_per_block"] = -(-n // out["blocks"])
+    return out
+
+
+def fwd_plan(x2d) -> dict:
+    """K1's plan for a CUDA tensor's shape (aligned tensors), with
+    ``rows_per_block``: more than ``cap`` means rows are read again from
+    device memory in the second pass."""
+    return _plan_dict(_plan_for(False, x2d), x2d.shape[0])
 
 
 def bwd_plan(x2d, relu: bool = True) -> dict:
-    """K2's plan for a CUDA tensor's shape (fresh, aligned tensors), with
-    ``rows_per_block``: more than ``cap`` means rows are read again from
-    device memory in the second pass."""
-    plan = dict(zip(BWD_PLAN_FIELDS, _bwd_plan_for(x2d, x2d, x2d, x2d, relu)))
-    plan["rows_per_block"] = -(-x2d.shape[0] // plan["blocks"])
-    return plan
+    """K2's plan for a CUDA tensor's shape (aligned tensors), as
+    ``fwd_plan``."""
+    return _plan_dict(_plan_for(True, *([x2d] * (4 if relu else 3))), x2d.shape[0])
 
 
 def bn_fwd_cuda(x2d, gamma, beta, eps: float = 1e-5, relu: bool = True):
-    """K1 on the card. Returns (y, mean, rstd, var)."""
+    """K1 on the card, one launch. Returns (y, mean, rstd, var)."""
     _check_x(x2d)
     _check_channel("gamma", gamma, x2d)
     _check_channel("beta", beta, x2d)
@@ -173,13 +179,15 @@ def bn_fwd_cuda(x2d, gamma, beta, eps: float = 1e-5, relu: bool = True):
         y = torch.empty_like(x2d)
         mean, rstd, var = (torch.empty(C, dtype=torch.float32, device=x2d.device)
                            for _ in range(3))
-        partial = _scratch(x2d)
+        plan = _plan_for(False, x2d, y)
+        partial = torch.empty((plan[_PLAN_BLOCKS], 2, C), dtype=torch.float32, device=x2d.device)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        barrier = barrier_words(x2d.device, stream)
         LAUNCHES["bn_fwd"] += 1
         code = _lib().fedml_bn_fwd(
             x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
             mean.data_ptr(), rstd.data_ptr(), var.data_ptr(), partial.data_ptr(),
-            n, C, float(eps), int(relu), _DTYPES[x2d.dtype], stream)
+            barrier.data_ptr(), n, C, float(eps), int(relu), _DTYPES[x2d.dtype], plan, stream)
     _check(code, "bn_fwd")
     return y, mean, rstd, var
 
@@ -197,7 +205,7 @@ def bn_bwd_cuda(x2d, y, dy, gamma, mean, rstd, relu: bool = True):
         dx = torch.empty_like(dy)
         dgamma = torch.empty(C, dtype=torch.float32, device=x2d.device)
         dbeta = torch.empty(C, dtype=torch.float32, device=x2d.device)
-        plan = _bwd_plan_for(x2d, y, dy, dx, relu)
+        plan = _plan_for(True, x2d, dy, dx, *([y] if relu else []))
         partial = torch.empty((plan[_PLAN_BLOCKS], 2, C), dtype=torch.float32, device=x2d.device)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         barrier = barrier_words(x2d.device, stream)

@@ -74,12 +74,13 @@
 
 #include <type_traits>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kBK = 32;               // f32 kernel: keys per staged K/V tile
 constexpr float kNegInf = -1e30f;
-constexpr size_t kDefaultSmem = 48 * 1024;
 
 // ---------------------------------------------------------------------------
 // f32 inputs: CUDA cores
@@ -478,17 +479,12 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, float* o, float* m, float* l, int BH,
                 int Tq, int Tk, long long q_off, long long k_off, int causal, float sm_scale,
                 cudaStream_t stream) {
-  static size_t allowed = kDefaultSmem;
   const size_t smem = (size_t)kStages * 2 * kTK * (D + 8) * sizeof(__nv_bfloat16);
   const int qtiles = (Tq + kBQ - 1) / kBQ;
   if (qtiles > 65535) return (int)cudaErrorInvalidValue;
   auto kernel = flash_fwd_mma_kernel<D>;
-  if (smem > allowed) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    allowed = smem;
-  }
+  const cudaError_t e = raise_smem_limit(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(BH, qtiles);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

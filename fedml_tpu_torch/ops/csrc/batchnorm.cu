@@ -8,54 +8,52 @@
 // element, so they are bound by device-memory bytes: K1 must read x and
 // write y, K2 must read x, dy (and y for the ReLU mask) and write dx. At
 // ResNet-56's shapes that is 0.3-2.5 us of bytes a call, so what a call
-// costs beyond that is latency: launches, round trips, the cross-block sum.
+// costs beyond that is latency: the launch, round trips, the cross-block sum.
 //
-// The TPU kernel carries its per-channel sums across a sequential grid; CUDA
-// blocks run in no order. No float atomics in either kernel: two calls on
-// the same inputs give the same bits.
-//
-// K1, three launches:
-//   (a) partials: blocks stride over rows, every thread owns one channel
-//       (thread t reads element t of each [R, C] tile, so loads are
-//       contiguous across the block) and sums in f32; the block combines its
-//       R row-groups in shared memory and writes a [blocks, 2, C] f32 scratch.
-//   (b) finalize: one block sums the partials per channel in f64, split over
-//       J threads per channel and combined by a fixed-order tree.
-//   (c) an elementwise pass over [n * C] that writes y.
-// It reads x twice; K2's one-pass design is its next step.
-//
-// K2, one cooperative launch (bn_bwd_onepass), like the TPU kernel's two
-// phases over chunks it keeps resident:
-//   - each block takes a contiguous range of whole rows and reads x, dy and
-//     y once, 16 bytes a load where C and the alignment allow (8 bf16, 4
-//     f32; else one element), with 4 rows of loads in flight per thread;
-//   - it sums dbeta = sum g and dgamma = sum g * xhat per channel in f32 in
-//     a fixed order into a [blocks, 2, C] partial, and keeps the masked g
-//     and x of up to 88 KB of its rows in shared memory (at ResNet-56's
-//     shapes every row: at most 497 rows of 16-64 channels a block);
+// The TPU kernel carries its per-channel sums across a sequential grid (and
+// keeps the activation resident between its two phases); CUDA blocks run in
+// no order. Each kernel here is one cooperative launch that does both
+// phases, in the same shape:
+//   - each block takes a contiguous range of whole rows and reads its inputs
+//     once, 16 bytes a load where C and the alignment allow (8 bf16, 4 f32;
+//     else one element), with 4 rows of loads in flight per thread;
+//   - it sums its rows per channel in f32 in a fixed order (each thread its
+//     rows in order, then the block's row groups in order) into a [blocks,
+//     2, C] partial, and keeps as many of its rows as 88 KB of shared memory
+//     hold (at ResNet-56's shapes and batch 64, every row);
 //   - a grid barrier (grid_barrier.cuh; two words per (device, stream));
 //   - every block sums the partials per channel in f64 in the same order,
-//     so all hold the same dbeta and dgamma: one barrier, and the partials
-//     (<= 132 x 2 x 64 floats at the path's shapes) come from L2;
-//   - dx from the rows on chip (rows past a block's capacity are read
-//     again, by the same kernel), written once, 16 bytes a store. A
-//     thread's channels are fixed by the row layout, so gamma * rstd,
-//     dbeta / n and dgamma / n sit in its registers: no per-element
+//     so all hold the same statistics: one barrier, and the partials (<= 132
+//     x 2 x 64 floats at the path's shapes) come from L2;
+//   - the elementwise output from the rows on chip (rows past a block's
+//     capacity are read again, by the same kernel), written once, 16 bytes
+//     a store. A thread's channels are fixed by the row layout, so their
+//     per-channel coefficients sit in its registers: no per-element
 //     division or modulo.
-// The grid is one block an SM or fewer, planned once per (n, C, dtype,
-// alignment, device) by the wrapper.
+// No float atomics: two calls on the same inputs give the same bits.
 //
-// What bounds K2: its bytes are 0.3-2.5 us a call at ResNet-56's shapes;
+// K1 (bn_fwd_onepass) sums x and x^2 and keeps only x on chip, so a block
+// holds twice K2's rows per byte; the f64 sums give mean, var = E[x^2] -
+// mean^2 (the TPU kernel's formula, clamped at 0) and rstd, which block 0
+// writes out, and y = (x - mean) * rstd * gamma + beta (+ReLU) in f32,
+// stored in x's dtype. K2 (bn_bwd_onepass) sums dbeta = sum g and dgamma =
+// sum g * xhat of the masked g = dy * (y > 0), keeps x and g on chip, and
+// writes dx = gamma * rstd * (g - dbeta / n - xhat * dgamma / n).
+//
+// The grid is one block an SM or fewer (co-resident, as the barrier needs),
+// planned once per (kernel, n, C, dtype, alignment, device) by the wrapper.
+// What bounds both: their bytes are 0.3-2.5 us a call at ResNet-56's shapes;
 // the rest is latency — the launch, one round trip of loads per block, the
 // grid barrier and the f64 sum of the partials. On an H100 the barrier
 // timed dearer than the sum, so every block sums all partials itself
 // rather than a few blocks summing and a second barrier publishing the
 // result. One block an SM rather than two halves the partials and the
-// arrivals at the barrier, and timed faster.
+// arrivals at the barrier, and timed faster (K2).
 //
-// The plan sets bn_bwd_onepass's shared-memory limit at the most any plan
-// of that instantiation asks for, and only ever raises it: plans are
-// cached, so one made later must not lower the limit of an earlier one.
+// A plan raises its kernel's shared-memory limit on the current device to
+// the most any plan of that instantiation asks for (smem_limit.cuh), and
+// never lowers it: plans are cached, so one made later must not lower the
+// limit of an earlier one.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,14 +61,16 @@
 #include <type_traits>
 
 #include "grid_barrier.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
-constexpr int kTargetThreads = 256;
-constexpr int kMaxStatBlocks = 1024;
-constexpr int kRowsPerThread = 8;
-constexpr int kEltThreads = 256;
-constexpr long long kMaxEltBlocks = 132 * 32;
+constexpr int kBnThreads = 256;
+constexpr int kBnBlocksPerSm = 1;
+constexpr int kBnMaxCols = 1024 / kBnThreads;  // vector columns a thread owns, scalar loads
+constexpr int kBnUnroll = 4;                    // rows of loads in flight per thread
+constexpr int kBnSumLoads = 8;                  // partials in flight per thread in the sum
+constexpr size_t kBnStageBudget = 88 * 1024;    // bytes of rows a block keeps on chip
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -81,148 +81,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-// Threads of a partials block: R row-groups of C channels each.
-int stat_threads(int C) {
-  int r = kTargetThreads / C;
-  return C * (r > 0 ? r : 1);
-}
-
-int stat_blocks(long long n, int C) {
-  long long rows_per_block = (long long)(stat_threads(C) / C) * kRowsPerThread;
-  long long b = (n + rows_per_block - 1) / rows_per_block;
-  if (b < 1) b = 1;
-  if (b > kMaxStatBlocks) b = kMaxStatBlocks;
-  return (int)b;
-}
-
-// Threads of the finalize block: J lanes per channel, J a power of two.
-int finalize_threads(int C) {
-  int j = 1;
-  while (j * 2 * C <= 1024) j *= 2;
-  return C * j;
-}
-
-int elt_blocks(long long total) {
-  long long b = (total + kEltThreads - 1) / kEltThreads;
-  if (b < 1) b = 1;
-  if (b > kMaxEltBlocks) b = kMaxEltBlocks;
-  return (int)b;
-}
-
-// (a) of K1: per-block sums of x and x^2 per channel.
-template <typename T>
-__global__ void fwd_partials(const T* __restrict__ x, float* __restrict__ partial,
-                             long long n, int C) {
-  extern __shared__ float sh[];
-  const int R = blockDim.x / C;
-  const int c = threadIdx.x % C;
-  const long long step = (long long)gridDim.x * R;
-  float s = 0.f, ss = 0.f;
-  for (long long r = (long long)blockIdx.x * R + threadIdx.x / C; r < n; r += step) {
-    float v = to_f(x[r * C + c]);
-    s += v;
-    ss += v * v;
-  }
-  sh[threadIdx.x] = s;
-  sh[blockDim.x + threadIdx.x] = ss;
-  __syncthreads();
-  if (threadIdx.x < C) {
-    float a = 0.f, b = 0.f;
-    for (int j = 0; j < R; ++j) {
-      a += sh[j * C + c];
-      b += sh[blockDim.x + j * C + c];
-    }
-    partial[(size_t)blockIdx.x * 2 * C + c] = a;
-    partial[(size_t)blockIdx.x * 2 * C + C + c] = b;
-  }
-}
-
-// Sums the [blocks, 2, C] partials per channel in f64: lane j of channel c
-// takes blocks j, j + J, ... in order, then a fixed-order tree over the J
-// lanes in shared memory — the same order on every run.
-__device__ __forceinline__ void sum_partials(const float* __restrict__ partial, int blocks,
-                                             int C, double* sh, double& a, double& b) {
-  const int J = blockDim.x / C;
-  const int c = threadIdx.x % C, j = threadIdx.x / C;
-  double s0 = 0.0, s1 = 0.0;
-  for (int blk = j; blk < blocks; blk += J) {
-    s0 += partial[(size_t)blk * 2 * C + c];
-    s1 += partial[(size_t)blk * 2 * C + C + c];
-  }
-  sh[threadIdx.x] = s0;
-  sh[blockDim.x + threadIdx.x] = s1;
-  __syncthreads();
-  for (int half = J / 2; half > 0; half /= 2) {
-    if (j < half) {
-      sh[threadIdx.x] += sh[threadIdx.x + half * C];
-      sh[blockDim.x + threadIdx.x] += sh[blockDim.x + threadIdx.x + half * C];
-    }
-    __syncthreads();
-  }
-  a = sh[c];
-  b = sh[blockDim.x + c];
-}
-
-// (b) of K1: mean, biased variance and rstd per channel.
-__global__ void fwd_finalize(const float* __restrict__ partial, int blocks, int C,
-                             long long n, float eps, float* __restrict__ mean,
-                             float* __restrict__ rstd, float* __restrict__ var) {
-  extern __shared__ double shd[];
-  double s, ss;
-  sum_partials(partial, blocks, C, shd, s, ss);
-  if (threadIdx.x < C) {
-    const int c = threadIdx.x;
-    double m = s / (double)n;
-    double v = ss / (double)n - m * m;
-    if (v < 0.0) v = 0.0;
-    mean[c] = (float)m;
-    var[c] = (float)v;
-    rstd[c] = (float)(1.0 / sqrt(v + (double)eps));
-  }
-}
-
-// (c) of K1: y = (x - mean) * rstd * gamma + beta, optional ReLU.
-template <typename T>
-__global__ void fwd_normalize(const T* __restrict__ x, const float* __restrict__ gamma,
-                              const float* __restrict__ beta,
-                              const float* __restrict__ mean,
-                              const float* __restrict__ rstd, T* __restrict__ y,
-                              long long total, int C, int relu) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total; i += step) {
-    const int c = (int)(i % C);
-    float v = (to_f(x[i]) - mean[c]) * rstd[c] * gamma[c] + beta[c];
-    if (relu) v = fmaxf(v, 0.f);
-    y[i] = from_f<T>(v);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K2: one cooperative launch
-// ---------------------------------------------------------------------------
-
-constexpr int kBwdThreads = 256;
-constexpr int kBwdBlocksPerSm = 1;
-constexpr int kBwdMaxCols = 1024 / kBwdThreads;  // vector columns a thread owns, scalar loads
-constexpr int kBwdUnroll = 4;                     // rows of loads in flight per thread
-constexpr int kBwdSumLoads = 8;                   // partials in flight per thread in the sum
-constexpr size_t kBwdStageBudget = 88 * 1024;     // bytes of rows a block keeps on chip
-
-// Geometry of K2, computed once per (n, C, dtype, alignment, device) on the
-// host and passed to the kernel by value; all ints so the wrapper can keep
-// it as a plain int array.
-struct BwdGeom {
+// Geometry of K1 or K2, computed once per (kernel, n, C, dtype, alignment,
+// device) on the host and passed to the kernel by value; all ints so the
+// wrapper can keep it as a plain int array.
+struct Geom {
   int V;            // elements per load: 16 bytes' worth (8 bf16, 4 f32), or 1
   int vpr;          // vectors per row, C / V
-  int threads;      // block size: R * vpr, or kBwdThreads when vpr > kBwdThreads
+  int threads;      // block size: R * vpr, or kBnThreads when vpr > kBnThreads
   int R;            // rows the block's threads cover at once
-  int cols;         // vector columns per thread (> 1 only when vpr > kBwdThreads)
+  int cols;         // vector columns per thread (> 1 only when vpr > kBnThreads)
   int cap;          // rows per block kept in shared memory between the passes
   int blocks;       // grid size, all resident at once
   int scratch_off;  // bytes: the f32 / f64 reduction scratch after the stage
-  int coef_off;     // bytes: dbeta / n and dgamma / n per channel
+  int coef_off;     // bytes: two per-channel f32 coefficients (K1: mean, rstd;
+                    // K2: dbeta / n, dgamma / n)
 };
-constexpr int kBwdPlanInts = sizeof(BwdGeom) / sizeof(int);
+constexpr int kPlanInts = sizeof(Geom) / sizeof(int);
 
 template <typename T, int V>
 struct alignas(V * sizeof(T)) Pack {
@@ -246,7 +120,7 @@ __device__ __forceinline__ Pack<T, V> relu_mask(Pack<T, V> d, const Pack<T, V>& 
   return d;
 }
 
-// Lanes per entry vector of K2's partial sum: the block's threads over the
+// Lanes per entry vector of the partial sum: the block's threads over the
 // 2C / VE vectors of VE entries of a [2, C] partial row (VE = 4 when C is
 // even, so a row is whole float4s), at least one.
 __host__ __device__ __forceinline__ int sum_lanes(int threads, int C) {
@@ -256,7 +130,7 @@ __host__ __device__ __forceinline__ int sum_lanes(int threads, int C) {
 
 // The f64 sums of the gridDim.x partial rows [2, C] (written by other
 // blocks before the grid barrier, so read through L2): lane j of entry
-// vector q adds blocks j, j + J, ... in order, kBwdSumLoads of them in
+// vector q adds blocks j, j + J, ... in order, kBnSumLoads of them in
 // flight, into shd[j][2C]. Returns J.
 template <int VE>
 __device__ int partial_sums(const float* partial, int C, double* shd) {
@@ -267,10 +141,10 @@ __device__ int partial_sums(const float* partial, int C, double* shd) {
     double s[VE];
 #pragma unroll
     for (int e = 0; e < VE; ++e) s[e] = 0.0;
-    for (int b0 = j; b0 < B; b0 += J * kBwdSumLoads) {
-      float v[kBwdSumLoads][VE];
+    for (int b0 = j; b0 < B; b0 += J * kBnSumLoads) {
+      float v[kBnSumLoads][VE];
 #pragma unroll
-      for (int u = 0; u < kBwdSumLoads; ++u) {
+      for (int u = 0; u < kBnSumLoads; ++u) {
         const int b = b0 + u * J;
         F f{};
         if (b < B) f = __ldcg(reinterpret_cast<const F*>(partial + (size_t)b * E) + q);
@@ -284,7 +158,7 @@ __device__ int partial_sums(const float* partial, int C, double* shd) {
         }
       }
 #pragma unroll
-      for (int u = 0; u < kBwdSumLoads; ++u)
+      for (int u = 0; u < kBnSumLoads; ++u)
 #pragma unroll
         for (int e = 0; e < VE; ++e) s[e] += v[u][e];
     }
@@ -294,25 +168,182 @@ __device__ int partial_sums(const float* partial, int C, double* shd) {
   return J;
 }
 
+// Writes the block's partial: its R row groups' two f32 sums per channel,
+// added in order, from red[2][R][C] (filled by the caller before).
+__device__ __forceinline__ void write_partial(const float* red, float* partial, int C,
+                                              const Geom& g) {
+  const int RC = g.R * C;
+  for (int c = threadIdx.x; c < C; c += g.threads) {
+    float a = 0.f, b = 0.f;
+    for (int j = 0; j < g.R; ++j) {
+      a += red[j * C + c];
+      b += red[RC + j * C + c];
+    }
+    partial[(size_t)blockIdx.x * 2 * C + c] = a;
+    partial[(size_t)blockIdx.x * 2 * C + C + c] = b;
+  }
+}
+
+// After the grid barrier: the B partials per entry of the flat [2, C] row
+// in f64, the same in every block. partial_sums writes the sums of J lanes
+// to shd[J][2C]; the lanes are added in order by the caller.
+__device__ __forceinline__ int sum_all_partials(const float* partial, int C, double* shd) {
+  const int J = C % 2 == 0 ? partial_sums<4>(partial, C, shd) : partial_sums<1>(partial, C, shd);
+  __syncthreads();
+  return J;
+}
+
+// K1: block b takes rows [n*b/B, n*(b+1)/B). Pass 0 reads x once, sums x
+// and x^2 of its rows per channel in f32 into partial[b], and keeps its
+// first `cap` rows of x in shared memory. After a grid barrier every block
+// sums the B partials per channel in f64 in the same order and derives mean,
+// var = E[x^2] - mean^2 (clamped at 0) and rstd = 1 / sqrt(var + eps), which
+// block 0 writes out; pass 1 writes y from the rows on chip (re-reading the
+// rows past `cap` from device memory). Thread t owns the same vector columns
+// in every row, so its channels' mean, rstd, gamma and beta sit in registers.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBnThreads, kBnBlocksPerSm)
+bn_fwd_onepass(const T* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, T* __restrict__ y, float* __restrict__ mean,
+               float* __restrict__ rstd, float* __restrict__ var, float* __restrict__ partial,
+               unsigned int* bar, long long n, int C, float eps, int relu, Geom g) {
+  using P = Pack<T, V>;
+  constexpr int MC = V == 1 ? kBnMaxCols : 1;  // V > 1 gives vpr <= 256: one column
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  P* sx = reinterpret_cast<P*>(smem);  // [cap][vpr]
+  float* red = reinterpret_cast<float*>(smem + g.scratch_off);
+  double* shd = reinterpret_cast<double*>(smem + g.scratch_off);
+  float* coef = reinterpret_cast<float*>(smem + g.coef_off);
+
+  const int t = threadIdx.x, vpr = g.vpr;
+  const long long r0 = n * blockIdx.x / gridDim.x;
+  const long long rows = n * (blockIdx.x + 1) / gridDim.x - r0;
+  const long long cap = rows < g.cap ? rows : g.cap;
+  const int ro = t / vpr;  // this thread's first row; its columns t % vpr + k * threads
+  int col[MC];
+  bool live[MC];
+  float s1[MC][V], s2[MC][V];
+#pragma unroll
+  for (int k = 0; k < MC; ++k) {
+    col[k] = t % vpr + k * g.threads;
+    live[k] = k < g.cols && col[k] < vpr;
+#pragma unroll
+    for (int v = 0; v < V; ++v) s1[k][v] = s2[k][v] = 0.f;
+  }
+
+  // pass 0: kBnUnroll rows of loads in flight, then sums and the stage
+  for (long long rr = ro; rr < rows; rr += kBnUnroll * g.R) {
+    P xv[kBnUnroll][MC];
+#pragma unroll
+    for (int u = 0; u < kBnUnroll; ++u) {
+      const long long r = rr + (long long)u * g.R;
+#pragma unroll
+      for (int k = 0; k < MC; ++k)
+        if (r < rows && live[k]) xv[u][k] = load_pack<T, V>(x, (r0 + r) * vpr + col[k]);
+    }
+#pragma unroll
+    for (int u = 0; u < kBnUnroll; ++u) {
+      const long long r = rr + (long long)u * g.R;
+#pragma unroll
+      for (int k = 0; k < MC; ++k) {
+        if (r < rows && live[k]) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const float xf = to_f(xv[u][k].v[v]);
+            s1[k][v] += xf;
+            s2[k][v] += xf * xf;
+          }
+          if (r < cap) sx[r * vpr + col[k]] = xv[u][k];
+        }
+      }
+    }
+  }
+
+  const int RC = g.R * C;
+#pragma unroll
+  for (int k = 0; k < MC; ++k) {
+    if (!live[k]) continue;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      red[ro * C + col[k] * V + v] = s1[k][v];
+      red[RC + ro * C + col[k] * V + v] = s2[k][v];
+    }
+  }
+  __syncthreads();
+  write_partial(red, partial, C, g);
+
+  grid_barrier(bar);
+
+  const int J = sum_all_partials(partial, C, shd);
+  for (int c = t; c < C; c += g.threads) {
+    double s = 0.0, ss = 0.0;
+    for (int j = 0; j < J; ++j) {
+      s += shd[j * 2 * C + c];
+      ss += shd[j * 2 * C + C + c];
+    }
+    const double m = s / (double)n;
+    double v = ss / (double)n - m * m;
+    if (v < 0.0) v = 0.0;
+    const float rs = (float)(1.0 / sqrt(v + (double)eps));
+    coef[c] = (float)m;
+    coef[C + c] = rs;
+    if (blockIdx.x == 0) {
+      mean[c] = (float)m;
+      var[c] = (float)v;
+      rstd[c] = rs;
+    }
+  }
+  __syncthreads();
+
+  // pass 1: y = (x - mean) * rstd * gamma + beta, optional ReLU
+  float mk[MC][V], rk[MC][V], gk[MC][V], bk[MC][V];
+#pragma unroll
+  for (int k = 0; k < MC; ++k)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = col[k] * V + v;
+      mk[k][v] = live[k] ? coef[c] : 0.f;
+      rk[k][v] = live[k] ? coef[C + c] : 0.f;
+      gk[k][v] = live[k] ? gamma[c] : 0.f;
+      bk[k][v] = live[k] ? beta[c] : 0.f;
+    }
+  for (long long r = ro; r < rows; r += g.R) {
+#pragma unroll
+    for (int k = 0; k < MC; ++k) {
+      if (!live[k]) continue;
+      const long long vec = (r0 + r) * vpr + col[k];
+      const P xv = r < cap ? sx[r * vpr + col[k]] : load_pack<T, V>(x, vec);
+      P out;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float o = (to_f(xv.v[v]) - mk[k][v]) * rk[k][v] * gk[k][v] + bk[k][v];
+        if (relu) o = fmaxf(o, 0.f);
+        out.v[v] = from_f<T>(o);
+      }
+      *reinterpret_cast<P*>(y + vec * V) = out;
+    }
+  }
+}
+
 // K2: block b takes rows [n*b/B, n*(b+1)/B). Pass 0 reads x, dy (and y
 // under ReLU) once, sums dbeta and dgamma of its rows per channel in f32
-// (fixed order: each thread its rows in order, then the block's row groups
-// in order) into partial[b], and keeps its first `cap` rows of x and g in
-// shared memory. After a grid barrier every block sums the B partials per
-// channel in f64 in the same order, so all blocks hold the same dbeta and
-// dgamma, and pass 1 writes dx from the rows on chip (re-reading the rows
-// past `cap` from device memory). Thread t owns the same vector columns in
-// every row, so its channels, their mean / rstd and the coefficients of
-// pass 1 sit in registers.
+// into partial[b], and keeps its first `cap` rows of x and g in shared
+// memory. After a grid barrier every block sums the B partials per channel
+// in f64 in the same order, so all blocks hold the same dbeta and dgamma,
+// and pass 1 writes dx from the rows on chip (re-reading the rows past
+// `cap` from device memory). Thread t owns the same vector columns in every
+// row, so its channels, their mean / rstd and the coefficients of pass 1
+// sit in registers.
 template <typename T, int V>
-__global__ void __launch_bounds__(kBwdThreads, kBwdBlocksPerSm)
+__global__ void __launch_bounds__(kBnThreads, kBnBlocksPerSm)
 bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ dy,
                const float* __restrict__ gamma, const float* __restrict__ mean,
                const float* __restrict__ rstd, T* __restrict__ dx, float* __restrict__ dgamma,
                float* __restrict__ dbeta, float* __restrict__ partial, unsigned int* bar,
-               long long n, int C, int relu, BwdGeom g) {
+               long long n, int C, int relu, Geom g) {
   using P = Pack<T, V>;
-  constexpr int MC = V == 1 ? kBwdMaxCols : 1;  // V > 1 gives vpr <= 256: one column
+  constexpr int MC = V == 1 ? kBnMaxCols : 1;  // V > 1 gives vpr <= 256: one column
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   P* sx = reinterpret_cast<P*>(smem);                 // [cap][vpr]
@@ -342,11 +373,11 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
     }
   }
 
-  // pass 0: kBwdUnroll rows of loads in flight, then sums and the stage
-  for (long long rr = ro; rr < rows; rr += kBwdUnroll * g.R) {
-    P xv[kBwdUnroll][MC], dv[kBwdUnroll][MC], yv[kBwdUnroll][MC];
+  // pass 0: kBnUnroll rows of loads in flight, then sums and the stage
+  for (long long rr = ro; rr < rows; rr += kBnUnroll * g.R) {
+    P xv[kBnUnroll][MC], dv[kBnUnroll][MC], yv[kBnUnroll][MC];
 #pragma unroll
-    for (int u = 0; u < kBwdUnroll; ++u) {
+    for (int u = 0; u < kBnUnroll; ++u) {
       const long long r = rr + (long long)u * g.R;
 #pragma unroll
       for (int k = 0; k < MC; ++k) {
@@ -359,7 +390,7 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
       }
     }
 #pragma unroll
-    for (int u = 0; u < kBwdUnroll; ++u) {
+    for (int u = 0; u < kBnUnroll; ++u) {
       const long long r = rr + (long long)u * g.R;
 #pragma unroll
       for (int k = 0; k < MC; ++k) {
@@ -380,7 +411,6 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
     }
   }
 
-  // the block's partial: its R row groups per channel, in order
   const int RC = g.R * C;
 #pragma unroll
   for (int k = 0; k < MC; ++k) {
@@ -392,23 +422,11 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
     }
   }
   __syncthreads();
-  for (int c = t; c < C; c += g.threads) {
-    float a = 0.f, b = 0.f;
-    for (int j = 0; j < g.R; ++j) {
-      a += red[j * C + c];
-      b += red[RC + j * C + c];
-    }
-    partial[(size_t)blockIdx.x * 2 * C + c] = a;
-    partial[(size_t)blockIdx.x * 2 * C + C + c] = b;
-  }
+  write_partial(red, partial, C, g);
 
   grid_barrier(bar);
 
-  // the B partials per entry of the flat [2, C] row in f64, the same in
-  // every block: partial_sums writes the sums of J lanes, the lanes are
-  // added in order here
-  const int J = C % 2 == 0 ? partial_sums<4>(partial, C, shd) : partial_sums<1>(partial, C, shd);
-  __syncthreads();
+  const int J = sum_all_partials(partial, C, shd);
   const double inv_n = 1.0 / (double)n;
   for (int c = t; c < C; c += g.threads) {
     double db = 0.0, dg = 0.0;
@@ -462,69 +480,38 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
   }
 }
 
-template <typename T>
-int fwd_launch(const void* x, const float* gamma, const float* beta, void* y, float* mean,
-               float* rstd, float* var, float* partial, long long n, int C, float eps,
-               int relu, cudaStream_t stream) {
-  const int nt = stat_threads(C);
-  const int blocks = stat_blocks(n, C);
-  const T* xt = static_cast<const T*>(x);
-  fwd_partials<T><<<blocks, nt, 2 * nt * sizeof(float), stream>>>(xt, partial, n, C);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int ft = finalize_threads(C);
-  fwd_finalize<<<1, ft, 2 * ft * sizeof(double), stream>>>(partial, blocks, C, n, eps, mean,
-                                                            rstd, var);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const long long total = n * C;
-  fwd_normalize<T><<<elt_blocks(total), kEltThreads, 0, stream>>>(
-      xt, gamma, beta, mean, rstd, static_cast<T*>(y), total, C, relu);
-  return (int)cudaGetLastError();
-}
-
-size_t bwd_reduce_bytes(const BwdGeom& g, int C) {
+size_t reduce_bytes(const Geom& g, int C) {
   const size_t f32 = 2 * (size_t)g.R * C * sizeof(float);
   const size_t f64 = 2 * (size_t)sum_lanes(g.threads, C) * C * sizeof(double);
   return f32 > f64 ? f32 : f64;
 }
 
-// Fills the offsets of g for `cap` rows on chip; returns the block's bytes.
-size_t bwd_layout(BwdGeom* g, int C, int cap, size_t elt) {
+// Fills the offsets of g for `cap` rows of `row_bytes` on chip; returns the
+// block's bytes.
+size_t layout(Geom* g, int C, int cap, size_t row_bytes) {
   g->cap = cap;
-  g->scratch_off = (int)((2 * (size_t)cap * C * elt + 15) / 16 * 16);
-  g->coef_off = g->scratch_off + (int)bwd_reduce_bytes(*g, C);
+  g->scratch_off = (int)(((size_t)cap * row_bytes + 15) / 16 * 16);
+  g->coef_off = g->scratch_off + (int)reduce_bytes(*g, C);
   return (size_t)g->coef_off + 2 * (size_t)C * sizeof(float);
 }
 
-// Raises a kernel's dynamic shared-memory limit on the current device to
-// `bytes`, never lowers it: the plans of one instantiation differ in their
-// bytes (they depend on C), and a plan made later for a smaller C must not
-// take away what an earlier, cached plan launches with.
-template <typename Kernel>
-cudaError_t raise_smem_limit(Kernel kernel, size_t bytes) {
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess || (size_t)a.maxDynamicSharedSizeBytes >= bytes) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
+size_t smem_bytes(const Geom& g, int C) { return (size_t)g.coef_off + 2 * (size_t)C * sizeof(float); }
 
-// K2's plan: 16-byte loads where C and the alignment allow, a block per
-// kBwdThreads threads' worth of whole rows, kBwdBlocksPerSm blocks an SM
-// (no more than the card holds at once: a cooperative launch), no more
-// blocks than rows or row sweeps, and as many of each block's rows on chip
-// as kBwdStageBudget holds.
-template <typename T, int V>
-cudaError_t bwd_plan_t(long long n, int C, BwdGeom* g) {
+// A plan of K1 (kept = 1: x on chip) or K2 (kept = 2: x and g): 16-byte
+// loads where C and the alignment allow, a block per kBnThreads threads'
+// worth of whole rows, kBnBlocksPerSm blocks an SM (no more than the card
+// holds at once: a cooperative launch), no more blocks than rows or row
+// sweeps, and as many of each block's rows on chip as kBnStageBudget holds.
+template <typename T, int V, typename Kernel>
+cudaError_t plan_t(Kernel kernel, int kept, long long n, int C, Geom* g) {
   g->V = V;
   g->vpr = C / V;
-  g->R = g->vpr <= kBwdThreads ? kBwdThreads / g->vpr : 1;
-  g->threads = g->vpr <= kBwdThreads ? g->R * g->vpr : kBwdThreads;
+  g->R = g->vpr <= kBnThreads ? kBnThreads / g->vpr : 1;
+  g->threads = g->vpr <= kBnThreads ? g->R * g->vpr : kBnThreads;
   g->cols = (g->vpr + g->threads - 1) / g->threads;
-  const size_t row_bytes = 2 * (size_t)C * sizeof(T);
-  const long long budget = kBwdStageBudget / row_bytes > 0 ? kBwdStageBudget / row_bytes : 1;
-  const size_t smax = bwd_layout(g, C, (int)budget, sizeof(T));
-  auto kernel = bn_bwd_onepass<T, V>;
+  const size_t row_bytes = kept * (size_t)C * sizeof(T);
+  const long long budget = kBnStageBudget / row_bytes > 0 ? kBnStageBudget / row_bytes : 1;
+  const size_t smax = layout(g, C, (int)budget, row_bytes);
   cudaError_t e = raise_smem_limit(kernel, smax);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, occ = 0;
@@ -533,90 +520,122 @@ cudaError_t bwd_plan_t(long long n, int C, BwdGeom* g) {
     return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, g->threads, smax);
   if (e != cudaSuccess) return e;
-  long long b = (long long)(occ < kBwdBlocksPerSm ? occ : kBwdBlocksPerSm) * sms;
+  long long b = (long long)(occ < kBnBlocksPerSm ? occ : kBnBlocksPerSm) * sms;
   const long long sweeps = (n + g->R - 1) / g->R;
   if (b > sweeps) b = sweeps;
   if (b > n) b = n;
   if (b < 1) return cudaErrorInvalidValue;
   g->blocks = (int)b;
   const long long per = (n + b - 1) / b;
-  bwd_layout(g, C, (int)(per < budget ? per : budget), sizeof(T));
+  layout(g, C, (int)(per < budget ? per : budget), row_bytes);
   return cudaSuccess;
 }
 
-cudaError_t bwd_plan(long long n, int C, int dtype, int aligned, BwdGeom* g) {
+template <typename T, int V>
+cudaError_t plan_v(int backward, long long n, int C, Geom* g) {
+  return backward ? plan_t<T, V>(bn_bwd_onepass<T, V>, 2, n, C, g)
+                  : plan_t<T, V>(bn_fwd_onepass<T, V>, 1, n, C, g);
+}
+
+cudaError_t plan(int backward, long long n, int C, int dtype, int aligned, Geom* g) {
   if (dtype == 1)
-    return aligned && C % 8 == 0 ? bwd_plan_t<__nv_bfloat16, 8>(n, C, g)
-                                 : bwd_plan_t<__nv_bfloat16, 1>(n, C, g);
-  return aligned && C % 4 == 0 ? bwd_plan_t<float, 4>(n, C, g) : bwd_plan_t<float, 1>(n, C, g);
+    return aligned && C % 8 == 0 ? plan_v<__nv_bfloat16, 8>(backward, n, C, g)
+                                 : plan_v<__nv_bfloat16, 1>(backward, n, C, g);
+  return aligned && C % 4 == 0 ? plan_v<float, 4>(backward, n, C, g)
+                               : plan_v<float, 1>(backward, n, C, g);
+}
+
+cudaError_t launch(const void* kernel, const Geom& g, int C, void** args, cudaStream_t stream) {
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(g.blocks), dim3(g.threads), args,
+                                              smem_bytes(g, C), stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+int fwd_launch(const void* x, const float* gamma, const float* beta, void* y, float* mean,
+               float* rstd, float* var, float* partial, unsigned int* bar, long long n, int C,
+               float eps, int relu, const Geom& g, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  Geom gg = g;
+  void* args[] = {(void*)&xt,   (void*)&gamma,   (void*)&beta, (void*)&yt,  (void*)&mean,
+                  (void*)&rstd, (void*)&var,     (void*)&partial, (void*)&bar, (void*)&n,
+                  (void*)&C,    (void*)&eps,     (void*)&relu, (void*)&gg};
+  return (int)launch((const void*)bn_fwd_onepass<T, V>, g, C, args, stream);
 }
 
 template <typename T, int V>
 int bwd_launch(const void* x, const void* y, const void* dy, const float* gamma,
                const float* mean, const float* rstd, void* dx, float* dgamma, float* dbeta,
                float* partial, unsigned int* bar, long long n, int C, int relu,
-               const BwdGeom& g, cudaStream_t stream) {
+               const Geom& g, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* yt = static_cast<const T*>(y);
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
-  BwdGeom gg = g;
+  Geom gg = g;
   void* args[] = {(void*)&xt,     (void*)&yt,     (void*)&dyt,   (void*)&gamma, (void*)&mean,
                   (void*)&rstd,   (void*)&dxt,    (void*)&dgamma, (void*)&dbeta, (void*)&partial,
                   (void*)&bar,    (void*)&n,      (void*)&C,     (void*)&relu,  (void*)&gg};
-  const size_t smem = (size_t)g.coef_off + 2 * (size_t)C * sizeof(float);
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)bn_bwd_onepass<T, V>, dim3(g.blocks),
-                                              dim3(g.threads), args, smem, stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return (int)launch((const void*)bn_bwd_onepass<T, V>, g, C, args, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of the [blocks, 2, C] f32 scratch K1 needs.
-int fedml_bn_stat_blocks(long long n, int C) { return stat_blocks(n, C); }
+// The plan of K1 (backward = 0) or K2 (backward = 1) for n rows of C
+// channels of a dtype (0 = float32, 1 = bfloat16) on the current device,
+// into plan[fedml_bn_plan_ints()] (the Geom fields in order; plan[6] is the
+// block count, the rows of the [blocks, 2, C] f32 scratch). aligned != 0
+// when every [n, C] tensor of the call is 16-byte aligned. Returns a CUDA
+// error code.
+int fedml_bn_plan_ints() { return kPlanInts; }
 
-// dtype: 0 = float32, 1 = bfloat16 (x and y). gamma, beta, mean, rstd and
-// var are float32 [C]. Returns the first CUDA error of the three launches.
-int fedml_bn_fwd(const void* x, const float* gamma, const float* beta, void* y, float* mean,
-                 float* rstd, float* var, float* partial, long long n, int C, float eps,
-                 int relu, int dtype, void* stream) {
+int fedml_bn_plan(int backward, long long n, int C, int dtype, int aligned, int* plan_out) {
   if (n < 1 || C < 1 || C > 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return fwd_launch<__nv_bfloat16>(x, gamma, beta, y, mean, rstd, var, partial, n, C, eps,
-                                     relu, s);
-  return fwd_launch<float>(x, gamma, beta, y, mean, rstd, var, partial, n, C, eps, relu, s);
+  Geom g;
+  cudaError_t e = plan(backward, n, C, dtype, aligned, &g);
+  if (e == cudaSuccess) *reinterpret_cast<Geom*>(plan_out) = g;
+  return (int)e;
 }
 
-// K2's plan for n rows of C channels of a dtype (0 = float32, 1 =
-// bfloat16) on the current device, into plan[kBwdPlanInts] (the BwdGeom
-// fields in order; plan[6] is the block count, the rows of the [blocks, 2,
-// C] f32 scratch). aligned != 0 when x, y, dy and dx are 16-byte aligned.
-// Returns a CUDA error code.
-int fedml_bn_bwd_plan_ints() { return kBwdPlanInts; }
-
-int fedml_bn_bwd_plan(long long n, int C, int dtype, int aligned, int* plan) {
+// K1, one cooperative launch. x and y share one dtype (0 = float32, 1 =
+// bfloat16); gamma, beta, mean, rstd and var are float32 [C]; partial the
+// [blocks, 2, C] f32 scratch; barrier two zeroed words that no other
+// launch uses at the same time (zero again after the call); plan from
+// fedml_bn_plan(0, ...) for this n, C, dtype and alignment.
+int fedml_bn_fwd(const void* x, const float* gamma, const float* beta, void* y, float* mean,
+                 float* rstd, float* var, float* partial, unsigned int* barrier, long long n,
+                 int C, float eps, int relu, int dtype, const int* plan, void* stream) {
   if (n < 1 || C < 1 || C > 1024) return (int)cudaErrorInvalidValue;
-  BwdGeom g;
-  cudaError_t e = bwd_plan(n, C, dtype, aligned, &g);
-  if (e == cudaSuccess) *reinterpret_cast<BwdGeom*>(plan) = g;
-  return (int)e;
+  const Geom& g = *reinterpret_cast<const Geom*>(plan);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (g.V == 8)
+      return fwd_launch<__nv_bfloat16, 8>(x, gamma, beta, y, mean, rstd, var, partial, barrier,
+                                          n, C, eps, relu, g, s);
+    return fwd_launch<__nv_bfloat16, 1>(x, gamma, beta, y, mean, rstd, var, partial, barrier, n,
+                                        C, eps, relu, g, s);
+  }
+  if (g.V == 4)
+    return fwd_launch<float, 4>(x, gamma, beta, y, mean, rstd, var, partial, barrier, n, C, eps,
+                                relu, g, s);
+  return fwd_launch<float, 1>(x, gamma, beta, y, mean, rstd, var, partial, barrier, n, C, eps,
+                              relu, g, s);
 }
 
 // K2, one cooperative launch. x, y, dy and dx share one dtype (0 = float32,
 // 1 = bfloat16); y is read only when relu != 0. dgamma and dbeta are
-// float32 [C]; partial the [blocks, 2, C] f32 scratch; barrier two zeroed
-// words that no other launch uses at the same time (zero again after the
-// call); plan from fedml_bn_bwd_plan for this n, C, dtype and alignment.
+// float32 [C]; partial and barrier as for K1; plan from fedml_bn_plan(1,
+// ...) for this n, C, dtype and alignment.
 int fedml_bn_bwd(const void* x, const void* y, const void* dy, const float* gamma,
                  const float* mean, const float* rstd, void* dx, float* dgamma, float* dbeta,
                  float* partial, unsigned int* barrier, long long n, int C, int relu, int dtype,
                  const int* plan, void* stream) {
   if (n < 1 || C < 1 || C > 1024) return (int)cudaErrorInvalidValue;
-  const BwdGeom& g = *reinterpret_cast<const BwdGeom*>(plan);
+  const Geom& g = *reinterpret_cast<const Geom*>(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (g.V == 8)

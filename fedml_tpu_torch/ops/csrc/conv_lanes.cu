@@ -55,15 +55,24 @@
 //   shared-memory issue. bf16 shapes whose tensor-core stage does not fit
 //   take it too.
 // - Shared memory: the host raises a kernel's dynamic shared-memory limit
-//   with cudaFuncAttributeMaxDynamicSharedMemorySize (up to the card's 227
-//   KB) where the stage needs more than 48 KB; rows per block shrink until
-//   the stage fits, and a shape that does not fit even at one row is
-//   refused with cudaErrorInvalidValue.
-// - K7 (MODE): kCopy writes the first Co channels of the image (no staging,
-//   one copy); kPatches writes the first Co rows of the patch matrix (row r
-//   = tap r / Ci, channel r % Ci, zero outside the image) from the f32
-//   stage of conv_fwd_kernel, no dot; kConv is K3 itself, the same entry
-//   point, so in bf16 it runs conv_fwd_mma.
+//   on the current device (smem_limit.cuh, up to the card's 227 KB) where
+//   the stage needs more than 48 KB; rows per block shrink until the stage
+//   fits, and a shape that does not fit even at one row is refused with
+//   cudaErrorInvalidValue.
+// - K7 (MODE), the probe that splits K3's time: kConv is K3 itself, the
+//   same entry point; kPatches writes the first Co rows of the patch matrix
+//   (row r = tap r / Ci, channel r % Ci, zero outside the image) and kCopy
+//   the first Co channels of the image, both from the stage of the kernel
+//   K3 runs for that dtype and shape, with no dot. In bf16 that is
+//   conv_fwd_mma<MODE>: the same geometry, the same rows staged to
+//   [pixel][channel] and the same copy-out through the shared [Co
+//   chunk][pixel] tile, only without W2 and the mma loop (kPatches gathers
+//   its rows from the stage into the tile, kCopy takes the centre tap). So
+//   kernel - copy is the mma loop with its W2 staging (K3's ldmatrix reads
+//   take the taps as offsets, so it has no gather of its own), and patches
+//   - copy the tap gather. Where K3 takes the CUDA-core kernel (f32, or a
+//   bf16 stage that does not fit), the probe modes take
+//   conv_fwd_kernel<T, MODE> too.
 //
 // K4, two kernels behind one entry point; the dtype picks one. The TPU
 // kernel sums dW2 in one f32 accumulator across a sequential grid; CUDA
@@ -107,6 +116,7 @@
 #include <stdint.h>
 
 #include "grid_barrier.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -116,7 +126,6 @@ constexpr int kCoTile = 16;         // K3: output channels per block
 constexpr int kWgCoTile = 32;       // K4: output channels per block
 constexpr int kWgradBlocks = 264;   // K4: partials over all Co tiles (2 per SM)
 constexpr int kFinLanes = 8;        // K4 finalize: threads per dW2 entry
-constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most one block may use
 
 enum Mode { kConv = 0, kPatches = 1, kCopy = 2 };
@@ -342,26 +351,14 @@ int fit_rows(int H, int W, F smem_of) {
   return smem_of(tr) <= kMaxSmem ? tr : 0;
 }
 
-// Raises the kernel's dynamic shared-memory limit above the 48 KB default
-// once per instantiation, as far as this launch needs.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* allowed) {
-  if (bytes <= *allowed) return cudaSuccess;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
-  if (e == cudaSuccess) *allowed = bytes;
-  return e;
-}
-
 template <typename T, int MODE>
 int fwd_launch(const void* x, const void* w2, void* y, int N, int Ci, int Co, int H, int W,
                cudaStream_t stream) {
-  static size_t allowed = kDefaultSmem;
   const int TR = fit_rows(H, W, [&](int tr) { return fwd_smem(Ci, W, tr, MODE); });
   if (TR == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(Ci, W, TR, MODE);
   auto kernel = conv_fwd_kernel<T, MODE>;
-  cudaError_t e = allow_smem(kernel, smem, &allowed);
+  cudaError_t e = raise_smem_limit(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((H + TR - 1) / TR, (Co + kCoTile - 1) / kCoTile, N);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w2),
@@ -386,13 +383,12 @@ int wgrad_blocks(int N, int Ci, int Co, int H, int W) {
 template <typename T>
 int wgrad_launch(const void* x, const void* dy, float* partial, float* dw2, int N, int Ci, int Co,
                  int H, int W, cudaStream_t stream) {
-  static size_t allowed = kDefaultSmem;
   const int TR = wgrad_rows(Ci, H, W);
   if (TR == 0) return (int)cudaErrorInvalidValue;
   const int B = wgrad_blocks(N, Ci, Co, H, W);
   const size_t smem = wgrad_smem(Ci, W, TR);
   auto kernel = conv_wgrad_partials<T>;
-  cudaError_t e = allow_smem(kernel, smem, &allowed);
+  cudaError_t e = raise_smem_limit(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B, (Co + kWgCoTile - 1) / kWgCoTile);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), static_cast<const T*>(dy),
@@ -643,10 +639,9 @@ int wg_chunks(const WgGeom& g) {
 // chunks, no more than the card holds at once (a cooperative launch) and
 // no more than there are items.
 cudaError_t wg_mma_plan(int N, int Ci, int Co, int H, int W, bool aligned, WgGeom* g, int* B) {
-  static size_t allowed = kDefaultSmem;
   if (!wg_geometry(Ci, Co, H, W, aligned, g)) return cudaErrorInvalidValue;
   const size_t smem = wg_mma_smem(Ci, *g);
-  cudaError_t e = allow_smem(conv_wgrad_mma, smem, &allowed);
+  cudaError_t e = raise_smem_limit(conv_wgrad_mma, smem);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, occ = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -838,7 +833,10 @@ __device__ void stage_fwd_weights(const __nv_bfloat16* __restrict__ w2, __nv_bfl
 // that chunk of W2 (B, read by ldmatrix too), and each warp computes pairs
 // of 16-pixel tiles over the 9 * CiP / 16 k-steps in a fixed order. The f32
 // sums go to bf16 through a shared [Co chunk][pixel] tile, from which rows
-// of Y are written contiguously.
+// of Y are written contiguously. K7's kPatches / kCopy (MODE) stage the same
+// rows and copy out the same way, but fill the tile from the stage: no W2,
+// no mma.
+template <int MODE>
 __global__ void __launch_bounds__(kFwThreads)
 conv_fwd_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w2,
              __nv_bfloat16* __restrict__ y, int Ci, int Co, int H, int W, FwGeom g) {
@@ -852,7 +850,8 @@ conv_fwd_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gq = lane >> 2, t = lane & 3;
   const int pairs = ((P + 15) / 16 + kFwMi - 1) / kFwMi;
 
-  stage_fwd_weights(w2, ws, 0, Ci, Co, g);  // cp.async: in flight while the rows stage
+  if constexpr (MODE == kConv)
+    stage_fwd_weights(w2, ws, 0, Ci, Co, g);  // cp.async: in flight while the rows stage
   stage_fwd_rows(x, reinterpret_cast<uint32_t*>(st), n, r0, Ci, H, W, g);
 
   // ldmatrix rows of this lane: A, pixel a_pix of the tile and channels
@@ -864,69 +863,81 @@ conv_fwd_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
   const int ksteps = g.CiP / 16;
 
   for (int co0 = 0; co0 < Co; co0 += kFwCoChunk) {
-    // the previous chunk's ws readers passed the barrier before its copy-out
-    if (co0 > 0) stage_fwd_weights(w2, ws, co0, Ci, Co, g);
-    cp_async_wait_all();
-    __syncthreads();  // the stage and this chunk's W2 are complete
-    const int ntiles = min(4, (Co - co0 + 7) / 8);
-    for (int mp = warp; mp < pairs; mp += kFwWarps) {
-      float acc[kFwMi][4][4];
-      uint32_t a_lane[kFwMi];
-#pragma unroll
-      for (int mi = 0; mi < kFwMi; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
-        const int q = min((mp * kFwMi + mi) * 16 + a_pix, P - 1);
-        a_lane[mi] = smem_addr(st) + 2u * (uint32_t)(((q / W) * g.Wp + q % W) * g.PP + a_k);
+    const int oc = min(kFwCoChunk, Co - co0);
+    if constexpr (MODE != kConv) {
+      __syncthreads();  // the stage is complete; the previous chunk's copy-out read the tile
+      // tile row o, pixel q: patch row co0 + o (tap r / Ci, channel r % Ci),
+      // or for kCopy channel co0 + o at the centre tap
+      for (int i = threadIdx.x; i < oc * P; i += blockDim.x) {
+        const int o = i / P, q = i - o * P, ry = q / W, xx = q - ry * W;
+        const int r = co0 + o, tap = MODE == kPatches ? r / Ci : 4;
+        const int c = MODE == kPatches ? r - tap * Ci : r;
+        ys[o * g.YP + q] = st[((ry + tap / 3) * g.Wp + xx + tap % 3) * g.PP + c];
       }
-      // k-step s is tap s / ksteps, channels 16 * (s % ksteps)
-      const int S = 9 * ksteps;
-      auto load = [&](int s, uint32_t (&a)[kFwMi][4], uint32_t (&b)[4][2]) {
-        const int tap = s / ksteps, kc = s - tap * ksteps;
-        const uint32_t toff = 2u * (uint32_t)(((tap / 3) * g.Wp + tap % 3) * g.PP) + 32u * kc;
+    } else {
+      // the previous chunk's ws readers passed the barrier before its copy-out
+      if (co0 > 0) stage_fwd_weights(w2, ws, co0, Ci, Co, g);
+      cp_async_wait_all();
+      __syncthreads();  // the stage and this chunk's W2 are complete
+      const int ntiles = min(4, (Co - co0 + 7) / 8);
+      for (int mp = warp; mp < pairs; mp += kFwWarps) {
+        float acc[kFwMi][4][4];
+        uint32_t a_lane[kFwMi];
 #pragma unroll
-        for (int mi = 0; mi < kFwMi; ++mi) ldmatrix_x4(a[mi], a_lane[mi] + toff);
+        for (int mi = 0; mi < kFwMi; ++mi) {
 #pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          if (2 * jp >= ntiles) break;  // warp-uniform
-          uint32_t r[4];
-          ldmatrix_x4(r, b_lane + 2u * (uint32_t)(jp * 16 * g.KP + tap * g.CiP + kc * 16));
-          b[2 * jp][0] = r[0];
-          b[2 * jp][1] = r[1];
-          b[2 * jp + 1][0] = r[2];
-          b[2 * jp + 1][1] = r[3];
+          for (int j = 0; j < 4; ++j) acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.f;
+          const int q = min((mp * kFwMi + mi) * 16 + a_pix, P - 1);
+          a_lane[mi] = smem_addr(st) + 2u * (uint32_t)(((q / W) * g.Wp + q % W) * g.PP + a_k);
         }
-      };
-      auto mma = [&](const uint32_t (&a)[kFwMi][4], const uint32_t (&b)[4][2]) {
+        // k-step s is tap s / ksteps, channels 16 * (s % ksteps)
+        const int S = 9 * ksteps;
+        auto load = [&](int s, uint32_t (&a)[kFwMi][4], uint32_t (&b)[4][2]) {
+          const int tap = s / ksteps, kc = s - tap * ksteps;
+          const uint32_t toff = 2u * (uint32_t)(((tap / 3) * g.Wp + tap % 3) * g.PP) + 32u * kc;
 #pragma unroll
-        for (int mi = 0; mi < kFwMi; ++mi)
+          for (int mi = 0; mi < kFwMi; ++mi) ldmatrix_x4(a[mi], a_lane[mi] + toff);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)  // warp-uniform: no mma past Co or the last pixel
-            if (j < ntiles && (mp * kFwMi + mi) * 16 < P)
-              mma_bf16(acc[mi][j], a[mi], b[j][0], b[j][1]);
-      };
-      for (int s = 0; s < S; ++s) {
-        uint32_t a[kFwMi][4], b[4][2];
-        load(s, a, b);
-        mma(a, b);
-      }
-      // C fragment: pixels gq, gq+8 of the tile, output channels 2t, 2t+1
+          for (int jp = 0; jp < 2; ++jp) {
+            if (2 * jp >= ntiles) break;  // warp-uniform
+            uint32_t r[4];
+            ldmatrix_x4(r, b_lane + 2u * (uint32_t)(jp * 16 * g.KP + tap * g.CiP + kc * 16));
+            b[2 * jp][0] = r[0];
+            b[2 * jp][1] = r[1];
+            b[2 * jp + 1][0] = r[2];
+            b[2 * jp + 1][1] = r[3];
+          }
+        };
+        auto mma = [&](const uint32_t (&a)[kFwMi][4], const uint32_t (&b)[4][2]) {
 #pragma unroll
-      for (int mi = 0; mi < kFwMi; ++mi) {
-        const int q0 = (mp * kFwMi + mi) * 16 + gq;
+          for (int mi = 0; mi < kFwMi; ++mi)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j >= ntiles) break;
-          __nv_bfloat16* yo = ys + (8 * j + 2 * t) * g.YP + q0;
-          yo[0] = __float2bfloat16(acc[mi][j][0]);
-          yo[g.YP] = __float2bfloat16(acc[mi][j][1]);
-          yo[8] = __float2bfloat16(acc[mi][j][2]);
-          yo[g.YP + 8] = __float2bfloat16(acc[mi][j][3]);
+            for (int j = 0; j < 4; ++j)  // warp-uniform: no mma past Co or the last pixel
+              if (j < ntiles && (mp * kFwMi + mi) * 16 < P)
+                mma_bf16(acc[mi][j], a[mi], b[j][0], b[j][1]);
+        };
+        for (int s = 0; s < S; ++s) {
+          uint32_t a[kFwMi][4], b[4][2];
+          load(s, a, b);
+          mma(a, b);
+        }
+        // C fragment: pixels gq, gq+8 of the tile, output channels 2t, 2t+1
+#pragma unroll
+        for (int mi = 0; mi < kFwMi; ++mi) {
+          const int q0 = (mp * kFwMi + mi) * 16 + gq;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j >= ntiles) break;
+            __nv_bfloat16* yo = ys + (8 * j + 2 * t) * g.YP + q0;
+            yo[0] = __float2bfloat16(acc[mi][j][0]);
+            yo[g.YP] = __float2bfloat16(acc[mi][j][1]);
+            yo[8] = __float2bfloat16(acc[mi][j][2]);
+            yo[g.YP + 8] = __float2bfloat16(acc[mi][j][3]);
+          }
         }
       }
     }
     __syncthreads();
-    const int oc = min(kFwCoChunk, Co - co0);
     __nv_bfloat16* yb = y + ((long long)n * Co + co0) * HW + (long long)r0 * W;
     if (g.yvec) {
       const int PU = PV / 8;
@@ -949,9 +960,10 @@ conv_fwd_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restric
 // whose stage does not fit even at one image row take the CUDA-core kernel,
 // which stages less where Ci is far below its padding to 16: a few channels
 // on wide rows, such as 3 channels at W = 1200 (chip_smoke.py checks it).
+// K7's bf16 modes (MODE) take the same decisions.
+template <int MODE>
 int fwd_mma_launch(const void* x, const void* w2, void* y, int N, int Ci, int Co, int H, int W,
                    cudaStream_t stream) {
-  static size_t allowed = kDefaultSmem;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -962,11 +974,12 @@ int fwd_mma_launch(const void* x, const void* w2, void* y, int N, int Ci, int Co
   bool fits = fw_geometry(Ci, H, W, kFwPixels, xa, wa, ya, &g);
   if (fits && (long long)N * ((H + g.TR - 1) / g.TR) < sms)
     fits = fw_geometry(Ci, H, W, kFwPixelsSmall, xa, wa, ya, &g);
-  if (!fits) return fwd_launch<__nv_bfloat16, kConv>(x, w2, y, N, Ci, Co, H, W, stream);
+  if (!fits) return fwd_launch<__nv_bfloat16, MODE>(x, w2, y, N, Ci, Co, H, W, stream);
   const size_t smem = fw_smem(g);
-  e = allow_smem(conv_fwd_mma, smem, &allowed);
+  auto kernel = conv_fwd_mma<MODE>;
+  e = raise_smem_limit(kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  conv_fwd_mma<<<dim3((H + g.TR - 1) / g.TR, N), kFwThreads, smem, stream>>>(
+  kernel<<<dim3((H + g.TR - 1) / g.TR, N), kFwThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w2),
       static_cast<__nv_bfloat16*>(y), Ci, Co, H, W, g);
   return (int)cudaGetLastError();
@@ -991,10 +1004,9 @@ int fedml_conv_fwd(const void* x, const void* w2, void* y, int N, int Ci, int Co
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    using T = __nv_bfloat16;
-    if (mode == kConv) return fwd_mma_launch(x, w2, y, N, Ci, Co, H, W, s);
-    if (mode == kPatches) return fwd_launch<T, kPatches>(x, w2, y, N, Ci, Co, H, W, s);
-    return fwd_launch<T, kCopy>(x, w2, y, N, Ci, Co, H, W, s);
+    if (mode == kConv) return fwd_mma_launch<kConv>(x, w2, y, N, Ci, Co, H, W, s);
+    if (mode == kPatches) return fwd_mma_launch<kPatches>(x, w2, y, N, Ci, Co, H, W, s);
+    return fwd_mma_launch<kCopy>(x, w2, y, N, Ci, Co, H, W, s);
   }
   if (mode == kConv) return fwd_launch<float, kConv>(x, w2, y, N, Ci, Co, H, W, s);
   if (mode == kPatches) return fwd_launch<float, kPatches>(x, w2, y, N, Ci, Co, H, W, s);

@@ -1,7 +1,7 @@
 // A grid-wide barrier for cooperative launches (every block resident), used
 // by the one-launch kernels that sum per-block partials across the grid:
-// K2 (batchnorm.cu, bn_bwd_onepass) and the bf16 K4 (conv_lanes.cu,
-// conv_wgrad_mma).
+// K1 and K2 (batchnorm.cu, bn_fwd_onepass and bn_bwd_onepass) and the bf16
+// K4 (conv_lanes.cu, conv_wgrad_mma).
 //
 // bar points at two zeroed 32-bit words of the device that no other launch
 // uses at the same time (the wrappers keep one pair per (device, stream);

@@ -1,7 +1,7 @@
 """Grid-barrier words of the cooperative kernels (``csrc/grid_barrier.cuh``).
 
-K2 (``bn_bwd_onepass``) and the bf16 K4 (``conv_wgrad_mma``) meet their
-grid once per call on two zeroed int32 words of the device and leave them
+K1 (``bn_fwd_onepass``), K2 (``bn_bwd_onepass``) and the bf16 K4
+(``conv_wgrad_mma``) meet their grid once per call on two zeroed int32 words of the device and leave them
 zero. Launches on one stream run in order, so the kernels of one (device,
 stream) share a pair.
 """

@@ -105,6 +105,39 @@ def test_bf16_backward_matches_jax_kernel(shape, relu):
     np.testing.assert_allclose(db_t.numpy(), np.asarray(db_j), rtol=1e-5, atol=1e-3)
 
 
+# ResNet-56's three widths at a small batch; 8x8x64 at batch 4, since at
+# batch 2 its 128 rows fold into 64 lane rows, which the JAX side does not
+# tile (it would take its XLA fallback, not the Pallas kernel)
+BF16_FWD_SHAPES = [(2, 32, 32, 16), (2, 16, 16, 32), (4, 8, 8, 64)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", BF16_FWD_SHAPES)
+def test_bf16_forward_matches_jax_kernel(shape, relu):
+    """K1's bf16 numerics: the same bf16 x through the plain forward (what
+    the one-pass kernel computes: f32 statistics, y in f32 rounded once to
+    bf16) and through the JAX package's forward, whose Pallas kernel runs in
+    interpret mode. y within one bf16 ulp (the statistics are summed in
+    other orders, and the kernel's variance is E[x^2] - mean^2); mean and
+    rstd at 1e-6 / 1e-5."""
+    x, g, b = _inputs(shape, seed=6)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    y_j, mean_j, rstd_j, res = jbn._fwd(xb, jnp.asarray(g), jnp.asarray(b), 1e-5, relu)
+    assert res[-1] is not None, "the JAX side must run its Pallas kernel"
+
+    C = shape[-1]
+    xt = torch.tensor(np.asarray(xb.astype(jnp.float32))).reshape(-1, C).to(torch.bfloat16)
+    y_t, mean_t, rstd_t, _ = tbn.bn_relu_fwd_plain(xt, torch.tensor(g), torch.tensor(b),
+                                                   1e-5, relu)
+    assert y_t.dtype == torch.bfloat16 and y_j.dtype == jnp.bfloat16
+    got = y_t.float().numpy()
+    want = np.asarray(y_j.astype(jnp.float32)).reshape(-1, C)
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), np.finfo(np.float32).tiny)
+    assert np.all(np.abs(got - want) <= 2.0 ** (np.floor(np.log2(mag)) - 7))
+    np.testing.assert_allclose(mean_t.numpy(), np.asarray(mean_j), atol=1e-6)
+    np.testing.assert_allclose(rstd_t.numpy(), np.asarray(rstd_j), atol=1e-5)
+
+
 @pytest.mark.parametrize("fuse_relu", [True, False])
 def test_norm_module_running_stats_match_pallas_batchnorm(fuse_relu):
     """Two train steps update the running mean/var as flax does (momentum

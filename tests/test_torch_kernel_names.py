@@ -1,5 +1,6 @@
 """Every CUDA kernel of the port is attributed to its family in the step
-profiles, and an edited header rebuilds the libraries that include it.
+profiles, an edited header rebuilds the libraries that include it, and
+every raise of a kernel's shared-memory limit goes through one header.
 
 ``chip_smoke.kernel_family`` and ``tools/torch_step_profile.family`` sort
 the profiler's device events by kernel name; a kernel they do not know
@@ -79,3 +80,25 @@ def test_library_path_changes_with_a_header(monkeypatch, tmp_path):
     headers[0].write_text(headers[0].read_text() + "\n// edited\n")
     after = {src: build.library_path(src) for src in build.SOURCES}
     assert all(before[src] != after[src] for src in build.SOURCES)
+
+
+def test_shared_memory_limits_go_through_the_header():
+    """``cudaFuncSetAttribute`` sets a kernel's dynamic shared-memory limit
+    on the current device only, so no source remembers a raised limit in a
+    static (a second card would launch above its own 48 KB default): every
+    raise is ``raise_smem_limit`` of ``csrc/smem_limit.cuh``, which reads
+    the current device's limit back, and each source that raises includes
+    that header."""
+    header = (build.CSRC / "smem_limit.cuh").read_text()
+    assert "cudaFuncGetAttributes" in header and "cudaFuncAttributeMaxDynamicSharedMemorySize" in header
+    local_static = re.compile(r"^[ \t]+static\s+(?!constexpr\b)", re.M)
+    raisers = []
+    for src in build.SOURCES:
+        text = (build.CSRC / f"{src}.cu").read_text()
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" not in text, src
+        assert "cudaFuncSetAttribute" not in text, src
+        assert not local_static.search(text), f"{src}.cu keeps a function-static variable"
+        if "raise_smem_limit(" in text:
+            assert '#include "smem_limit.cuh"' in text, src
+            raisers.append(src)
+    assert sorted(raisers) == ["attention", "batchnorm", "conv_lanes"]

@@ -25,7 +25,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-BN_KERNELS = ("fwd_partials", "fwd_finalize", "fwd_normalize", "bn_bwd_onepass")
+BN_KERNELS = ("bn_fwd_onepass", "bn_bwd_onepass")
 
 
 def family(name: str) -> str:
