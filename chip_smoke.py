@@ -9,7 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 1. Build every CUDA kernel from ``fedml_tpu_torch/ops/csrc`` with nvcc, one
    process per source, all started together.
 2. Hold K1 (BN forward) and K2 (BN backward) against their plain versions
-   on the card: ResNet-56's BN shapes at batch 64, a ragged row count,
+   on the card: ResNet-56's BN shapes at batch 64, unpacked and folded over
+   the packed schedule's two lanes ([rows, 2*C]), a ragged row count,
    scalar-load channel counts (C = 7, 300) and shapes past the kernels'
    on-chip capacity (planned C = 64, C = 16, then C = 64 again, and 10^6
    rows); K2 also at one row and fewer rows than the card holds blocks; f32
@@ -19,10 +20,19 @@ Phases (any failure raises and the script exits non-zero):
    512.
 3. Time each kernel at the main path's shapes with CUDA events, beside its
    plain version, ``F.batch_norm`` (+ReLU) as a library yardstick, and its
-   byte/operation bound.
+   byte/operation bound: the unpacked shapes, then the folded ones.
 4. Train 2 rounds of FedAvg (ResNet-56, ``bn_impl="pallas"``, bf16, 32
    non-IID synthetic CIFAR-10-shaped clients, 8 per round, batch 64, lr 0.1,
    momentum 0.9), evaluate, and check the loss and the kernel launch counts.
+4b. The same 2 rounds under the packing schedule of ``bench.py``'s flagship
+   (``pack_lanes=2``, ``packed_conv="off"``): the cohort in two lanes folded
+   into the channel axis, 57 K1 and 57 K2 per executed packed step, none in
+   ``evaluate_global``; then a small f32 packed round on the card against the
+   same round unpacked; one bf16 packed step of ResNet-56 at batch 64 against
+   the two lanes' plain bf16 and f32 steps (logits, gradients, BN statistics);
+   a control (round 0 unpacked and packed with the plain BN, a change of
+   summation order only); the grouped conv timed against two ungrouped
+   convs and one lane's; and a profile of 5 packed steps.
 5. Hold K3 (lanes 3x3 conv, also the dgrad), K4 (its wgrad) and K7 (K3's
    probe variants) against their plain versions at the lanes path's conv
    shapes at batch 64, 1 and 3 and five ragged shapes (the last takes the
@@ -66,7 +76,7 @@ Phases (any failure raises and the script exits non-zero):
 
 Phases 4, 8 and 11 end with a profile of 5 local steps of one client (wall
 and device ms per step, device busy share, device time by kernel family);
-phase 12 profiles one more step.
+phase 4b profiles 5 packed steps of two clients, phase 12 one more step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -106,6 +116,11 @@ MAIN_PATH_BNS = {
     (4096, 64, True): 9, (4096, 64, False): 10,
 }
 BNS_PER_STEP = sum(MAIN_PATH_BNS.values())      # 57
+# the packed flagship (pack_lanes=2): the same BNs, each over both lanes'
+# channels, [rows, 2*C]
+PACK_LANES = 2
+PACKED_BNS = {(n, PACK_LANES * C, relu): k for (n, C, relu), k in MAIN_PATH_BNS.items()}
+FOLDED_SHAPES = sorted({(n, C) for n, C, _ in PACKED_BNS}, reverse=True)
 # K1 and K2 checks: the path's shapes and a ragged row count; C = 7 and C =
 # 300 (scalar loads; two columns a thread at 300 in bf16); shapes past the
 # on-chip capacity, whose second pass reads rows again from device memory.
@@ -113,7 +128,8 @@ BNS_PER_STEP = sum(MAIN_PATH_BNS.values())      # 57
 # blocks: K1, as the TPU kernel, takes var = E[x^2] - mean^2, which at a row
 # or two misses the plain two-pass variance by more than its tolerance, so
 # it is checked at >= 4,096 rows.
-CHECK_SHAPES = [(65536, 16), (16384, 32), (4096, 64), (12347, 24)]   # last: ragged
+CHECK_SHAPES = [(65536, 16), (16384, 32), (4096, 64), *FOLDED_SHAPES,
+                (12347, 24)]   # last: ragged
 SCALAR_SHAPES = [(8_191, 7), (4_096, 300)]
 REREAD_SHAPE = (1_000_000, 16)
 # A plan sets its kernel's shared-memory limit, and a plan past its on-chip
@@ -429,8 +445,8 @@ def phase_check():
     return err, cases, worst
 
 
-def phase_time():
-    """Per-call times at the main path's BN shapes in bf16, and the per-step
+def phase_time(bns: dict = MAIN_PATH_BNS, label: str = "unpacked"):
+    """Per-call times at one path's BN shapes in bf16, and the per-step
     totals over ResNet-56's 57 BNs."""
     import torch
     import torch.nn.functional as F
@@ -440,7 +456,7 @@ def phase_time():
     rng = np.random.default_rng(SEED + 1)
     dev = torch.device("cuda")
     rows = []
-    for (n, C, relu), count in MAIN_PATH_BNS.items():
+    for (n, C, relu), count in bns.items():
         x = torch.tensor(rng.normal(size=(n, C)).astype(np.float32), device=dev).to(torch.bfloat16)
         dy = torch.tensor(rng.normal(size=(n, C)).astype(np.float32), device=dev).to(torch.bfloat16)
         g = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
@@ -489,7 +505,7 @@ def phase_time():
                  for k in ("ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
                            "library_device_ms", "bound_ms")}
         ms = {k: "n/m" if v is None else f"{v:.4f}" for k, v in total.items()}
-        log(f"[time] {kern} per step ({BNS_PER_STEP} calls, bf16): events {ms['ms']} ms, device "
+        log(f"[time] {kern} per {label} step ({BNS_PER_STEP} calls, bf16): events {ms['ms']} ms, device "
             f"{ms['device_ms']}; plain {ms['plain_ms']} (device {ms['plain_device_ms']}); "
             f"F.batch_norm {ms['library_ms']} (device {ms['library_device_ms']}); bound "
             f"{ms['bound_ms']}")
@@ -732,8 +748,6 @@ def step_profile(api, client: int = 0, steps: int = 5) -> dict:
     the busy share = device time over the unprofiled wall. Few steps keep
     the profiler's post-processing (~3,300 events a step) short."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     tx, ty, tm = api._dev_train
     count = min(int(api.dataset.train_counts[client]), steps * api.config.batch_size)
@@ -743,6 +757,45 @@ def step_profile(api, client: int = 0, steps: int = 5) -> dict:
         res = api._local_train(api.variables, tx[client], ty[client], tm[client], count,
                                torch.Generator().manual_seed(1))
         float(res.train_loss)
+
+    return {"client": client, **_profile(run, steps)}
+
+
+def packed_step_profile(api, steps: int = 5) -> dict:
+    """``steps`` packed steps of the first ``lanes`` clients, one a lane
+    (each client's first ``steps`` batches), through the round's packed
+    program: per step as ``step_profile``, and per real image."""
+    from fedml_tpu_torch.parallel.packed import executed_steps, plan_packing
+
+    c = api.config
+    lanes = c.pack_lanes
+    clients = np.arange(lanes)
+    counts = np.minimum(api.dataset.train_counts[clients], steps * c.batch_size).astype(np.float32)
+    plan = plan_packing(counts, c.batch_size, 1, lanes)
+    steps = len(executed_steps(plan.live))
+    orders = api._round_orders(0, lanes)
+    tx, ty, tm = api._dev_train
+
+    def run():
+        float(api._packed_train(api.variables, tx, ty, tm, clients, counts, orders,
+                                plan).train_loss)
+
+    prof = _profile(run, steps)
+    real = float(counts.sum())
+    return {"clients": clients.tolist(), "lanes": plan.n_lanes, "real_images": real,
+            "gpu_activities_per_real_image": prof["gpu_activities_per_step"] * steps / real,
+            "device_ms_per_real_image": prof["device_ms_per_step"] * steps / real,
+            "wall_ms_per_real_image": prof["wall_ms_per_step"] * steps / real, **prof}
+
+
+def _profile(run, steps: int) -> dict:
+    """Profile one call of ``run`` (``steps`` training steps), then time an
+    unprofiled call: per-step wall, device time by kernel family, busy share
+    and GPU activities, and the host operators that launched the most device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
@@ -758,51 +811,55 @@ def step_profile(api, client: int = 0, steps: int = 5) -> dict:
             fam = kernel_family(e.name)
             by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     total = sum(by_family.values())
-    # the host-side operators that launched the most device time
-    top = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+    # the host-side operators that launched the most device time, and those
+    # that took the most host time themselves
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    top = sorted((e for e in ops if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:12]
-    return {"client": client, "live_steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
+    host = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]
+    return {"live_steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
             "device_ms_per_step": total, "device_busy_share": total * steps / (wall_s * 1e3),
             "gpu_activities_per_step": n / steps,
             "device_ms_per_step_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
             "top_ops": [{"name": e.key, "device_ms_per_step": e.self_device_time_total / 1e3 / steps,
-                         "calls_per_step": e.count / steps} for e in top]}
+                         "calls_per_step": e.count / steps} for e in top],
+            "top_host_ops": [{"name": e.key, "host_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
+                              "calls_per_step": e.count / steps} for e in host]}
 
 
-def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
-    """2 FedAvg rounds of the flagship in one configuration; checks the
-    kernels' launch counts over the rounds and over evaluate_global."""
+def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", **config):
+    """bench.py's flagship cut to 2 rounds: ResNet-56 FedAvg on 32 non-IID
+    synthetic CIFAR-10-shaped clients, 8 a round, batch 64, bf16."""
     import torch
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     from fedml_tpu_torch.core.config import FedConfig
     from fedml_tpu_torch.data.synthetic import make_synthetic_classification
     from fedml_tpu_torch.models import create_model
-    from fedml_tpu_torch.ops import batchnorm as bn
-    from fedml_tpu_torch.ops import conv_lanes as cl
 
-    tag = f"[train {conv_impl}/{bn_impl}]"
-
-    t0 = time.perf_counter()
     ds = make_synthetic_classification(
         "cifar10-bench", (32, 32, 3), 10, 32, records_per_client=1562,
         partition_method="hetero", partition_alpha=0.5, batch_size=64, seed=SEED)
     cfg = FedConfig(model="resnet56", dataset="cifar10", client_num_in_total=32,
                     client_num_per_round=8, comm_round=2, batch_size=64, epochs=1, lr=0.1,
                     momentum=0.9, dtype="bfloat16", frequency_of_the_test=10_000, seed=SEED,
-                    async_rounds=True)
+                    async_rounds=True, **config)
     bundle = create_model("resnet56", 10, input_shape=ds.train_x.shape[2:],
                           dtype=torch.bfloat16, bn_impl=bn_impl, conv_impl=conv_impl)
-    api = FedAvgAPI(ds, cfg, bundle)
-    torch.cuda.synchronize()
-    log(f"{tag} set-up (data {ds.train_x.shape}, model, placement) {time.perf_counter() - t0:.1f} s")
+    return FedAvgAPI(ds, cfg, bundle)
 
-    steps = sum(api.round_counts(r)[1] // cfg.batch_size for r in range(cfg.comm_round))
+
+def run_rounds(api, tag: str, smi: str) -> tuple:
+    """The configured rounds (one sync each), then evaluate_global. Returns
+    (rounds, metrics, eval seconds, launches after the rounds, launches
+    after the evaluation); the counters are set to 0 just before."""
+    from fedml_tpu_torch.ops import batchnorm as bn
+    from fedml_tpu_torch.ops import conv_lanes as cl
+
     bn.reset_launches()
     cl.reset_launches()
     rounds = []
-    for r in range(cfg.comm_round):
+    for r in range(api.config.comm_round):
         t = time.perf_counter()
         loss = float(api.run_round(r))        # one sync per round
         dt = time.perf_counter() - t
@@ -824,6 +881,24 @@ def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
         f"{sum(r['real_images'] for r in rounds) / train_s:.1f} real images/s; {smi}")
     if not (np.isfinite(metrics["loss"]) and 0.0 <= metrics["acc"] <= 1.0):
         raise AssertionError(f"evaluate_global gave {metrics}")
+    return rounds, metrics, eval_s, trained, launches
+
+
+def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
+    """2 FedAvg rounds of the flagship in one configuration; checks the
+    kernels' launch counts over the rounds and over evaluate_global."""
+    import torch
+
+    tag = f"[train {conv_impl}/{bn_impl}]"
+    t0 = time.perf_counter()
+    api = flagship_api(bn_impl, conv_impl)
+    ds, cfg = api.dataset, api.config
+    torch.cuda.synchronize()
+    log(f"{tag} set-up (data {ds.train_x.shape}, model, placement) {time.perf_counter() - t0:.1f} s")
+
+    steps = sum(api.round_counts(r)[1] // cfg.batch_size for r in range(cfg.comm_round))
+    rounds, metrics, eval_s, trained, launches = run_rounds(api, tag, smi)
+    train_s = sum(r["seconds"] for r in rounds)
     # per live step: the BN path runs 57 K1 + 57 K2; the lanes path 72 K3
     # (36 forward + 36 dgrad) and 36 K4, and 36 K3 per eval batch
     eval_batches = -(-ds.test_x.shape[0] // EVAL_BATCH)
@@ -850,6 +925,257 @@ def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
             "launches_train": trained, "launches": launches,
             "rounds_per_s": len(rounds) / train_s,
             "real_images_per_s": sum(r["real_images"] for r in rounds) / train_s}
+
+
+def phase_train_packed(smi: str):
+    """The flagship's 2 rounds under the packing schedule (pack_lanes=2):
+    57 K1 and 57 K2 per executed packed step and none in evaluate_global;
+    a small f32 packed round on the card against the same round unpacked;
+    the flagship's bf16 step against its plain steps; the summation-order
+    control; the conv timing; a profile of 5 packed steps."""
+    import torch
+
+    from fedml_tpu_torch.parallel.packed import executed_steps
+
+    tag = "[train packed]"
+    t0 = time.perf_counter()
+    api = flagship_api(pack_lanes=PACK_LANES, packed_conv="off")
+    torch.cuda.synchronize()
+    log(f"{tag} set-up {time.perf_counter() - t0:.1f} s; {api.packed_status()}")
+    if not api.packed_status()["scheduled"]:
+        raise AssertionError(f"{tag} the packed schedule does not apply: {api.packed_status()}")
+    plans = [api._packed_plan(api.sample(r)) for r in range(api.config.comm_round)]
+    per_round = [{"lanes": pl.n_lanes, "T": pl.T, "executed_steps": len(executed_steps(pl.live)),
+                  "lane_steps": pl.live.sum(1).astype(int).tolist()} for pl in plans]
+    log(f"{tag} plans: {per_round}")
+    steps = sum(r["executed_steps"] for r in per_round)
+    rounds, metrics, eval_s, trained, launches = run_rounds(api, tag, smi)
+    train_s = sum(r["seconds"] for r in rounds)
+    for k in ("bn_fwd", "bn_bwd"):
+        if trained[k] != BNS_PER_STEP * steps:
+            raise AssertionError(f"{tag} {k} launched {trained[k]} times over the rounds; "
+                                 f"expected {BNS_PER_STEP} x {steps} packed steps")
+        if launches[k] != trained[k]:
+            raise AssertionError(f"{tag} {k} launched {launches[k] - trained[k]} times in "
+                                 f"evaluate_global; expected 0")
+    if any(trained[k] for k in ("conv_fwd", "conv_wgrad")):
+        raise AssertionError(f"{tag} the packed path launched a lanes conv kernel: {trained}")
+    replay = packed_replay_check()
+    bf16_check = packed_bf16_step_check()
+    control = order_control()
+    conv_timing = packed_conv_timing()
+    prof = packed_step_profile(api)
+    log(f"{tag} one packed step ({prof['lanes']} lanes x {api.config.batch_size} images): wall "
+        f"{prof['wall_ms_per_step']:.2f} ms, device {prof['device_ms_per_step']:.3f} ms (busy "
+        f"share {prof['device_busy_share']:.3f}), {prof['gpu_activities_per_step']:.0f} GPU "
+        f"activities ({prof['gpu_activities_per_real_image']:.2f} per real image); device ms by "
+        "family " + ", ".join(f"{k} {v:.3f}"
+                              for k, v in prof["device_ms_per_step_by_family"].items()))
+    return {"pack_lanes": PACK_LANES, "plans": per_round, "rounds": rounds, "eval": metrics,
+            "step_profile": prof, "replay_check": replay, "bf16_step_check": bf16_check,
+            "order_control": control, "conv_timing": conv_timing,
+            "eval_s": eval_s, "steps": steps,
+            "launches_train": trained, "launches": launches,
+            "rounds_per_s": len(rounds) / train_s,
+            "real_images_per_s": sum(r["real_images"] for r in rounds) / train_s}
+
+
+def packed_replay_check() -> dict:
+    """One f32 round of a small CifarResNet (widths 8/16/16, 8x8 images, 4
+    clients, 3 a round, 2 epochs) on the card, packed in two lanes against
+    unpacked, from the same weights and orders: the CPU test's tolerance
+    (variables rtol 1e-4 / atol 1e-5, loss rtol 1e-5)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import ModelBundle
+    from fedml_tpu_torch.models.resnet import CifarResNet
+
+    ds = make_synthetic_classification(
+        "packed-check", (8, 8, 3), 10, 4, records_per_client=16, test_records=40,
+        partition_method="hetero", partition_alpha=0.5, batch_size=8, seed=SEED)
+    apis = []
+    for lanes in (PACK_LANES, 0):
+        cfg = FedConfig(model="cifar-small", client_num_in_total=4, client_num_per_round=3,
+                        comm_round=1, batch_size=8, epochs=2, lr=0.05, momentum=0.9,
+                        seed=SEED, device_data="on", pack_lanes=lanes)
+        bundle = ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16),
+                                                        bn_impl="pallas"), (8, 8, 3))
+        apis.append(FedAvgAPI(ds, cfg, bundle))
+    packed, plain = apis
+    packed.variables = {k: v.clone() for k, v in plain.variables.items()}
+    plan = packed._packed_plan(packed.sample(0))
+    if plan.k_max < 2 or plan.live.min() > 0:
+        raise AssertionError("the replay check's cohort should put two clients in a lane and "
+                             "give a lane dead steps")
+    loss_p, loss_u = packed.run_round(0), plain.run_round(0)
+    if not abs(loss_p - loss_u) <= 1e-5 * abs(loss_u):
+        raise AssertionError(f"packed round loss {loss_p} != unpacked {loss_u} at rtol 1e-5")
+    worst = 0.0
+    for k, v in plain.variables.items():
+        worst = max(worst, assert_close(f"packed replay {k}", packed.variables[k], v, 1e-4, 1e-5))
+    log(f"[train packed] f32 replay on the card: loss {loss_p:.7f} vs {loss_u:.7f} unpacked, "
+        f"variables within {worst:.3g} (rtol 1e-4, atol 1e-5)")
+    return {"loss_packed": loss_p, "loss_unpacked": loss_u, "max_abs_err": worst}
+
+
+# The packed flagship's bf16 step against its plain steps. Both bf16 steps
+# round in their own order (the grouped conv, the folded BN sums), so
+# neither is the other's reference: each is held against the exact step
+# (f32, TF32 off) on the same inputs, and the packed step's relative L2
+# distance from it may be at most this multiple of the plain bf16 step's,
+# per lane and quantity (logits, gradients, BN running statistics). A
+# fault of the packed path (lanes' channels mixed, a wrong cast) gives an
+# error of order one, far above bf16's own.
+PACKED_BF16_RATIO = 2.0
+# ResNet-56's 3x3 convs at batch 64, one per stage, (C, H = W): the packed
+# path's grouped conv over two lanes against two ungrouped convs and one
+PACKED_CONV_SHAPES = ((16, 32), (32, 16), (64, 8))
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def packed_bf16_step_check() -> dict:
+    """One train step of the lane-stacked ResNet-56 (bf16, the BN kernels,
+    batch 64) over two lanes of different weights and batches (lane 1 with
+    24 padding records) against each lane's plain step in bf16 and in f32
+    on the same inputs: logits, per-lane gradients and BN running
+    statistics within PACKED_BF16_RATIO x the plain bf16 step's error."""
+    import torch
+
+    from fedml_tpu_torch.core.tasks import classification_loss
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.packed_conv import unstack_variables
+
+    dev = torch.device("cuda")
+    L, bs = PACK_LANES, 64
+    rng = np.random.default_rng(SEED + 11)
+    x = torch.tensor(rng.normal(size=(L, bs, 32, 32, 3)).astype(np.float32), device=dev)
+    y = torch.tensor(rng.integers(0, 10, size=(L, bs)), device=dev)
+    m = torch.ones(L, bs, device=dev)
+    m[1, bs - 24:] = 0.0
+    def model(dtype):
+        return create_model("resnet56", 10, dtype=dtype, bn_impl="pallas").module.to(dev)
+
+    weights = [create_model("resnet56", 10, bn_impl="pallas").init(100 + lane, device=dev)
+               for lane in range(L)]
+
+    names = [k for k, _ in model(torch.float32).named_parameters()]
+    stats = [k for k, _ in model(torch.float32).named_buffers()]
+
+    def record(logits, loss, grads: dict, buffers: dict) -> dict:
+        def flat(ts):
+            return torch.cat([t.detach().float().reshape(-1) for t in ts])
+        return {"logits": logits.detach().float(), "loss": loss.detach().float().view(1),
+                "grads": flat(grads[k] for k in names), "bn_stats": flat(buffers[k] for k in stats)}
+
+    plain = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for lane in range(L):
+            mod = model(dtype)
+            mod.load_state_dict(weights[lane])
+            mod.train()
+            logits = mod(x[lane])
+            loss = classification_loss(logits, y[lane], m[lane])
+            loss.backward()
+            plain[dtype, lane] = record(logits, loss, {k: p.grad for k, p in mod.named_parameters()},
+                                        dict(mod.named_buffers()))
+    twin = model(torch.bfloat16).lane_stacked(L)
+    twin.load_state_dict({k: torch.cat([w[k] for w in weights]) for k in weights[0]})
+    twin.train()
+    logits = twin(x)
+    losses = torch.stack([classification_loss(logits[lane], y[lane], m[lane]) for lane in range(L)])
+    losses.sum().backward()
+    grads = {k: p.grad for k, p in twin.named_parameters()}
+    buffers = dict(twin.named_buffers())
+    out, worst = {}, 0.0
+    for lane in range(L):
+        got = record(logits[lane], losses[lane], unstack_variables(grads, lane, L),
+                     unstack_variables(buffers, lane, L))
+        ref, pl = plain[torch.float32, lane], plain[torch.bfloat16, lane]
+        for q in ref:
+            if not bool(torch.isfinite(got[q]).all()):
+                raise AssertionError(f"packed bf16 step: lane {lane} {q} is not finite")
+            rec = {"plain_vs_f32": _rel(pl[q], ref[q]), "packed_vs_f32": _rel(got[q], ref[q]),
+                   "packed_vs_plain": _rel(got[q], pl[q])}
+            out[f"lane{lane}/{q}"] = rec
+            if q == "loss":     # one number: reported, held through the logits
+                continue
+            ratio = rec["packed_vs_f32"] / rec["plain_vs_f32"]
+            worst = max(worst, ratio)
+            if not ratio <= PACKED_BF16_RATIO:
+                raise AssertionError(
+                    f"packed bf16 step: lane {lane} {q} lies {rec['packed_vs_f32']:.3g} from the "
+                    f"f32 step, {ratio:.2f}x the plain bf16 step's {rec['plain_vs_f32']:.3g} "
+                    f"(limit {PACKED_BF16_RATIO}x)")
+    log("[train packed] bf16 step at the flagship's shapes, relative L2 from the f32 step, "
+        "plain bf16 / packed bf16 (packed vs plain): " + "; ".join(
+            f"{k} {v['plain_vs_f32']:.3g} / {v['packed_vs_f32']:.3g} ({v['packed_vs_plain']:.3g})"
+            for k, v in out.items()) + f"; worst ratio {worst:.3f} (limit {PACKED_BF16_RATIO})")
+    return {"quantities": out, "worst_ratio": worst, "limit": PACKED_BF16_RATIO}
+
+
+def order_control() -> dict:
+    """Round 0 of the flagship, unpacked and packed, with the plain BN
+    (``bn_impl="xla"``) in place of K1/K2: from the same weights, data and
+    orders as phases 4 and 4b, a change of summation order only. Their
+    losses beside phase 4's and 4b's show how far bf16 rounding alone moves
+    a round's loss."""
+    out = {}
+    for lanes in (0, PACK_LANES):
+        api = flagship_api("xla", pack_lanes=lanes)
+        out["packed" if lanes else "unpacked"] = float(api.run_round(0))
+    log(f"[train packed] control, round 0 with the plain BN: unpacked {out['unpacked']:.4f}, "
+        f"packed {out['packed']:.4f}")
+    return out
+
+
+def packed_conv_timing() -> list:
+    """Forward and backward (input and weight gradients) of one 3x3 conv a
+    stage, bf16, batch 64, channels last: two lanes as the packed path runs
+    them (one groups=2 conv over [N, H, W, 2C]), as two ungrouped convs, and
+    one lane alone; CUDA events and device ms per call."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 12)
+    rows = []
+
+    def t(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32), device=dev,
+                            dtype=torch.bfloat16)
+
+    for C, hw in PACKED_CONV_SHAPES:
+        n = 64
+        xs = [t(n, hw, hw, C).permute(0, 3, 1, 2).requires_grad_() for _ in range(PACK_LANES)]
+        ws = [t(C, C, 3, 3).requires_grad_() for _ in range(PACK_LANES)]
+        gys = [t(n, hw, hw, C).permute(0, 3, 1, 2) for _ in range(PACK_LANES)]
+        xg = torch.cat([x.detach() for x in xs], 1).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        wg = torch.cat([w.detach() for w in ws]).requires_grad_()
+        gyg = torch.cat(gys, 1).contiguous(memory_format=torch.channels_last)
+
+        def grouped():
+            F.conv2d(xg, wg, padding=1, groups=PACK_LANES).backward(gyg)
+
+        def split():
+            for x, w, gy in zip(xs, ws, gys):
+                F.conv2d(x, w, padding=1).backward(gy)
+
+        def one():
+            F.conv2d(xs[0], ws[0], padding=1).backward(gys[0])
+
+        rec = {"C": C, "hw": hw, "n": n, **_time_fns({"grouped_": grouped, "split_": split,
+                                                       "one_lane_": one})}
+        rows.append(rec)
+        log(f"[time] conv fwd+bwd {n}x{C}@{hw}x{hw} bf16, device ms (events): grouped x2 "
+            f"{rec['grouped_device_ms']} ({rec['grouped_ms']:.4f}), split x2 "
+            f"{rec['split_device_ms']} ({rec['split_ms']:.4f}), one lane "
+            f"{rec['one_lane_device_ms']} ({rec['one_lane_ms']:.4f})")
+    return rows
 
 
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
@@ -1274,7 +1600,9 @@ def main() -> int:
     build_info = timed("build", phase_build)
     err, cases, model_err = timed("check", phase_check)
     timing = timed("time", phase_time)
+    timing_packed = timed("time_packed", phase_time, PACKED_BNS, "packed")
     train = timed("train", phase_train, smi)
+    train_packed = timed("train_packed", phase_train_packed, smi)
     conv_err, conv_cases, lanes_model_err = timed("check_conv", phase_check_conv)
     conv_timing = timed("time_conv", phase_time_conv)
     probe, probe_launches = timed("probe", phase_probe)
@@ -1290,21 +1618,45 @@ def main() -> int:
         vals = [r[key] for r in rows]
         return None if None in vals else sum(v * r["calls_per_step"] for v, r in zip(vals, rows))
 
+    def bn_step(rows, name):
+        """One step's calls of a BN kernel at these shapes: per-step sums
+        and the step's bound."""
+        rows = [r for r in rows if r["kernel"] == name]
+        bounds = [bn_bound(r["rows"], r["C"], 2, r["relu"], name == "bn_bwd") for r in rows]
+        b_ms, b_by = bound_ms(sum(b[0] * r["calls_per_step"] for b, r in zip(bounds, rows)),
+                              sum(b[1] * r["calls_per_step"] for b, r in zip(bounds, rows)))
+        return rows, b_ms, b_by
+
     kernels = []
     for name, replaces in (("bn_fwd", "fedml_tpu/ops/batchnorm.py:36 (_fwd_kernel, pallas_call at :189)"),
                            ("bn_bwd", "fedml_tpu/ops/batchnorm.py:86 (_bwd_kernel, pallas_call at :245)"),
                            ("conv_fwd", "fedml_tpu/ops/conv_lanes.py:121 (_fwd_kernel, pallas_call at :163)"),
                            ("conv_wgrad", "fedml_tpu/ops/conv_lanes.py:130 (_wgrad_kernel, pallas_call at :185)")):
+        extra = {}
         if name.startswith("bn"):
-            rows = [r for r in timing if r["kernel"] == name]
-            bounds = [bn_bound(r["rows"], r["C"], 2, r["relu"], name == "bn_bwd") for r in rows]
-            peak, source, launches = PEAK_F32_FLOPS, "batchnorm.cu", train["launches"][name]
+            rows, b_ms, b_by = bn_step(timing, name)
+            source = "batchnorm.cu"
+            # the BN path's 2 rounds and the packed flagship's, each counted
+            # from 0 just before it
+            by_path = {"fedavg_bn": train["launches"][name],
+                       "fedavg_packed": train_packed["launches"][name]}
+            launches = sum(by_path.values())
+            prows, pb_ms, pb_by = bn_step(timing_packed, name)
+            extra = {"launches_by_path": by_path, "packed": {
+                # one packed step's 57 calls at the folded shapes [rows, 2*C]
+                "ms": per_step(prows, "ms"), "device_ms": per_step(prows, "device_ms"),
+                "plain_ms": per_step(prows, "plain_ms"),
+                "library_ms": per_step(prows, "library_ms"),
+                "library_device_ms": per_step(prows, "library_device_ms"),
+                "bound_ms": pb_ms, "bound_by": pb_by,
+                "per_call": [{k: v for k, v in r.items() if k != "kernel"} for r in prows]}}
         else:
             rows = [r for r in conv_timing if r["kernel"] == name]
             bounds = [conv_bound(name, r["n"], r["ci"], r["co"], r["h"] * r["w"]) for r in rows]
-            peak, source, launches = PEAK_BF16_FLOPS, "conv_lanes.cu", train_lanes["launches"][name]
-        b_ms, b_by = bound_ms(sum(b[0] * r["calls_per_step"] for b, r in zip(bounds, rows)),
-                              sum(b[1] * r["calls_per_step"] for b, r in zip(bounds, rows)), peak)
+            source, launches = "conv_lanes.cu", train_lanes["launches"][name]
+            b_ms, b_by = bound_ms(sum(b[0] * r["calls_per_step"] for b, r in zip(bounds, rows)),
+                                  sum(b[1] * r["calls_per_step"] for b, r in zip(bounds, rows)),
+                                  PEAK_BF16_FLOPS)
         kernels.append({
             "name": name, "route": "cuda", "source": f"fedml_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err[name],
@@ -1315,6 +1667,7 @@ def main() -> int:
             "plain_device_ms": per_step(rows, "plain_device_ms"),
             "library_device_ms": per_step(rows, "library_device_ms"),
             "per_call": [{k: v for k, v in r.items() if k != "kernel"} for r in rows],
+            **extra,
         })
     # K7: one probe pass, a "patches" and a "copy" call at each probe shape;
     # no single library call computes that mix
@@ -1361,7 +1714,8 @@ def main() -> int:
         "build": build_info,
         "phase_seconds": seconds,
         "check_cases": cases, "small_model_rel_err": model_err, "timing": timing,
-        "train": train, "conv_check_cases": conv_cases,
+        "timing_packed": timing_packed, "train": train, "train_packed": train_packed,
+        "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,
         "lm_check_cases": lm_cases, "small_lm_rel_err": lm_model_err, "lm_timing": lm_timing,

@@ -1,18 +1,26 @@
 """FedAvg, standalone simulation (counterpart of
-``fedml_tpu/algorithms/fedavg.py:FedAvgAPI``, plain round path only).
+``fedml_tpu/algorithms/fedavg.py:FedAvgAPI``: the plain round and the
+packed round).
 
 Each round samples a cohort (numpy, bit-equal to the JAX package), trains
-it client by client from the global state on the device, and takes the
-sample-weighted mean of the clients' state dicts, BatchNorm running
-statistics included. The stacked client dataset is placed on the device
-once (unless ``device_data="off"``), as ``_maybe_place_train_data`` does.
+it from the global state on the device, and takes the sample-weighted mean
+of the clients' state dicts, BatchNorm running statistics included. The
+stacked client dataset is placed on the device once (unless
+``device_data="off"``), as ``_maybe_place_train_data`` does.
 
-Not ported yet, and refused with ``NotImplementedError``: the packed-lanes
-schedule (``pack_lanes > 0``), injected failures (``failure_prob > 0``) and
-streaming aggregation. The bucketed and grouped schedules of the JAX package
-are not needed: running only each client's live steps (parallel/local.py)
-already skips the padding they trim. The cross-silo paradigm is a later
-port.
+The plain round trains the cohort client by client. With ``pack_lanes > 0``
+and the data on the device the round runs the packing schedule
+(``parallel/packed.py``): the cohort is packed into up to ``pack_lanes``
+lanes that train together in the model's lane-stacked twin. As in the JAX
+package, ``device_data="off"`` runs the plain round whatever
+``pack_lanes`` says (logged once).
+
+Not ported yet, and refused with ``NotImplementedError``: the joint packed
+lowerings (``packed_conv`` other than ``"off"``), injected failures
+(``failure_prob > 0``) and streaming aggregation. The bucketed and grouped
+schedules of the JAX package are not needed: running only each client's
+live steps (parallel/local.py) already skips the padding they trim. The
+cross-silo paradigm is a later port.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from fedml_tpu_torch.data import FedDataset
 from fedml_tpu_torch.models import ModelBundle, create_model
 from fedml_tpu_torch.parallel.local import (finalize_metrics, make_eval_fn,
                                             make_local_train_fn)
+from fedml_tpu_torch.parallel.packed import (PackedResult, PackPlan, executed_steps,
+                                             make_packed_cohort_train, plan_packing)
 
 log = logging.getLogger(__name__)
 
@@ -47,8 +57,9 @@ class FedAvgAPI:
                  bundle: Optional[ModelBundle] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  order_hook: Optional[OrderHook] = None):
-        if config.pack_lanes > 0:
-            raise NotImplementedError("pack_lanes > 0: the packed schedule is not ported yet")
+        if config.packed_conv != "off":
+            raise NotImplementedError(f"packed_conv={config.packed_conv!r}: the joint packed "
+                                      "lowerings are not ported yet (packed_conv='off' is)")
         if config.failure_prob > 0:
             raise NotImplementedError("failure_prob > 0: elastic rounds are not ported yet")
         if config.stream_aggregate != "off":
@@ -64,6 +75,8 @@ class FedAvgAPI:
         self._local_train = self.build_local_train()
         self._eval = make_eval_fn(self.bundle, self.task)
         self._dev_train = self._maybe_place_train_data()
+        self._packed_train = self.build_packed_train()
+        self._packed_plan_memo = None
         self._dev_test = None
         self._n_total = min(config.client_num_in_total, dataset.num_clients)
         self._cohort = min(config.client_num_per_round, dataset.num_clients)
@@ -94,6 +107,70 @@ class FedAvgAPI:
             grad_clip=c.grad_clip,
             compute_dtype=torch.bfloat16 if c.dtype == "bfloat16" else None)
 
+    def build_packed_train(self):
+        """The packed cohort program, or None when the packed schedule does
+        not apply (``pack_lanes == 0``, or the data is not on the device)."""
+        c = self.config
+        if c.pack_lanes <= 0:
+            return None
+        if self._dev_train is None:
+            log.warning("pack_lanes=%d: the packed schedule runs on data placed on the device; "
+                        "with device_data='off' every round runs the plain schedule",
+                        c.pack_lanes)
+            return None
+        return make_packed_cohort_train(
+            self.bundle, self.task, int(self.dataset.train_x.shape[1]), lr=c.lr,
+            momentum=c.momentum, wd=c.wd, epochs=c.epochs, batch_size=c.batch_size,
+            grad_clip=c.grad_clip,
+            compute_dtype=torch.bfloat16 if c.dtype == "bfloat16" else None)
+
+    def packed_status(self) -> dict:
+        """Whether the packed schedule applies, and whether a joint
+        lowering is active (never: only ``packed_conv="off"`` is ported)."""
+        if self.config.pack_lanes <= 0:
+            return {"scheduled": False, "packed_conv_active": False, "reason": "pack_lanes=0"}
+        if self._packed_train is None:
+            return {"scheduled": False, "packed_conv_active": False, "reason": "device_data=off"}
+        return {"scheduled": True, "packed_conv_active": False, "reason": "packed_conv=off"}
+
+    def _packed_plan(self, sampled: np.ndarray) -> Optional[PackPlan]:
+        key = tuple(int(s) for s in sampled)
+        if self._packed_plan_memo is not None and self._packed_plan_memo[0] == key:
+            return self._packed_plan_memo[1]   # run_round and round_counts share one plan
+        c = self.config
+        counts = np.asarray(self.dataset.train_counts, np.float64)[sampled]
+        # no t_quantum: it rounds T up with all-dead steps, which bucket the
+        # JAX package's jit shapes; the port skips such steps
+        plan = plan_packing(counts, c.batch_size, c.epochs, c.pack_lanes)
+        self._packed_plan_memo = (key, plan)
+        return plan
+
+    def _round_orders(self, round_idx: int, cohort: int) -> torch.Tensor:
+        """[cohort, epochs, n_pad] per-epoch permutations of every cohort
+        position, which the plain and the packed round both train on: each
+        position's draws from ``client_generator``, or the order hook's."""
+        n_pad = int(self.dataset.train_x.shape[1])
+        out = []
+        for i in range(cohort):
+            if self.order_hook is not None:
+                orders = self.order_hook(round_idx, i)
+            else:
+                g = client_generator(self.config.seed, round_idx, i)
+                orders = [torch.randperm(n_pad, generator=g) for _ in range(self.config.epochs)]
+            out.append(torch.stack([torch.as_tensor(o, dtype=torch.int64) for o in orders]))
+        return torch.stack(out)
+
+    def _run_packed_round(self, sampled: np.ndarray, round_idx: int) -> Optional[PackedResult]:
+        """The round under the packed schedule, or None when the cohort has
+        no records to train."""
+        plan = self._packed_plan(sampled)
+        if plan is None:
+            return None
+        counts = np.asarray(self.dataset.train_counts, np.float32)[sampled]
+        tx, ty, tm = self._dev_train
+        return self._packed_train(self.variables, tx, ty, tm, sampled, counts,
+                                  self._round_orders(round_idx, len(sampled)), plan)
+
     def aggregate(self, stacked_vars: dict, counts: torch.Tensor) -> dict:
         """Sample-weighted average (fedavg_api.py:100-115)."""
         return fedavg_aggregate(stacked_vars, counts)
@@ -104,9 +181,17 @@ class FedAvgAPI:
     def round_counts(self, round_idx: int) -> tuple:
         """(real, executed) training examples one epoch of this round
         processes: the cohort's real record counts, and the batch slots the
-        live steps execute (padding in each client's last batch included)."""
-        counts = np.asarray(self.dataset.train_counts, np.int64)[self.sample(round_idx)]
+        live steps execute (padding in each client's last batch included).
+        Packed: every lane of every executed plan step, one epoch's share
+        rounded to the nearest step."""
+        sampled = self.sample(round_idx)
+        counts = np.asarray(self.dataset.train_counts, np.int64)[sampled]
         bs = self.config.batch_size
+        if self._packed_train is not None:
+            plan = self._packed_plan(sampled)
+            if plan is not None:
+                slots = plan.n_lanes * len(executed_steps(plan.live))
+                return int(counts.sum()), int(round(slots / max(self.config.epochs, 1)) * bs)
         return int(counts.sum()), int(sum(-(-int(c) // bs) * bs for c in counts))
 
     def run_round(self, round_idx: int) -> "float | torch.Tensor":
@@ -114,6 +199,11 @@ class FedAvgAPI:
         or with ``config.async_rounds`` a 0-dim device tensor (no host sync)."""
         c = self.config
         sampled = self.sample(round_idx)
+        if self._packed_train is not None:
+            out = self._run_packed_round(sampled, round_idx)
+            if out is not None:
+                self.variables = out.variables
+                return out.train_loss if c.async_rounds else float(out.train_loss)
         counts = np.asarray(self.dataset.train_counts, np.int64)[sampled]
         if self._dev_train is not None:
             tx, ty, tm = self._dev_train
@@ -122,12 +212,10 @@ class FedAvgAPI:
         else:
             cx, cy, cm, _ = self.dataset.client_slice(sampled)
             cx, cy, cm = self._to_device(cx, cy, cm)
-        results = []
-        for i in range(len(sampled)):
-            orders = self.order_hook(round_idx, i) if self.order_hook is not None else None
-            results.append(self._local_train(
-                self.variables, cx[i], cy[i], cm[i], int(counts[i]),
-                client_generator(c.seed, round_idx, i), orders))
+        orders = self._round_orders(round_idx, len(sampled))
+        results = [self._local_train(self.variables, cx[i], cy[i], cm[i], int(counts[i]),
+                                     orders=orders[i])
+                   for i in range(len(sampled))]
         w = torch.as_tensor(counts, dtype=torch.float32, device=self.device)
         self.variables = self.aggregate(tree_stack([r.variables for r in results]), w)
         losses = torch.stack([r.train_loss for r in results])

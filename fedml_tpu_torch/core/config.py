@@ -1,9 +1,10 @@
 """Typed configuration (counterpart of ``fedml_tpu/core/config.py``).
 
 Only the fields the ported path reads, with the JAX package's names and
-defaults. ``pack_lanes``, ``failure_prob`` and ``stream_aggregate`` exist so
-that a launch line asking for an unported schedule fails loudly
-(``FedAvgAPI`` raises ``NotImplementedError``) instead of being ignored.
+defaults. ``packed_conv`` values other than ``"off"``, ``failure_prob`` and
+``stream_aggregate`` exist so that a launch line asking for an unported
+schedule fails loudly (``FedAvgAPI`` raises ``NotImplementedError``) instead
+of being ignored.
 """
 
 from __future__ import annotations
@@ -39,8 +40,13 @@ class FedConfig:
     # stacked client dataset is placed on the device once
     device_data: str = "auto"
 
-    # schedules of the JAX package that are not ported yet
+    # client packing (parallel/packed.py): the cohort runs in up to
+    # pack_lanes lanes, each lane's clients back to back. Only
+    # packed_conv="off" (the per-lane form) is ported.
     pack_lanes: int = 0
+    packed_conv: str = "off"
+
+    # schedules of the JAX package that are not ported yet
     failure_prob: float = 0.0
     stream_aggregate: str = "off"
 
@@ -55,6 +61,9 @@ class FedConfig:
             raise ValueError(f"device_data must be auto|on|off, got {self.device_data!r}")
         if self.pack_lanes < 0:
             raise ValueError(f"pack_lanes must be >= 0, got {self.pack_lanes}")
+        if self.packed_conv not in ("off", "blockdiag", "grouped", "auto"):
+            raise ValueError(f"packed_conv must be off|blockdiag|grouped|auto, got "
+                             f"{self.packed_conv!r}")
         if not 0.0 <= self.failure_prob < 1.0:
             raise ValueError(f"failure_prob must be in [0, 1), got {self.failure_prob}")
 

@@ -18,13 +18,21 @@ class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight`` [out, in] (lecun normal), zero bias.
     Input, weight and bias are cast to ``dtype`` (by default their promoted
     type) and the product is computed in it, as flax's ``promote_dtype``
-    does."""
+    does.
 
-    def __init__(self, in_features: int, features: int, dtype: Optional[torch.dtype] = None):
+    ``n_lanes=L > 0`` is L independent Dense layers, one per packed lane
+    (``ops/packed_conv.py``): ``weight`` [L*out, in], ``bias`` [L*out];
+    the input [N, L*in] (lane l's features at ``l*in + i``) gives
+    [L, N, out]."""
+
+    def __init__(self, in_features: int, features: int, dtype: Optional[torch.dtype] = None,
+                 n_lanes: int = 0):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        lanes = max(n_lanes, 1)
+        self.weight = nn.Parameter(torch.empty(lanes * features, in_features))
+        self.bias = nn.Parameter(torch.zeros(lanes * features))
         self.dtype = dtype
+        self.n_lanes = n_lanes
 
     def reset_parameters(self, generator=None) -> None:
         lecun_normal_(self.weight, self.weight.shape[1], generator)
@@ -33,7 +41,12 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if not self.n_lanes:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        L, (out, d) = self.n_lanes, self.weight.shape
+        xs = x.to(dt).reshape(x.shape[0], L, d).transpose(0, 1)       # [L, N, in]
+        w = self.weight.to(dt).view(L, out // L, d).transpose(1, 2)   # [L, in, out]
+        return torch.baddbmm(self.bias.to(dt).view(L, 1, out // L), xs, w)
 
 
 class Embed(nn.Module):

@@ -18,10 +18,23 @@ hand-written kernels K3/K4 and their BatchNorms are the plain
 ``BatchNorm(axis=1)``; the stem and wider stages stay NHWC. The lanes modules
 keep the NHWC names, so both bodies share one state dict. ``"packed"``
 raises ``NotImplementedError``.
+
+``n_lanes=L > 0`` builds the lane-stacked twin that the packed schedule
+trains (``parallel/packed.py``), the counterpart of ``vmap`` of the model
+over L lanes: the lanes are folded into the channel axis, so activations are
+NHWC ``[N, H, W, L*C]`` with lane l's channel c at ``l*C + c``. Each conv is
+one grouped ``F.conv2d(groups=L)`` (weight ``[L*Co, Ci, k, k]``), each
+train-mode BatchNorm one call over ``[N*H*W, L*C]`` (with ``bn_impl="pallas"``
+one K1 and one K2 launch for all lanes; the statistics are per channel, so
+per lane), and the head a per-lane Dense. It takes ``[L, N, H, W, 3]`` and
+gives ``[L, N, out]``; its state dict has the plain model's keys, each leaf
+folded as ``ops/packed_conv.stack_variables`` folds it. Only the NHWC body
+(``conv_impl="xla"``) has a lane-stacked twin.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -45,12 +58,17 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 
 class Conv(nn.Module):
     """flax ``nn.Conv(use_bias=False, padding='SAME')`` on NHWC input;
-    ``weight`` is OIHW. Computes in the input's dtype."""
+    ``weight`` is OIHW. Computes in the input's dtype. ``n_lanes=L > 0``:
+    L independent convs on the lane-folded channels, weight
+    ``[L*features, in_features, k, k]``, one ``groups=L`` conv."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1):
+    def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
+                 n_lanes: int = 0):
         super().__init__()
         self.stride = stride
-        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size, kernel_size))
+        self.groups = max(n_lanes, 1)
+        self.weight = nn.Parameter(torch.empty(self.groups * features, in_features,
+                                               kernel_size, kernel_size))
 
     def reset_parameters(self, generator=None) -> None:
         o, i, kh, kw = self.weight.shape
@@ -66,7 +84,8 @@ class Conv(nn.Module):
         else:
             xc = F.pad(xc, (wl, wr, ht, hb))
             pad = 0
-        y = F.conv2d(xc, self.weight.to(x.dtype), stride=self.stride, padding=pad)
+        y = F.conv2d(xc, self.weight.to(x.dtype), stride=self.stride, padding=pad,
+                     groups=self.groups)
         return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -84,13 +103,14 @@ class BasicBlock(nn.Module):
     takes the input's (H, W)."""
 
     def __init__(self, in_features: int, filters: int, strides: int = 1, bn_impl: str = "xla",
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", n_lanes: int = 0):
         super().__init__()
         lanes = conv_impl == "lanes"
-        conv = conv_lanes.Conv if lanes else Conv
+        conv = conv_lanes.Conv if lanes else functools.partial(Conv, n_lanes=n_lanes)
         axis = 1 if lanes else -1
-        bn, n0 = _norm(filters, bn_impl, fuse_relu=True, axis=axis)
-        _, n1 = _norm(filters, bn_impl, axis=axis)
+        width = max(n_lanes, 1) * filters     # the lane-folded channels
+        bn, n0 = _norm(width, bn_impl, fuse_relu=True, axis=axis)
+        _, n1 = _norm(width, bn_impl, axis=axis)
         self.Conv_0 = conv(in_features, filters, 3, strides)
         self.add_module(f"{bn}_0", n0)
         self.Conv_1 = conv(filters, filters, 3)
@@ -98,7 +118,7 @@ class BasicBlock(nn.Module):
         self.project = strides != 1 or in_features != filters
         if self.project:
             self.Conv_2 = conv(in_features, filters, 1, strides)
-            self.add_module(f"{bn}_2", _norm(filters, bn_impl, axis=axis)[1])
+            self.add_module(f"{bn}_2", _norm(width, bn_impl, axis=axis)[1])
         self._bn = bn
         self.lanes = lanes
         self.strides = strides
@@ -127,7 +147,7 @@ class CifarResNet(nn.Module):
 
     def __init__(self, blocks_per_stage: int, output_dim: int = 10,
                  dtype: torch.dtype = torch.float32, widths: tuple = (16, 32, 64),
-                 bn_impl: str = "xla", conv_impl: str = "xla"):
+                 bn_impl: str = "xla", conv_impl: str = "xla", n_lanes: int = 0):
         super().__init__()
         if conv_impl == "packed":
             raise NotImplementedError("conv_impl='packed' is not ported yet")
@@ -138,9 +158,16 @@ class CifarResNet(nn.Module):
         if conv_impl == "lanes" and bn_impl == "pallas":
             raise ValueError("conv_impl='lanes' uses the plain BatchNorm on its own layout; "
                              "combine it with bn_impl='xla'")
+        if n_lanes and conv_impl != "xla":
+            raise NotImplementedError(f"conv_impl={conv_impl!r} has no lane-stacked twin "
+                                      "(the packed schedule takes conv_impl='xla')")
+        self._config = dict(blocks_per_stage=blocks_per_stage, output_dim=output_dim,
+                            dtype=dtype, widths=tuple(widths), bn_impl=bn_impl,
+                            conv_impl=conv_impl)
         self.dtype = dtype
-        self.Conv_0 = Conv(3, widths[0], 3)         # RGB input
-        bn, stem_norm = _norm(widths[0], bn_impl, fuse_relu=True)
+        self.n_lanes = n_lanes
+        self.Conv_0 = Conv(3, widths[0], 3, n_lanes=n_lanes)         # RGB input
+        bn, stem_norm = _norm(max(n_lanes, 1) * widths[0], bn_impl, fuse_relu=True)
         self.add_module(f"{bn}_0", stem_norm)
         self._stem_norm = f"{bn}_0"
         # lanes: the stages of width <= 32 run on the lanes layout
@@ -150,11 +177,19 @@ class CifarResNet(nn.Module):
             for block in range(blocks_per_stage):
                 strides = 2 if stage > 0 and block == 0 else 1
                 self.add_module(f"BasicBlock_{i}", BasicBlock(
-                    cin, filters, strides, bn_impl, "lanes" if lanes else "xla"))
+                    cin, filters, strides, bn_impl, "lanes" if lanes else "xla", n_lanes))
                 blocks.append(f"BasicBlock_{i}")
                 cin, i = filters, i + 1
         self._blocks = blocks
-        self.Dense_0 = Dense(cin, output_dim)
+        self.Dense_0 = Dense(cin, output_dim, n_lanes=n_lanes)
+
+    def lane_stacked(self, n_lanes: int) -> "CifarResNet":
+        """A new lane-stacked twin of this model for ``n_lanes`` lanes, on
+        this model's device (its weights are the caller's to set)."""
+        if n_lanes < 1:
+            raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
+        twin = CifarResNet(**self._config, n_lanes=n_lanes)
+        return twin.to(self.Conv_0.weight.device)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Fresh weights from ``generator``, in module order."""
@@ -163,8 +198,11 @@ class CifarResNet(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [N, H, W, C] images -> [N, output_dim] f32 logits."""
+        """x: [N, H, W, C] images -> [N, output_dim] f32 logits; lane-stacked,
+        [L, N, H, W, C] -> [L, N, output_dim]."""
         x = x.to(self.dtype)
+        if self.n_lanes:        # [L, N, H, W, C] -> [N, H, W, L*C]
+            x = x.permute(1, 2, 3, 0, 4).reshape(*x.shape[1:4], -1)
         x = getattr(self, self._stem_norm)(self.Conv_0(x))
         h, w = x.shape[1], x.shape[2]
         in_lanes = False

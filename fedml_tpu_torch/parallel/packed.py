@@ -1,0 +1,318 @@
+"""Client-packing schedule (counterpart of ``fedml_tpu/parallel/packed.py``,
+the per-lane form that ``packed_conv="off"`` selects).
+
+The cohort is packed into a few lanes (LPT balancing); each lane runs its
+clients back to back, resetting parameters, optimizer state and BatchNorm
+statistics to the global model at a client's first step and adding
+``w * variables`` into an accumulator at its last. All lanes run together:
+one step of the lane-stacked model (``CifarResNet(n_lanes=L)``, the lanes
+folded into the channel axis) trains every lane on its own member's batch,
+in place of the JAX package's ``vmap`` of the lane program over lanes.
+
+Exactness: each client replays the plain port path (``parallel/local.py``)
+on the same per-epoch orders: the same real-first stable sort, the same
+live steps, the plain path's SGD (``local.make_optimizer``: momentum and
+weight decay as optax computes them) over the twin's parameters, and the
+clip by the lane's own global norm. The aggregate equals the plain round's
+weighted mean up to float summation order (the grouped conv, the folded BN
+sums, the accumulator). The plan is numpy on the host, so the step loop
+branches on it per step: steps where no lane is live are skipped, and the
+dead-step freeze and the resets touch only the lanes that need them.
+
+``pad_plan`` and ``plan_packing_mesh`` (the cross-silo mesh form) and the
+joint lowerings of ``packed_conv != "off"`` are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from fedml_tpu_torch.core.tasks import Task
+from fedml_tpu_torch.models import ModelBundle
+from fedml_tpu_torch.ops.packed_conv import stack_variables
+from fedml_tpu_torch.parallel.local import make_optimizer
+
+
+class PackPlan(NamedTuple):
+    """Static lane schedule for one cohort (bit-equal to the JAX package's)."""
+
+    n_lanes: int
+    k_max: int
+    T: int                 # steps per lane
+    epochs: int
+    # [n_lanes, T] per-step metadata
+    slot: np.ndarray       # which member slot trains this step (0 on dead steps)
+    epoch: np.ndarray      # epoch index
+    sie: np.ndarray        # step within the epoch
+    reset: np.ndarray      # 1.0 at a client's first step
+    emit: np.ndarray       # 1.0 at a client's last step
+    live: np.ndarray       # 0.0 on dead lane-tail steps
+    # [n_lanes, k_max] per-member metadata
+    member_pos: np.ndarray   # position in the sampled cohort (0-padded)
+    member_valid: np.ndarray  # 1.0 for real members
+    steps_real: np.ndarray   # ceil(count/bs) per member (>=1 for real members)
+
+    @property
+    def shape_key(self) -> tuple:
+        return (self.n_lanes, self.k_max, self.T, self.epochs)
+
+    @property
+    def executed_slots(self) -> int:
+        """Lanes x steps of the plan (batch slots without the batch factor)."""
+        return self.n_lanes * self.T
+
+
+def plan_packing(counts: np.ndarray, batch_size: int, epochs: int,
+                 n_lanes: int, t_quantum: int = 1) -> Optional[PackPlan]:
+    """LPT-pack the cohort (client j costs ``epochs * ceil(count_j/bs)``
+    consecutive steps) into ``n_lanes`` lanes; T = max lane load rounded up
+    to ``t_quantum`` steps. Returns None when the cohort is empty."""
+    counts = np.asarray(counts, np.float64)
+    steps = np.ceil(np.maximum(counts, 0.0) / batch_size).astype(np.int64)
+    members = np.nonzero(steps > 0)[0]
+    if members.size == 0 or n_lanes < 1:
+        return None
+    n_lanes = int(min(n_lanes, members.size))
+    cost = epochs * steps[members]
+    order = np.argsort(-cost, kind="stable")          # LPT: biggest first
+    lanes: list[list[int]] = [[] for _ in range(n_lanes)]
+    loads = np.zeros(n_lanes, np.int64)
+    for j in order:
+        lane = int(np.argmin(loads))
+        lanes[lane].append(int(members[j]))
+        loads[lane] += cost[j]
+    T = int(np.ceil(loads.max() / max(t_quantum, 1)) * max(t_quantum, 1))
+    k_max = max(len(mem) for mem in lanes)
+
+    slot = np.zeros((n_lanes, T), np.int32)
+    epoch = np.zeros((n_lanes, T), np.int32)
+    sie = np.zeros((n_lanes, T), np.int32)
+    reset = np.zeros((n_lanes, T), np.float32)
+    emit = np.zeros((n_lanes, T), np.float32)
+    live = np.zeros((n_lanes, T), np.float32)
+    member_pos = np.zeros((n_lanes, k_max), np.int32)
+    member_valid = np.zeros((n_lanes, k_max), np.float32)
+    steps_real = np.ones((n_lanes, k_max), np.int32)
+
+    for lane, mem in enumerate(lanes):
+        t = 0
+        for k, pos in enumerate(mem):
+            member_pos[lane, k] = pos
+            member_valid[lane, k] = 1.0
+            s = int(steps[pos])
+            steps_real[lane, k] = s
+            reset[lane, t] = 1.0
+            for e in range(epochs):
+                for si in range(s):
+                    slot[lane, t] = k
+                    epoch[lane, t] = e
+                    sie[lane, t] = si
+                    live[lane, t] = 1.0
+                    t += 1
+            emit[lane, t - 1] = 1.0
+        # steps t..T-1 stay dead (slot 0, live 0)
+
+    return PackPlan(n_lanes, k_max, T, epochs, slot, epoch, sie, reset, emit,
+                    live, member_pos, member_valid, steps_real)
+
+
+def plan_arrays_tuple(plan: PackPlan) -> tuple:
+    """The 9 plan arrays in the one canonical order (slot, epoch, sie,
+    reset, emit, live, member_pos, member_valid, steps_real)."""
+    return (plan.slot, plan.epoch, plan.sie, plan.reset, plan.emit,
+            plan.live, plan.member_pos, plan.member_valid, plan.steps_real)
+
+
+def mask_plan_arrays(plan: PackPlan, member_active: np.ndarray) -> tuple:
+    """Masked plan arrays for per-client lane exit: a member whose
+    ``member_active[lane, k]`` is 0 runs its steps with ``live = 0``, its
+    ``emit``/``member_valid`` zero out and its ``reset`` is suppressed, so
+    the lane carries frozen state through the span to the next active
+    member's reset. Shapes are unchanged.
+
+    ``member_active``: [n_lanes, k_max] {0,1} per plan member."""
+    act_m = np.asarray(member_active, np.float32)
+    # each step's activity = its owning member's (dead lane-tail steps index
+    # slot 0 but already carry live == 0)
+    step_act = np.take_along_axis(act_m, plan.slot.astype(np.int64), axis=1)
+    return (plan.slot, plan.epoch, plan.sie,
+            (plan.reset * step_act).astype(plan.reset.dtype),
+            (plan.emit * step_act).astype(plan.emit.dtype),
+            (plan.live * step_act).astype(plan.live.dtype),
+            plan.member_pos,
+            (plan.member_valid * act_m).astype(plan.member_valid.dtype),
+            plan.steps_real)
+
+
+def executed_steps(live: np.ndarray) -> np.ndarray:
+    """The plan steps the port executes: those where some lane is live."""
+    return np.nonzero(np.asarray(live).max(0) > 0)[0]
+
+
+class PackedResult(NamedTuple):
+    variables: dict        # the aggregate: sum(w * vars) / sum(w), in each leaf's dtype
+    train_loss: torch.Tensor   # sum(w * last-epoch mean loss) / sum(w), 0-dim
+
+
+class _Lanes:
+    """The lane-stacked model for one lane count, its optimizer and its
+    per-lane state: flat per-lane views of every state-dict leaf and of the
+    momentum buffers, which the step loop resets, freezes and reads in
+    place."""
+
+    def __init__(self, module: torch.nn.Module, n_lanes: int, variables: dict, make_opt):
+        self.module = module
+        self.n_lanes = n_lanes
+        module.load_state_dict(stack_variables(variables, n_lanes))
+        state = module.state_dict(keep_vars=True)
+        self.names = list(state)
+        self.params = list(module.parameters())
+        self.opt = make_opt(self.params)
+        momentum = []
+        if self.opt.defaults["momentum"]:
+            # zero buffers made here, so that each lane's share can be
+            # zeroed at its resets (SGD updates them in place)
+            for p in self.params:
+                momentum.append(torch.zeros_like(p))
+                self.opt.state[p]["momentum_buffer"] = momentum[-1]
+        L = n_lanes
+
+        def views(tensors):
+            return [[t.detach().view(L, -1)[lane] for t in tensors] for lane in range(L)]
+
+        self.state_views = views(state.values())
+        self.mom_views = views(momentum)
+
+
+def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
+                             lr: float = 0.01, momentum: float = 0.0, wd: float = 0.0,
+                             epochs: int = 1, batch_size: int = 32,
+                             grad_clip: Optional[float] = None, compute_dtype=None):
+    """Build ``packed_train(variables, tx, ty, tm, sampled_rows, weights_pos,
+    orders, plan) -> PackedResult``, sgd only.
+
+    The lane-stacked model for L lanes, ``bundle.module.lane_stacked(L)``, is
+    built at the first plan with L lanes and kept (L varies from round to
+    round with the cohort). ``tx/ty/tm`` are the whole stacked client dataset
+    [C_total, n_pad, ...] on the device; ``sampled_rows`` [cohort] maps a
+    cohort position to its stack row; ``weights_pos`` [cohort] the
+    aggregation weights by position; ``orders`` [cohort, epochs, n_pad] each
+    position's per-epoch permutations of n_pad (the plain path's draws, or
+    injected ones)."""
+    if n_pad % batch_size:
+        raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
+    lane_stacked = getattr(bundle.module, "lane_stacked", None)
+    if lane_stacked is None:
+        raise NotImplementedError(f"model {bundle.name!r} has no lane-stacked twin; the packed "
+                                  "schedule is ported for the CIFAR ResNets")
+    steps_full = n_pad // batch_size
+    bs = batch_size
+    make_opt = make_optimizer("sgd", lr, momentum, wd)
+    cache: dict[int, _Lanes] = {}
+
+    def lane_tables(tm, rows, orders, plan, steps):
+        """Each executed step's [L, bs] flat indices into the flattened
+        [C_total*n_pad] stack, built once per round on the device: the
+        member's epoch order (real records first, stable) cut at its step."""
+        perm = orders.to(tm.device)                                   # [cohort, E, n_pad]
+        mrows = tm[rows].unsqueeze(1).expand(-1, perm.shape[1], -1)   # [cohort, E, n_pad]
+        first = torch.argsort(-torch.gather(mrows, 2, perm), dim=2, stable=True)
+        flat = torch.gather(perm, 2, first) + rows.view(-1, 1, 1) * n_pad
+        flat = flat.view(flat.shape[0], flat.shape[1], steps_full, bs)
+        lanes = np.arange(plan.n_lanes)[:, None]
+        pos = plan.member_pos[lanes, plan.slot[:, steps]]             # [L, S]
+        pick = (torch.as_tensor(a.T.astype(np.int64), device=tm.device)
+                for a in (pos, plan.epoch[:, steps], plan.sie[:, steps]))
+        return flat[tuple(pick)].view(len(steps), -1)                 # [S, L*bs]
+
+    @torch.no_grad()
+    def clip(grads: list, L: int) -> None:
+        """Scale each lane's gradients by its own global norm, as the
+        plain step clips one client's."""
+        sq = sum(g.reshape(L, -1).to(torch.float32).square().sum(1) for g in grads)
+        scale = torch.clamp(grad_clip / torch.clamp(torch.sqrt(sq), min=1e-12), max=1.0)
+        for g in grads:
+            g.view(L, g.shape[0] // L, *g.shape[1:]).mul_(
+                scale.view(L, *([1] * g.dim())).to(g.dtype))
+
+    def packed_train(variables: dict, tx, ty, tm, sampled_rows, weights_pos,
+                     orders: torch.Tensor, plan: PackPlan) -> PackedResult:
+        L = plan.n_lanes
+        lanes = cache.get(L)
+        if lanes is None:
+            lanes = cache[L] = _Lanes(lane_stacked(L), L, variables, make_opt)
+        module = lanes.module
+        dev = tx.device
+        glob = [variables[k].reshape(-1) for k in lanes.names]
+        acc = [torch.zeros(v.numel(), dtype=torch.float32, device=dev) for v in glob]
+        C = tx.shape[0]
+        x_flat = tx.reshape((C * n_pad,) + tuple(tx.shape[2:]))
+        if compute_dtype is not None and x_flat.is_floating_point():
+            x_flat = x_flat.to(compute_dtype)
+        y_flat, m_flat = ty.reshape((C * n_pad,) + tuple(ty.shape[2:])), tm.reshape(-1)
+        rows = torch.as_tensor(np.asarray(sampled_rows, np.int64), device=dev)
+        steps = executed_steps(plan.live)
+        table = lane_tables(tm, rows, orders, plan, steps)
+        lanes_ix = np.arange(L)
+        member_w = (np.asarray(weights_pos, np.float32)[plan.member_pos]
+                    * plan.member_valid)                               # [L, k_max]
+        # per executed step: 1 where a lane's loss enters its client's
+        # last-epoch sum (live, last epoch)
+        last = torch.as_tensor(((plan.live * (plan.epoch == epochs - 1))[:, steps]).T.copy(),
+                               device=dev)
+        loss_acc = torch.zeros(L, device=dev)
+        acc_loss = torch.zeros((), device=dev)
+        acc_w = 0.0
+        module.train()
+        for i, t in enumerate(steps):
+            reset = np.nonzero(plan.reset[:, t] > 0)[0]
+            if reset.size:
+                with torch.no_grad():
+                    for lane in reset:
+                        torch._foreach_copy_(lanes.state_views[lane], glob)
+                        torch._foreach_zero_(lanes.mom_views[lane])
+                    keep = torch.ones(L, device=dev)
+                    keep[torch.as_tensor(reset)] = 0.0
+                    loss_acc = loss_acc * keep
+            live = plan.live[:, t] > 0
+            dead = np.nonzero(~live)[0]
+            # a dead lane's step changes nothing of it: not its parameters,
+            # momentum or BatchNorm running statistics
+            frozen = {lane: [v.clone() for v in lanes.state_views[lane] + lanes.mom_views[lane]]
+                      for lane in dead}
+            ix = table[i]
+            bx = x_flat[ix].view((L, bs) + tuple(x_flat.shape[1:]))
+            by = y_flat[ix].view((L, bs) + tuple(y_flat.shape[1:]))
+            bm = m_flat[ix].view(L, bs)
+            logits = module(bx)
+            lane_loss = torch.stack([task.loss(logits[lane], by[lane], bm[lane])
+                                     for lane in range(L)])
+            # the sum of the lanes' own means: each lane's gradient is its own
+            total = lane_loss.sum() if not dead.size else lane_loss[torch.as_tensor(
+                np.nonzero(live)[0], device=dev)].sum()
+            total.backward()
+            if grad_clip:
+                clip([p.grad for p in lanes.params], L)
+            lanes.opt.step()
+            lanes.opt.zero_grad(set_to_none=True)
+            with torch.no_grad():
+                for lane, saved in frozen.items():
+                    torch._foreach_copy_(lanes.state_views[lane] + lanes.mom_views[lane], saved)
+                loss_acc = loss_acc + lane_loss.detach() * last[i]
+                for lane in lanes_ix[plan.emit[:, t] > 0]:
+                    k = int(plan.slot[lane, t])
+                    w = float(member_w[lane, k])
+                    torch._foreach_add_(acc, lanes.state_views[lane], alpha=w)
+                    acc_w += w
+                    sr = max(float(plan.steps_real[lane, k]), 1.0)
+                    acc_loss = acc_loss + loss_acc[lane] / sr * w
+        denom = max(acc_w, 1e-12)
+        agg = {k: (a / denom).view(variables[k].shape).to(variables[k].dtype)
+               for k, a in zip(lanes.names, acc)}
+        return PackedResult(agg, acc_loss / denom)
+
+    packed_train.lanes = cache      # L -> its lane-stacked model and per-lane state
+    return packed_train

@@ -161,7 +161,7 @@ def test_async_rounds_return_a_device_scalar_and_train_runs():
     assert np.isfinite(h["Test/Loss"]).all() and h["rounds_per_sec"] > 0
 
 
-@pytest.mark.parametrize("field,value", [("pack_lanes", 2), ("failure_prob", 0.1),
+@pytest.mark.parametrize("field,value", [("packed_conv", "grouped"), ("failure_prob", 0.1),
                                          ("stream_aggregate", "deterministic")])
 def test_unported_schedules_raise(field, value):
     ds = make_synthetic_classification(**DATA)
