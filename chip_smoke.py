@@ -33,6 +33,14 @@ Phases (any failure raises and the script exits non-zero):
    a control (round 0 unpacked and packed with the plain BN, a change of
    summation order only); the grouped conv timed against two ungrouped
    convs and one lane's; and a profile of 5 packed steps.
+4c. The zoo on the same federation and widths: 2 packed rounds of FedOpt
+   with server adam (server_lr 0.01; bench.py's adaptive arm), one packed
+   round each of FedProx (mu 0.01), FedNova (momentum 0.9) and FedAGC
+   (clipping 1e-2), one plain round of FedAvg with client adam (amsgrad, lr
+   1e-3): finite losses, 57 K1 + 57 K2 per executed packed or live step,
+   FedOpt's server state on the card and nonzero, small f32 FedOpt-adam and
+   client-adam rounds packed against unpacked, the server step's time, a
+   profile of 5 packed FedOpt steps and one of 5 client-adam steps.
 5. Hold K3 (lanes 3x3 conv, also the dgrad), K4 (its wgrad) and K7 (K3's
    probe variants) against their plain versions at the lanes path's conv
    shapes at batch 64, 1 and 3 and five ragged shapes (the last takes the
@@ -64,7 +72,8 @@ Phases (any failure raises and the script exits non-zero):
    ``F.scaled_dot_product_attention`` / ``F.cross_entropy`` and bounds
    (K6's: the largest of its bytes, its tensor-core FLOPs and one
    exponential per live score at 16 per clock per SM and the card's
-   ``nvidia-smi clocks.max.sm``).
+   ``nvidia-smi clocks.max.sm``); device time both from the profiler and
+   from CUDA events behind a primed queue (``queued_device_ms``).
 11. Path (A): 2 FedAvg rounds of ``transformer`` (dim 256, 8 heads, 4
    layers, bf16) on the synthetic fed_shakespeare federation (100 clients,
    10 a round, batch 4, sequences of 80); 4 K6 per live step and per eval
@@ -85,6 +94,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -272,6 +282,40 @@ def device_ms(fn, iters: int = 20, attempts: int = 3):
         if total_us > 0:
             return total_us / 1e3 / iters
     return None
+
+
+def queued_device_ms(fn, sm_clock_mhz: float, iters: int = 10, repeats: int = 3) -> float:
+    """Device time per call without the profiler: a spin kernel
+    (``torch.cuda._sleep``) holds the stream while the host enqueues
+    ``iters`` calls between two CUDA events, so the events time the calls
+    back to back with no host gap. The spin lasts 3x the host's enqueue
+    time of those calls (at least 20 ms); a host that outran it raises."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_s = max(3 * host_s, 0.02)
+    runs = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * sm_clock_mhz * 1e6))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if enqueue_s >= spin_s:
+            raise AssertionError(f"queued timing: the host took {enqueue_s:.4f} s to enqueue, "
+                                 f"longer than the {spin_s:.4f} s spin")
+        runs.append(start.elapsed_time(end) / iters)
+    return float(np.median(runs))
 
 
 def bn_bound(n: int, C: int, elt: int, relu: bool, backward: bool) -> tuple[float, float]:
@@ -827,26 +871,37 @@ def _profile(run, steps: int) -> dict:
                               "calls_per_step": e.count / steps} for e in host]}
 
 
-def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", **config):
-    """bench.py's flagship cut to 2 rounds: ResNet-56 FedAvg on 32 non-IID
-    synthetic CIFAR-10-shaped clients, 8 a round, batch 64, bf16."""
+@functools.lru_cache(maxsize=1)
+def flagship_data():
+    """The flagship's federation, made once for every phase that trains on
+    it (phases 4, 4b, 4c and 8; the APIs only read it)."""
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+
+    return make_synthetic_classification(
+        "cifar10-bench", (32, 32, 3), 10, 32, records_per_client=1562,
+        partition_method="hetero", partition_alpha=0.5, batch_size=64, seed=SEED)
+
+
+def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", api_cls=None, ds=None,
+                 **config):
+    """bench.py's flagship cut to 2 rounds: ResNet-56 FedAvg (or
+    ``api_cls``) on 32 non-IID synthetic CIFAR-10-shaped clients, 8 a
+    round, batch 64, bf16; ``config`` overrides FedConfig fields."""
     import torch
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     from fedml_tpu_torch.core.config import FedConfig
-    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
     from fedml_tpu_torch.models import create_model
 
-    ds = make_synthetic_classification(
-        "cifar10-bench", (32, 32, 3), 10, 32, records_per_client=1562,
-        partition_method="hetero", partition_alpha=0.5, batch_size=64, seed=SEED)
-    cfg = FedConfig(model="resnet56", dataset="cifar10", client_num_in_total=32,
-                    client_num_per_round=8, comm_round=2, batch_size=64, epochs=1, lr=0.1,
-                    momentum=0.9, dtype="bfloat16", frequency_of_the_test=10_000, seed=SEED,
-                    async_rounds=True, **config)
+    ds = ds or flagship_data()
+    base = dict(model="resnet56", dataset="cifar10", client_num_in_total=32,
+                client_num_per_round=8, comm_round=2, batch_size=64, epochs=1, lr=0.1,
+                momentum=0.9, dtype="bfloat16", frequency_of_the_test=10_000, seed=SEED,
+                async_rounds=True)
+    cfg = FedConfig(**{**base, **config})
     bundle = create_model("resnet56", 10, input_shape=ds.train_x.shape[2:],
                           dtype=torch.bfloat16, bn_impl=bn_impl, conv_impl=conv_impl)
-    return FedAvgAPI(ds, cfg, bundle)
+    return (api_cls or FedAvgAPI)(ds, cfg, bundle)
 
 
 def run_rounds(api, tag: str, smi: str) -> tuple:
@@ -980,11 +1035,12 @@ def phase_train_packed(smi: str):
             "real_images_per_s": sum(r["real_images"] for r in rounds) / train_s}
 
 
-def packed_replay_check() -> dict:
+def packed_replay_check(api_cls=None, tag: str = "[train packed]", **extra) -> dict:
     """One f32 round of a small CifarResNet (widths 8/16/16, 8x8 images, 4
     clients, 3 a round, 2 epochs) on the card, packed in two lanes against
     unpacked, from the same weights and orders: the CPU test's tolerance
-    (variables rtol 1e-4 / atol 1e-5, loss rtol 1e-5)."""
+    (variables rtol 1e-4 / atol 1e-5, loss rtol 1e-5). ``api_cls`` (FedAvg
+    by default) and ``extra`` config fields pick the algorithm."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     from fedml_tpu_torch.core.config import FedConfig
     from fedml_tpu_torch.data.synthetic import make_synthetic_classification
@@ -996,12 +1052,13 @@ def packed_replay_check() -> dict:
         partition_method="hetero", partition_alpha=0.5, batch_size=8, seed=SEED)
     apis = []
     for lanes in (PACK_LANES, 0):
-        cfg = FedConfig(model="cifar-small", client_num_in_total=4, client_num_per_round=3,
-                        comm_round=1, batch_size=8, epochs=2, lr=0.05, momentum=0.9,
-                        seed=SEED, device_data="on", pack_lanes=lanes)
+        cfg = FedConfig(**{**dict(model="cifar-small", client_num_in_total=4,
+                                  client_num_per_round=3, comm_round=1, batch_size=8, epochs=2,
+                                  lr=0.05, momentum=0.9, seed=SEED, device_data="on",
+                                  pack_lanes=lanes), **extra})
         bundle = ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16),
                                                         bn_impl="pallas"), (8, 8, 3))
-        apis.append(FedAvgAPI(ds, cfg, bundle))
+        apis.append((api_cls or FedAvgAPI)(ds, cfg, bundle))
     packed, plain = apis
     packed.variables = {k: v.clone() for k, v in plain.variables.items()}
     plan = packed._packed_plan(packed.sample(0))
@@ -1014,7 +1071,7 @@ def packed_replay_check() -> dict:
     worst = 0.0
     for k, v in plain.variables.items():
         worst = max(worst, assert_close(f"packed replay {k}", packed.variables[k], v, 1e-4, 1e-5))
-    log(f"[train packed] f32 replay on the card: loss {loss_p:.7f} vs {loss_u:.7f} unpacked, "
+    log(f"{tag} f32 replay on the card: loss {loss_p:.7f} vs {loss_u:.7f} unpacked, "
         f"variables within {worst:.3g} (rtol 1e-4, atol 1e-5)")
     return {"loss_packed": loss_p, "loss_unpacked": loss_u, "max_abs_err": worst}
 
@@ -1176,6 +1233,142 @@ def packed_conv_timing() -> list:
             f"{rec['split_device_ms']} ({rec['split_ms']:.4f}), one lane "
             f"{rec['one_lane_device_ms']} ({rec['one_lane_ms']:.4f})")
     return rows
+
+
+# The zoo phase's FedOpt server lr: 0.01, as
+# tests/test_algorithms.py::test_fedadam_runs. The bench arm keeps
+# FedConfig's default of 1.0: an Adam step of 1.0 on every weight each
+# round is a divergence test, not a smoke test.
+ZOO_SERVER_LR = 0.01
+
+
+def server_step_timing(api) -> dict:
+    """FedOpt's server step on ResNet-56's parameters (the round's one
+    step after the aggregate), on a copy of the server state."""
+    import copy
+
+    import torch
+
+    update = api.crosssilo_hooks()["server_update"]
+    state = copy.deepcopy(api.server_state)
+    agg = {k: v * 0.999 if v.is_floating_point() else v for k, v in api.variables.items()}
+
+    def fn():
+        return update(api.variables, agg, None, 1.0, state, None)
+
+    from fedml_tpu_torch.core.pytree import split_params
+
+    rec = {"ms": cuda_time_ms(fn, iters=10), "device_ms": device_ms(fn, iters=5),
+           "params": sum(v.numel() for v in split_params(api.variables)[0].values())}
+    torch.cuda.synchronize()
+    return rec
+
+
+def phase_train_zoo(smi: str):
+    """The algorithms of the hook contract on the packed flagship (FedOpt
+    with server adam is bench.py's adaptive arm, bench.py:262-280) and
+    FedAvg with client adam on the plain one, on the flagship's federation
+    and widths (ResNet-56, ``bn_impl="pallas"``, bf16, 32 clients, 8 a
+    round, batch 64): finite losses, 57 K1 + 57 K2 per executed packed or
+    live step (the hooks add no BN launch) and none in ``evaluate_global``;
+    FedOpt's server state after its rounds on the card and nonzero, its
+    step count the rounds; small f32 FedOpt-adam and client-adam rounds
+    packed against unpacked on the card; FedOpt's server step timed;
+    profiles of 5 packed FedOpt steps and of 5 client-adam steps."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedagc import FedAGCAPI
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.fednova import FedNovaAPI
+    from fedml_tpu_torch.algorithms.fedopt import FedOptAPI
+    from fedml_tpu_torch.algorithms.fedprox import FedProxAPI
+    from fedml_tpu_torch.core.optim import state_tensors
+    from fedml_tpu_torch.parallel.packed import executed_steps
+
+    runs = (   # (label, algorithm, FedConfig overrides, rounds); "packed": pack_lanes=2
+        ("fedopt-adam", FedOptAPI,
+         dict(server_optimizer="adam", server_lr=ZOO_SERVER_LR, packed=True), 2),
+        ("fedprox", FedProxAPI, dict(fedprox_mu=0.01, packed=True), 1),
+        ("fednova", FedNovaAPI, dict(packed=True), 1),     # momentum 0.9, the flagship's
+        ("fedagc", FedAGCAPI, dict(packed=True), 1),       # clipping 1e-2, the default
+        # amsgrad at Adam's customary 1e-3 (the flagship's 0.1 is an SGD step)
+        ("fedavg-client-adam", FedAvgAPI, dict(client_optimizer="adam", lr=1e-3), 1),
+    )
+    ds = flagship_data()
+    out, launches = {}, {"bn_fwd": 0, "bn_bwd": 0}
+    for label, cls, overrides, n_rounds in runs:
+        tag = f"[zoo {label}]"
+        cfg = dict(overrides)
+        packed = cfg.pop("packed", False)
+        if packed:
+            cfg.update(pack_lanes=PACK_LANES, packed_conv="off")
+        t0 = time.perf_counter()
+        api = flagship_api(api_cls=cls, ds=ds, comm_round=n_rounds, **cfg)
+        torch.cuda.synchronize()
+        status = api.packed_status()
+        log(f"{tag} set-up {time.perf_counter() - t0:.1f} s; {status}")
+        if status["scheduled"] != packed:
+            raise AssertionError(f"{tag} packed_status {status}; expected scheduled={packed}")
+        if packed:
+            steps = sum(len(executed_steps(api._packed_plan(api.sample(r)).live))
+                        for r in range(n_rounds))
+        else:
+            steps = sum(api.round_counts(r)[1] // api.config.batch_size for r in range(n_rounds))
+        rounds, metrics, eval_s, trained, after_eval = run_rounds(api, tag, smi)
+        for k in launches:
+            if trained[k] != BNS_PER_STEP * steps or after_eval[k] != trained[k]:
+                raise AssertionError(f"{tag} {k} launched {trained[k]} times over the rounds and "
+                                     f"{after_eval[k] - trained[k]} in evaluate_global; expected "
+                                     f"{BNS_PER_STEP} x {steps} steps and 0")
+            launches[k] += after_eval[k]
+        if any(trained[k] for k in ("conv_fwd", "conv_wgrad")):
+            raise AssertionError(f"{tag} launched a lanes conv kernel: {trained}")
+        train_s = sum(r["seconds"] for r in rounds)
+        rec = {"algorithm": cls.__name__, "config": overrides, "packed": packed, "steps": steps,
+               "rounds": rounds, "eval": metrics, "eval_s": eval_s, "launches": after_eval,
+               "rounds_per_s": len(rounds) / train_s,
+               "real_images_per_s": sum(r["real_images"] for r in rounds) / train_s}
+        if cls is FedOptAPI:
+            tensors, counts = state_tensors(api.server_state["opt"])
+            if not all(t.is_cuda for t in tensors + counts):
+                raise AssertionError(f"{tag} the server state is not on the card")
+            if not any(bool(t.abs().max() > 0) for t in tensors) or \
+                    any(int(c) != n_rounds for c in counts):
+                raise AssertionError(f"{tag} server state zero, or its count is not {n_rounds}: "
+                                     f"counts {[int(c) for c in counts]}")
+            rec["server_state_abs_max"] = max(float(t.abs().max()) for t in tensors)
+            rec["server_step"] = server_step_timing(api)
+            prof = rec["step_profile"] = packed_step_profile(api)
+            log(f"{tag} server state on the card, |max| {rec['server_state_abs_max']:.4g}, "
+                f"count {[int(c) for c in counts]}; server step {rec['server_step']['ms']:.3f} ms "
+                f"(device {rec['server_step']['device_ms']}) over "
+                f"{rec['server_step']['params']} parameters; {smi}")
+            log(f"{tag} one packed step ({prof['lanes']} lanes x {api.config.batch_size} images): "
+                f"wall {prof['wall_ms_per_step']:.2f} ms, device {prof['device_ms_per_step']:.3f} "
+                f"ms (busy share {prof['device_busy_share']:.3f}), "
+                f"{prof['gpu_activities_per_step']:.0f} GPU activities "
+                f"({prof['gpu_activities_per_real_image']:.2f} per real image); device ms by "
+                "family " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in prof["device_ms_per_step_by_family"].items())
+                + f"; {smi}")
+        elif not packed:
+            prof = rec["step_profile"] = step_profile(api)
+            log(f"{tag} one client's local step: wall {prof['wall_ms_per_step']:.2f} ms, device "
+                f"{prof['device_ms_per_step']:.3f} ms (busy share "
+                f"{prof['device_busy_share']:.3f}), {prof['gpu_activities_per_step']:.0f} GPU "
+                "activities; device ms by family " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in prof["device_ms_per_step_by_family"].items())
+                + f"; {smi}")
+        out[label] = rec
+        del api
+    out["replay_check"] = packed_replay_check(FedOptAPI, "[zoo fedopt-adam]",
+                                              server_optimizer="adam", server_lr=ZOO_SERVER_LR)
+    # the lane program's per-lane adam state (moments, [L] step count) on
+    # the card: a lane's second client starts from fresh state
+    out["client_adam_replay_check"] = packed_replay_check(
+        None, "[zoo client adam]", client_optimizer="adam", lr=0.01)
+    out["launches"] = launches
+    return out
 
 
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
@@ -1367,6 +1560,8 @@ def phase_time_lm(sm_clock_mhz: float):
     for prefix, fn in fns.items():
         rec[f"{prefix}ms"] = cuda_time_ms(fn, **(slow if prefix == "plain_" else {}))
         rec[f"{prefix}device_ms"] = device_ms(fn, iters=5)
+        rec[f"{prefix}queued_ms"] = queued_device_ms(
+            fn, sm_clock_mhz, **(dict(iters=2, repeats=1) if prefix == "plain_" else {}))
     nbytes, flops, live = attention_bound(b, h, tq, tk, d, True)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     terms = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3, "tensor-core FLOPs": flops / PEAK_BF16_FLOPS * 1e3,
@@ -1389,6 +1584,7 @@ def phase_time_lm(sm_clock_mhz: float):
     for prefix, fn in fns.items():
         rec[f"{prefix}ms"] = cuda_time_ms(fn, iters=20)
         rec[f"{prefix}device_ms"] = device_ms(fn)
+        rec[f"{prefix}queued_ms"] = queued_device_ms(fn, sm_clock_mhz, iters=20)
     nbytes, flops = xent_bound(n, vv)
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
     rec.update(kernel="xent", shape=[n, vv], dtype="float32", calls_per_step=1)
@@ -1397,9 +1593,10 @@ def phase_time_lm(sm_clock_mhz: float):
         us = {k: ("n/m" if val is None else f"{val:.4f}") for k, val in rec.items()
               if k.endswith("ms") and k != "bound_ms"}
         log(f"[time] {rec['kernel']} {rec['shape']} {rec['dtype']}: kernel {us['ms']} ms "
-            f"(device {us['device_ms']}), plain {us['plain_ms']} (device "
-            f"{us['plain_device_ms']}), library {us['library_ms']} (device "
-            f"{us['library_device_ms']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            f"(device {us['device_ms']}, queued {us['queued_ms']}), plain {us['plain_ms']} "
+            f"(device {us['plain_device_ms']}, queued {us['plain_queued_ms']}), library "
+            f"{us['library_ms']} (device {us['library_device_ms']}, queued "
+            f"{us['library_queued_ms']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     torch.cuda.synchronize()
     return rows
 
@@ -1603,6 +1800,7 @@ def main() -> int:
     timing_packed = timed("time_packed", phase_time, PACKED_BNS, "packed")
     train = timed("train", phase_train, smi)
     train_packed = timed("train_packed", phase_train_packed, smi)
+    zoo = timed("train_zoo", phase_train_zoo, smi)
     conv_err, conv_cases, lanes_model_err = timed("check_conv", phase_check_conv)
     conv_timing = timed("time_conv", phase_time_conv)
     probe, probe_launches = timed("probe", phase_probe)
@@ -1636,10 +1834,11 @@ def main() -> int:
         if name.startswith("bn"):
             rows, b_ms, b_by = bn_step(timing, name)
             source = "batchnorm.cu"
-            # the BN path's 2 rounds and the packed flagship's, each counted
-            # from 0 just before it
+            # the BN path's 2 rounds, the packed flagship's and the zoo's
+            # runs, each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
-                       "fedavg_packed": train_packed["launches"][name]}
+                       "fedavg_packed": train_packed["launches"][name],
+                       "zoo": zoo["launches"][name]}
             launches = sum(by_path.values())
             prows, pb_ms, pb_by = bn_step(timing_packed, name)
             extra = {"launches_by_path": by_path, "packed": {
@@ -1704,6 +1903,10 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": step_ms("library_ms"),
             "device_ms": step_ms("device_ms"), "plain_device_ms": step_ms("plain_device_ms"),
             "library_device_ms": step_ms("library_device_ms"),
+            # device time by CUDA events behind a primed queue (the profiler
+            # misses device activity in some windows)
+            "queued_ms": step_ms("queued_ms"), "plain_queued_ms": step_ms("plain_queued_ms"),
+            "library_queued_ms": step_ms("library_queued_ms"),
             "per_call": {k: v for k, v in rec.items() if k != "kernel"},
             **({"launches_by_path": k6_launches} if name == "attention" else {}),
         })
@@ -1715,6 +1918,7 @@ def main() -> int:
         "phase_seconds": seconds,
         "check_cases": cases, "small_model_rel_err": model_err, "timing": timing,
         "timing_packed": timing_packed, "train": train, "train_packed": train_packed,
+        "train_zoo": zoo,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

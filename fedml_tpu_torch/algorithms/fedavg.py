@@ -15,6 +15,16 @@ lanes that train together in the model's lane-stacked twin. As in the JAX
 package, ``device_data="off"`` runs the plain round whatever
 ``pack_lanes`` says (logged once).
 
+The algorithm contract is the JAX package's: a subclass changes
+``_local_train_kwargs`` (FedProx), ``init_server_state`` and
+``aggregate(variables, stacked_vars, counts, infos, rng, server_state) ->
+(new_variables, new_server_state)`` for the plain round, and
+``crosssilo_hooks`` (``client_transform`` / ``reduce_extras`` /
+``server_update``) for the packed round, which ends in
+``parallel/crosssilo.apply_server_and_rollback``. ``self.server_state``
+threads across rounds; a round whose total weight is 0 keeps the weights and
+the server state. ``rng`` is None: no ported algorithm draws on the server.
+
 Not ported yet, and refused with ``NotImplementedError``: the joint packed
 lowerings (``packed_conv`` other than ``"off"``), injected failures
 (``failure_prob > 0``) and streaming aggregation. The bucketed and grouped
@@ -40,8 +50,9 @@ from fedml_tpu_torch.core.rng import client_generator, sample_clients
 from fedml_tpu_torch.core.tasks import get_task
 from fedml_tpu_torch.data import FedDataset
 from fedml_tpu_torch.models import ModelBundle, create_model
-from fedml_tpu_torch.parallel.local import (finalize_metrics, make_eval_fn,
-                                            make_local_train_fn)
+from fedml_tpu_torch.parallel.crosssilo import apply_server_and_rollback
+from fedml_tpu_torch.parallel.local import (LocalResult, finalize_metrics, local_train_kwargs,
+                                            make_eval_fn, make_local_train_fn)
 from fedml_tpu_torch.parallel.packed import (PackedResult, PackPlan, executed_steps,
                                              make_packed_cohort_train, plan_packing)
 
@@ -72,6 +83,7 @@ class FedAvgAPI:
         self.task = get_task(dataset.task, dataset.class_num)
         self.order_hook = order_hook
         self.variables = self.bundle.init(config.seed, self.device)
+        self.server_state = self.init_server_state()
         self._local_train = self.build_local_train()
         self._eval = make_eval_fn(self.bundle, self.task)
         self._dev_train = self._maybe_place_train_data()
@@ -99,36 +111,84 @@ class FedAvgAPI:
         ds = self.dataset
         return self._to_device(ds.train_x, ds.train_y, ds.train_mask)
 
+    # -- factory methods subclasses override ---------------------------------
+
+    def _local_train_kwargs(self) -> dict:
+        """The one config -> trainer kwargs mapping (``local_train_kwargs``),
+        shared by the plain and the packed trainer; subclasses add to it."""
+        return local_train_kwargs(self.config)
+
     def build_local_train(self):
-        c = self.config
-        return make_local_train_fn(
-            self.bundle, self.task, optimizer=c.client_optimizer, lr=c.lr,
-            momentum=c.momentum, wd=c.wd, epochs=c.epochs, batch_size=c.batch_size,
-            grad_clip=c.grad_clip,
-            compute_dtype=torch.bfloat16 if c.dtype == "bfloat16" else None)
+        return make_local_train_fn(self.bundle, self.task, **self._local_train_kwargs())
+
+    def init_server_state(self) -> dict:
+        """State threaded through ``aggregate`` across rounds (FedOpt's server
+        optimizer state); {} = stateless."""
+        return {}
+
+    def crosssilo_hooks(self) -> Optional[dict]:
+        """This algorithm's ``aggregate`` as hooks of the packed round
+        (``client_transform`` / ``reduce_extras`` / ``server_update``), or
+        None for the plain weighted mean."""
+        return None
+
+    def aggregate(self, variables: dict, stacked_vars: dict, counts: torch.Tensor,
+                  infos: LocalResult, rng, server_state: dict) -> tuple[dict, dict]:
+        """Sample-weighted average (fedavg_api.py:100-115). Subclasses change
+        this. Returns (new_variables, new_server_state)."""
+        return fedavg_aggregate(stacked_vars, counts), server_state
+
+    # -- packed schedule (parallel/packed.py) --------------------------------
+
+    def _packing_hooks(self) -> Optional[dict]:
+        """The packed round's algorithm contract: ``{}`` for the plain
+        weighted mean, the hook dict of ``crosssilo_hooks``, or None (logged
+        once) when the lane program cannot mirror this subclass: it rewires
+        ``build_local_train``, or overrides ``aggregate`` without hooks."""
+        name = type(self).__name__
+        if type(self).build_local_train is not FedAvgAPI.build_local_train:
+            why = f"{name} rewires build_local_train, which the packed lane program cannot mirror"
+        else:
+            hooks = self.crosssilo_hooks()
+            if hooks is not None:
+                return hooks
+            if type(self).aggregate is FedAvgAPI.aggregate:
+                return {}
+            why = f"{name} overrides aggregate() without crosssilo hooks"
+        if not getattr(self, "_warned_no_pack", False):
+            log.warning("pack_lanes=%d ignored: %s", self.config.pack_lanes, why)
+            self._warned_no_pack = True
+        return None
 
     def build_packed_train(self):
         """The packed cohort program, or None when the packed schedule does
-        not apply (``pack_lanes == 0``, or the data is not on the device)."""
+        not apply (``pack_lanes == 0``, an algorithm the lane program cannot
+        mirror, or the data is not on the device)."""
         c = self.config
         if c.pack_lanes <= 0:
+            return None
+        hooks = self._packing_hooks()
+        if hooks is None:
             return None
         if self._dev_train is None:
             log.warning("pack_lanes=%d: the packed schedule runs on data placed on the device; "
                         "with device_data='off' every round runs the plain schedule",
                         c.pack_lanes)
             return None
+        self._server_update = hooks.get("server_update")
         return make_packed_cohort_train(
-            self.bundle, self.task, int(self.dataset.train_x.shape[1]), lr=c.lr,
-            momentum=c.momentum, wd=c.wd, epochs=c.epochs, batch_size=c.batch_size,
-            grad_clip=c.grad_clip,
-            compute_dtype=torch.bfloat16 if c.dtype == "bfloat16" else None)
+            self.bundle, self.task, int(self.dataset.train_x.shape[1]),
+            client_transform=hooks.get("client_transform"),
+            reduce_extras=hooks.get("reduce_extras"), **self._local_train_kwargs())
 
     def packed_status(self) -> dict:
         """Whether the packed schedule applies, and whether a joint
         lowering is active (never: only ``packed_conv="off"`` is ported)."""
         if self.config.pack_lanes <= 0:
             return {"scheduled": False, "packed_conv_active": False, "reason": "pack_lanes=0"}
+        if self._packing_hooks() is None:
+            return {"scheduled": False, "packed_conv_active": False,
+                    "reason": f"{type(self).__name__} has no packed-lane algorithm mirror"}
         if self._packed_train is None:
             return {"scheduled": False, "packed_conv_active": False, "reason": "device_data=off"}
         return {"scheduled": True, "packed_conv_active": False, "reason": "packed_conv=off"}
@@ -171,10 +231,6 @@ class FedAvgAPI:
         return self._packed_train(self.variables, tx, ty, tm, sampled, counts,
                                   self._round_orders(round_idx, len(sampled)), plan)
 
-    def aggregate(self, stacked_vars: dict, counts: torch.Tensor) -> dict:
-        """Sample-weighted average (fedavg_api.py:100-115)."""
-        return fedavg_aggregate(stacked_vars, counts)
-
     def sample(self, round_idx: int) -> np.ndarray:
         return sample_clients(round_idx, self._n_total, self._cohort, self.config.seed)
 
@@ -202,7 +258,9 @@ class FedAvgAPI:
         if self._packed_train is not None:
             out = self._run_packed_round(sampled, round_idx)
             if out is not None:
-                self.variables = out.variables
+                self.variables, self.server_state = apply_server_and_rollback(
+                    self.variables, out.variables, out.extras, out.total, self.server_state,
+                    None, self._server_update)
                 return out.train_loss if c.async_rounds else float(out.train_loss)
         counts = np.asarray(self.dataset.train_counts, np.int64)[sampled]
         if self._dev_train is not None:
@@ -217,8 +275,12 @@ class FedAvgAPI:
                                      orders=orders[i])
                    for i in range(len(sampled))]
         w = torch.as_tensor(counts, dtype=torch.float32, device=self.device)
-        self.variables = self.aggregate(tree_stack([r.variables for r in results]), w)
         losses = torch.stack([r.train_loss for r in results])
+        infos = LocalResult(tree_stack([r.variables for r in results]), losses,
+                            torch.tensor([r.tau for r in results], device=self.device))
+        if counts.sum() > 0:      # else the round keeps weights and server state
+            self.variables, self.server_state = self.aggregate(
+                self.variables, infos.variables, w, infos, None, self.server_state)
         train_loss = (losses * w).sum() / torch.clamp(w.sum(), min=1e-12)
         return train_loss if c.async_rounds else float(train_loss)
 

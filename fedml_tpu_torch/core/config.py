@@ -4,7 +4,10 @@ Only the fields the ported path reads, with the JAX package's names and
 defaults. ``packed_conv`` values other than ``"off"``, ``failure_prob`` and
 ``stream_aggregate`` exist so that a launch line asking for an unported
 schedule fails loudly (``FedAvgAPI`` raises ``NotImplementedError``) instead
-of being ignored.
+of being ignored. Optimizer names are checked where they are built, as in
+the JAX package: ``parallel/local.make_optimizer`` and
+``algorithms/fedopt.make_server_optimizer`` raise ``ValueError`` for an
+unknown name, so an API given one fails when it is constructed.
 """
 
 from __future__ import annotations
@@ -24,12 +27,21 @@ class FedConfig:
     comm_round: int = 10
 
     batch_size: int = 32
-    client_optimizer: str = "sgd"
+    client_optimizer: str = "sgd"    # sgd | adam (amsgrad) | adamw | adagrad | yogi
     lr: float = 0.03
     wd: float = 0.0
     momentum: float = 0.0
     epochs: int = 1
     grad_clip: Optional[float] = None
+
+    # server optimizer (FedOpt): sgd (FedAvgM with server_momentum > 0) |
+    # adam | adagrad | yogi
+    server_optimizer: str = "sgd"
+    server_lr: float = 1.0
+    server_momentum: float = 0.0
+
+    # FedProx: each local step adds (mu / 2) ||w - w_global||^2 to the loss
+    fedprox_mu: float = 0.1
 
     frequency_of_the_test: int = 5
     seed: int = 0

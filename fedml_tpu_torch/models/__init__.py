@@ -74,12 +74,13 @@ class ModelBundle:
 
 def create_model(model_name: str, output_dim: int,
                  input_shape: Optional[Sequence[int]] = None, **kw) -> ModelBundle:
-    """Factory keyed by the reference's --model flag values."""
-    from fedml_tpu_torch.models import resnet, transformer  # noqa: F401
+    """Factory keyed by the reference's --model flag values. Every factory
+    takes ``input_shape`` (None: its default); ``lr`` sizes its layer by it."""
+    from fedml_tpu_torch.models import linear, resnet, transformer  # noqa: F401
 
     if model_name not in _REGISTRY:
         raise KeyError(f"unknown or unported model {model_name!r}; known: {sorted(_REGISTRY)}")
-    bundle = _REGISTRY[model_name](output_dim=output_dim, **kw)
+    bundle = _REGISTRY[model_name](output_dim=output_dim, input_shape=input_shape, **kw)
     if input_shape is not None:
         bundle.input_shape = tuple(input_shape)
     return bundle

@@ -10,56 +10,90 @@ masks them.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.tasks import Task
 from fedml_tpu_torch.models import ModelBundle
 
 
 def make_optimizer(name: str, lr: float, momentum: float = 0.0, wd: float = 0.0
-                   ) -> Callable[..., torch.optim.Optimizer]:
-    """Client optimizer factory: returns ``make(params)``. ``sgd`` with
-    ``weight_decay`` equals optax ``chain(add_decayed_weights(wd),
-    sgd(lr, momentum))``: decay folds into the gradient before momentum, and
-    the first momentum buffer is the first gradient in both."""
-    if name.lower() != "sgd":
-        raise NotImplementedError(f"client optimizer {name!r} is not ported yet (sgd only)")
+                   ) -> optim.Transform:
+    """Client optimizer (``fedml_tpu/parallel/local.py:38-58``): the chain
+    ``add_decayed_weights(wd)`` (when ``wd``; the decay folds into the
+    gradient before momentum or moments) then ``sgd`` (momentum when
+    nonzero), ``adam`` (= amsgrad, as the reference's client Adam),
+    ``adamw``, ``adagrad`` or ``yogi``, each with optax's defaults
+    (``core/optim.py``). ``make_optimizer(...)(params)`` binds it."""
+    rules = {"sgd": lambda: optim.sgd(lr, momentum), "adam": lambda: optim.amsgrad(lr),
+             "adamw": lambda: optim.adamw(lr), "adagrad": lambda: optim.adagrad(lr),
+             "yogi": lambda: optim.yogi(lr)}
+    rule = rules.get(name.lower())
+    if rule is None:
+        raise ValueError(f"unknown optimizer {name!r}")
+    return optim.chain(optim.add_decayed_weights(wd), rule()) if wd else rule()
 
-    def make(params):
-        return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=wd)
 
-    return make
+def local_train_kwargs(config) -> dict:
+    """The one config -> ``make_local_train_fn`` kwargs mapping; every
+    trainer (``FedAvgAPI._local_train_kwargs``, the packed program) goes
+    through it, so a new knob cannot be dropped by one call site."""
+    return dict(optimizer=config.client_optimizer, lr=config.lr, momentum=config.momentum,
+                wd=config.wd, epochs=config.epochs, batch_size=config.batch_size,
+                grad_clip=config.grad_clip,
+                compute_dtype=torch.bfloat16 if config.dtype == "bfloat16" else None)
 
 
 class LocalResult(NamedTuple):
     variables: dict              # the client's state dict after training
     train_loss: torch.Tensor     # mean loss over the last epoch
-    tau: float                   # optimizer steps taken (FedNova)
+    tau: float                   # live optimizer steps, epochs * ceil(count / batch) (FedNova)
     first_loss: Optional[torch.Tensor] = None   # mean loss over the first epoch
 
 
-def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
-                        grad_clip: Optional[float] = None):
-    """ONE minibatch SGD step on ``bundle.module``:
-    ``step(module, opt, bx, by, bm) -> loss``. The optional clip scales
-    every gradient by ``min(1, clip / max(global_norm, 1e-12))``, as the
-    JAX step does (``clip_grad_norm_`` adds 1e-6 instead)."""
+@torch.no_grad()
+def prox_term(params: list, anchor: list, prox_mu: float, n_lanes: int = 0) -> torch.Tensor:
+    """FedProx: adds ``prox_mu * (w - w_global)``, the gradient of
+    ``0.5 * prox_mu * ||w - w_global||^2``, to every parameter's ``.grad``
+    and returns that term's value (``[L]``, one per lane, for lane-folded
+    parameters)."""
+    d = torch._foreach_sub(params, anchor)
+    torch._foreach_add_([p.grad for p in params], d, alpha=prox_mu)
+    if n_lanes:     # one norm per (lane, parameter), lane-major
+        d = [x.view(n_lanes, -1)[lane] for lane in range(n_lanes) for x in d]
+    sq = torch.stack(torch._foreach_norm(d)).square().view(max(n_lanes, 1), -1).sum(1)
+    return 0.5 * prox_mu * (sq if n_lanes else sq[0])
 
-    def batch_step(module, opt, bx, by, bm):
+
+def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
+                        grad_clip: Optional[float] = None, prox_mu: float = 0.0):
+    """ONE minibatch step on ``bundle.module``:
+    ``step(module, opt, bx, by, bm, anchor=None) -> loss``, ``opt`` a bound
+    optimizer (``make_optimizer(...)(params)``). With ``prox_mu`` the loss
+    gains ``0.5 * prox_mu * ||w - anchor||^2`` over the parameters
+    (``anchor``: the global model's, in ``opt.params`` order), before the
+    clip. The optional clip scales every gradient by
+    ``min(1, clip / max(global_norm, 1e-12))``, as the JAX step does
+    (``clip_grad_norm_`` adds 1e-6 instead)."""
+
+    def batch_step(module, opt, bx, by, bm, anchor=None):
         module.train()
         loss = task.loss(module(bx), by, bm)
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad()
         loss.backward()
+        loss = loss.detach()
+        if prox_mu:
+            loss = loss + prox_term(opt.params, anchor, prox_mu)
         if grad_clip:
-            grads = [p.grad for p in module.parameters() if p.grad is not None]
+            grads = [p.grad for p in opt.params if p.grad is not None]
             gnorm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
             scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
             for g in grads:
                 g.mul_(scale.to(g.dtype))
         opt.step()
-        return loss.detach()
+        return loss
 
     return batch_step
 
@@ -75,10 +109,13 @@ def make_local_train_fn(
     epochs: int = 1,
     batch_size: int = 32,
     grad_clip: Optional[float] = None,
+    prox_mu: float = 0.0,
     compute_dtype=None,
 ):
     """Build ``local_train(variables, x, y, mask, count, generator=None,
-    orders=None) -> LocalResult``.
+    orders=None) -> LocalResult``. ``optimizer``: any name of
+    :func:`make_optimizer`; ``prox_mu``: FedProx's term, anchored at
+    ``variables``.
 
     ``x/y/mask`` are one client's padded tensors [n_pad, ...] on the
     training device, with n_pad a multiple of ``batch_size``; ``count`` is
@@ -86,8 +123,8 @@ def make_local_train_fn(
     ``generator``, or ``orders[e]`` when given — the hook parity tests use
     to inject the JAX package's permutations) and stable-sorts it so the
     real records lead."""
-    make_opt = make_optimizer(optimizer, lr, momentum, wd)
-    batch_step = make_batch_sgd_step(bundle, task, grad_clip=grad_clip)
+    tx = make_optimizer(optimizer, lr, momentum, wd)
+    batch_step = make_batch_sgd_step(bundle, task, grad_clip=grad_clip, prox_mu=prox_mu)
 
     def local_train(variables: dict, x, y, mask, count: int,
                     generator: Optional[torch.Generator] = None,
@@ -97,7 +134,8 @@ def make_local_train_fn(
             raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
         module = bundle.module
         module.load_state_dict(variables)
-        opt = make_opt(module.parameters())
+        opt = tx(module.parameters())
+        anchor = [variables[k] for k, _ in module.named_parameters()] if prox_mu else None
         steps_real = -(-int(count) // batch_size)
         if compute_dtype is not None and x.is_floating_point():
             x = x.to(compute_dtype)
@@ -109,7 +147,7 @@ def make_local_train_fn(
             total = torch.zeros((), device=x.device)
             for s in range(steps_real):
                 idx = order[s * batch_size:(s + 1) * batch_size]
-                total = total + batch_step(module, opt, x[idx], y[idx], mask[idx])
+                total = total + batch_step(module, opt, x[idx], y[idx], mask[idx], anchor)
             ep_losses.append(total / max(steps_real, 1))
         state = {k: v.detach().clone() for k, v in module.state_dict().items()}
         return LocalResult(state, ep_losses[-1], float(epochs * steps_real), ep_losses[0])

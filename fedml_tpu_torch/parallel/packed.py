@@ -11,9 +11,19 @@ in place of the JAX package's ``vmap`` of the lane program over lanes.
 
 Exactness: each client replays the plain port path (``parallel/local.py``)
 on the same per-epoch orders: the same real-first stable sort, the same
-live steps, the plain path's SGD (``local.make_optimizer``: momentum and
-weight decay as optax computes them) over the twin's parameters, and the
-clip by the lane's own global norm. The aggregate equals the plain round's
+live steps, the plain path's optimizer (any of ``local.make_optimizer``'s,
+with every state tensor folded like its parameter and one step count per
+lane, so each lane's bias corrections are its own client's), FedProx's
+term anchored per lane at the global model, and the clip by the lane's own
+global norm.
+
+The algorithm hooks are the JAX lane program's (``make_lane_train``):
+``client_transform(global_vars, stacked)`` maps a member's variables at
+its emit before they enter the weighted sum, and
+``reduce_extras(global_vars, LocalResult, w)`` returns weighted partial
+sums, accumulated over the emits; both take stacked clients, here a
+singleton axis. A member's ``tau`` is ``epochs * steps_real`` from the
+plan. The aggregate equals the plain round's
 weighted mean up to float summation order (the grouped conv, the folded BN
 sums, the accumulator). The plan is numpy on the host, so the step loop
 branches on it per step: steps where no lane is live are skipped, and the
@@ -25,15 +35,17 @@ joint lowerings of ``packed_conv != "off"`` are not ported.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core.optim import state_tensors
+from fedml_tpu_torch.core.pytree import tree_add
 from fedml_tpu_torch.core.tasks import Task
 from fedml_tpu_torch.models import ModelBundle
 from fedml_tpu_torch.ops.packed_conv import stack_variables
-from fedml_tpu_torch.parallel.local import make_optimizer
+from fedml_tpu_torch.parallel.local import LocalResult, make_optimizer, prox_term
 
 
 class PackPlan(NamedTuple):
@@ -155,44 +167,66 @@ def executed_steps(live: np.ndarray) -> np.ndarray:
 class PackedResult(NamedTuple):
     variables: dict        # the aggregate: sum(w * vars) / sum(w), in each leaf's dtype
     train_loss: torch.Tensor   # sum(w * last-epoch mean loss) / sum(w), 0-dim
+    extras: Optional[dict]     # reduce_extras summed over the emits (None without the hook)
+    total: float               # sum(w) over the emits
 
 
 class _Lanes:
     """The lane-stacked model for one lane count, its optimizer and its
-    per-lane state: flat per-lane views of every state-dict leaf and of the
-    momentum buffers, which the step loop resets, freezes and reads in
-    place."""
+    per-lane state: each lane's view of every state-dict leaf, in the plain
+    model's shapes (``names`` order), flat per-lane views of every
+    optimizer state tensor, and each lane's step counts; the step loop
+    resets, freezes and reads them in place."""
 
-    def __init__(self, module: torch.nn.Module, n_lanes: int, variables: dict, make_opt):
+    def __init__(self, module: torch.nn.Module, n_lanes: int, variables: dict, tx):
         self.module = module
         self.n_lanes = n_lanes
+        L = n_lanes
         module.load_state_dict(stack_variables(variables, n_lanes))
         state = module.state_dict(keep_vars=True)
         self.names = list(state)
-        self.params = list(module.parameters())
-        self.opt = make_opt(self.params)
-        momentum = []
-        if self.opt.defaults["momentum"]:
-            # zero buffers made here, so that each lane's share can be
-            # zeroed at its resets (SGD updates them in place)
-            for p in self.params:
-                momentum.append(torch.zeros_like(p))
-                self.opt.state[p]["momentum_buffer"] = momentum[-1]
-        L = n_lanes
+        self.param_names = [n for n, _ in module.named_parameters()]
+        self.opt = tx(module.parameters(), n_lanes)
+        opt_tensors, self.counts = state_tensors(self.opt.state)
+        opt_init = [t.clone() for t in opt_tensors]
 
         def views(tensors):
             return [[t.detach().view(L, -1)[lane] for t in tensors] for lane in range(L)]
 
-        self.state_views = views(state.values())
-        self.mom_views = views(momentum)
+        self.lane_state = [[t.detach().view(L, *variables[n].shape)[lane]
+                            for n, t in state.items()] for lane in range(L)]
+        self.opt_views = views(opt_tensors)
+        self.opt_init_views = views(opt_init)
+
+    def reset(self, lane: int, glob: list) -> None:
+        """Lane ``lane`` starts a client: the global variables, the
+        optimizer's initial state, step count 0."""
+        torch._foreach_copy_(self.lane_state[lane], glob)
+        torch._foreach_copy_(self.opt_views[lane], self.opt_init_views[lane])
+        for c in self.counts:
+            c[lane] = 0
+
+    def save(self, lane: int) -> tuple:
+        return ([v.clone() for v in self.lane_state[lane] + self.opt_views[lane]],
+                [c[lane].clone() for c in self.counts])
+
+    def restore(self, lane: int, saved: tuple) -> None:
+        torch._foreach_copy_(self.lane_state[lane] + self.opt_views[lane], saved[0])
+        for c, v in zip(self.counts, saved[1]):
+            c[lane] = v
 
 
 def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
-                             lr: float = 0.01, momentum: float = 0.0, wd: float = 0.0,
-                             epochs: int = 1, batch_size: int = 32,
-                             grad_clip: Optional[float] = None, compute_dtype=None):
+                             optimizer: str = "sgd", lr: float = 0.01, momentum: float = 0.0,
+                             wd: float = 0.0, epochs: int = 1, batch_size: int = 32,
+                             grad_clip: Optional[float] = None, prox_mu: float = 0.0,
+                             compute_dtype=None,
+                             client_transform: Optional[Callable] = None,
+                             reduce_extras: Optional[Callable] = None):
     """Build ``packed_train(variables, tx, ty, tm, sampled_rows, weights_pos,
-    orders, plan) -> PackedResult``, sgd only.
+    orders, plan) -> PackedResult``; the trainer arguments are
+    ``make_local_train_fn``'s (``local.local_train_kwargs``), the hooks the
+    JAX lane program's.
 
     The lane-stacked model for L lanes, ``bundle.module.lane_stacked(L)``, is
     built at the first plan with L lanes and kept (L varies from round to
@@ -210,7 +244,7 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
                                   "schedule is ported for the CIFAR ResNets")
     steps_full = n_pad // batch_size
     bs = batch_size
-    make_opt = make_optimizer("sgd", lr, momentum, wd)
+    opt_tx = make_optimizer(optimizer, lr, momentum, wd)
     cache: dict[int, _Lanes] = {}
 
     def lane_tables(tm, rows, orders, plan, steps):
@@ -238,16 +272,37 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
             g.view(L, g.shape[0] // L, *g.shape[1:]).mul_(
                 scale.view(L, *([1] * g.dim())).to(g.dtype))
 
+    @torch.no_grad()
+    def emit(lanes: _Lanes, lane: int, variables: dict, acc: list, w: float,
+             mean_loss: torch.Tensor, tau: float):
+        """Add member ``lane``'s ``w``-weighted (transformed) variables to
+        ``acc``; returns its weighted extras (or None)."""
+        one = {n: v.unsqueeze(0) for n, v in zip(lanes.names, lanes.lane_state[lane])}
+        if client_transform is None:
+            torch._foreach_add_(acc, lanes.lane_state[lane], alpha=w)
+        else:
+            out = client_transform(variables, one)
+            torch._foreach_add_(acc, [out[n][0] for n in lanes.names], alpha=w)
+        if reduce_extras is None:
+            return None
+        dev = mean_loss.device
+        res = LocalResult(one, mean_loss.reshape(1),
+                          torch.full((1,), tau, dtype=torch.float32, device=dev))
+        return reduce_extras(variables, res, torch.full((1,), w, dtype=torch.float32,
+                                                        device=dev))
+
     def packed_train(variables: dict, tx, ty, tm, sampled_rows, weights_pos,
                      orders: torch.Tensor, plan: PackPlan) -> PackedResult:
         L = plan.n_lanes
         lanes = cache.get(L)
         if lanes is None:
-            lanes = cache[L] = _Lanes(lane_stacked(L), L, variables, make_opt)
+            lanes = cache[L] = _Lanes(lane_stacked(L), L, variables, opt_tx)
         module = lanes.module
         dev = tx.device
-        glob = [variables[k].reshape(-1) for k in lanes.names]
-        acc = [torch.zeros(v.numel(), dtype=torch.float32, device=dev) for v in glob]
+        glob = [variables[k] for k in lanes.names]
+        anchor = ([variables[k].repeat(L, *([1] * (variables[k].dim() - 1)))
+                   for k in lanes.param_names] if prox_mu else None)
+        acc = [torch.zeros_like(v, dtype=torch.float32) for v in glob]
         C = tx.shape[0]
         x_flat = tx.reshape((C * n_pad,) + tuple(tx.shape[2:]))
         if compute_dtype is not None and x_flat.is_floating_point():
@@ -266,23 +321,22 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         loss_acc = torch.zeros(L, device=dev)
         acc_loss = torch.zeros((), device=dev)
         acc_w = 0.0
+        acc_extras = None
         module.train()
         for i, t in enumerate(steps):
             reset = np.nonzero(plan.reset[:, t] > 0)[0]
             if reset.size:
                 with torch.no_grad():
                     for lane in reset:
-                        torch._foreach_copy_(lanes.state_views[lane], glob)
-                        torch._foreach_zero_(lanes.mom_views[lane])
+                        lanes.reset(lane, glob)
                     keep = torch.ones(L, device=dev)
                     keep[torch.as_tensor(reset)] = 0.0
                     loss_acc = loss_acc * keep
             live = plan.live[:, t] > 0
             dead = np.nonzero(~live)[0]
             # a dead lane's step changes nothing of it: not its parameters,
-            # momentum or BatchNorm running statistics
-            frozen = {lane: [v.clone() for v in lanes.state_views[lane] + lanes.mom_views[lane]]
-                      for lane in dead}
+            # optimizer state or BatchNorm running statistics
+            frozen = {lane: lanes.save(lane) for lane in dead}
             ix = table[i]
             bx = x_flat[ix].view((L, bs) + tuple(x_flat.shape[1:]))
             by = y_flat[ix].view((L, bs) + tuple(y_flat.shape[1:]))
@@ -294,25 +348,29 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
             total = lane_loss.sum() if not dead.size else lane_loss[torch.as_tensor(
                 np.nonzero(live)[0], device=dev)].sum()
             total.backward()
+            lane_loss = lane_loss.detach()
+            if prox_mu:
+                lane_loss = lane_loss + prox_term(lanes.opt.params, anchor, prox_mu, L)
             if grad_clip:
-                clip([p.grad for p in lanes.params], L)
+                clip([p.grad for p in lanes.opt.params], L)
             lanes.opt.step()
-            lanes.opt.zero_grad(set_to_none=True)
+            lanes.opt.zero_grad()
             with torch.no_grad():
                 for lane, saved in frozen.items():
-                    torch._foreach_copy_(lanes.state_views[lane] + lanes.mom_views[lane], saved)
-                loss_acc = loss_acc + lane_loss.detach() * last[i]
+                    lanes.restore(lane, saved)
+                loss_acc = loss_acc + lane_loss * last[i]
                 for lane in lanes_ix[plan.emit[:, t] > 0]:
                     k = int(plan.slot[lane, t])
                     w = float(member_w[lane, k])
-                    torch._foreach_add_(acc, lanes.state_views[lane], alpha=w)
-                    acc_w += w
                     sr = max(float(plan.steps_real[lane, k]), 1.0)
+                    ex = emit(lanes, lane, variables, acc, w, loss_acc[lane] / sr, epochs * sr)
+                    if ex is not None:
+                        acc_extras = ex if acc_extras is None else tree_add(acc_extras, ex)
+                    acc_w += w
                     acc_loss = acc_loss + loss_acc[lane] / sr * w
         denom = max(acc_w, 1e-12)
-        agg = {k: (a / denom).view(variables[k].shape).to(variables[k].dtype)
-               for k, a in zip(lanes.names, acc)}
-        return PackedResult(agg, acc_loss / denom)
+        agg = {k: (a / denom).to(variables[k].dtype) for k, a in zip(lanes.names, acc)}
+        return PackedResult(agg, acc_loss / denom, acc_extras, acc_w)
 
     packed_train.lanes = cache      # L -> its lane-stacked model and per-lane state
     return packed_train

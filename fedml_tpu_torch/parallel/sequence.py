@@ -17,6 +17,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from fedml_tpu_torch.core.optim import Optimizer
 from fedml_tpu_torch.ops.xent import masked_cross_entropy
 
 _UNPORTED = ("sequence parallelism (ring/Ulysses attention over an 'sp' axis) is not "
@@ -48,7 +49,7 @@ def make_sp_lm_train_step(module: nn.Module, mesh: tuple[int, int] = (1, 1), *,
                           attn_impl: str = "auto") -> Callable:
     """Build the LM train step ``step(opt, x, y, mask) -> loss``.
 
-    ``module`` is a ``TransformerLM``; ``opt`` an optimizer over its
+    ``module`` is a ``TransformerLM``; ``opt`` an optimizer bound to its
     parameters (``make_optimizer(...)(module.parameters())``), which holds
     the variables and the optimizer state that the JAX step threads through
     and donates: here both are updated in place. ``x``/``y`` are
@@ -57,13 +58,13 @@ def make_sp_lm_train_step(module: nn.Module, mesh: tuple[int, int] = (1, 1), *,
     returned loss is a detached 0-dim tensor (no host sync)."""
     sp_mesh(*mesh)
 
-    def step(opt: torch.optim.Optimizer, x, y, mask) -> torch.Tensor:
+    def step(opt: Optimizer, x, y, mask) -> torch.Tensor:
         total = torch.clamp(mask.to(torch.float32).sum(), min=1.0)
         module.train()
         logits = module(x, pos_offset=0)
         per = masked_cross_entropy(logits, y, mask, impl=attn_impl)
         loss = per.sum() / total
-        opt.zero_grad(set_to_none=True)
+        opt.zero_grad()
         loss.backward()
         opt.step()
         return loss.detach()
