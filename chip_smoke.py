@@ -83,9 +83,24 @@ Phases (any failure raises and the script exits non-zero):
    fixed batch; 8 K6 and 1 K5 per step, the loss falls; tokens/s, ms/step
    and peak memory.
 
-Phases 4, 8 and 11 end with a profile of 5 local steps of one client (wall
-and device ms per step, device busy share, device time by kernel family);
-phase 4b profiles 5 packed steps of two clients, phase 12 one more step.
+Every live step of phases 4, 4b, 4c, 8 and 11 is a replay of the step
+captured as one CUDA graph (``parallel/capture.py``): each round checks one
+replay a live (or executed packed) step and the kernels' launch counts, to
+which a replay adds the launches its capture recorded. Each of those phases
+(in 4c the FedOpt-adam packed run and the client-adam plain run) then runs
+one client's first 12 live steps (or one packed cohort) through the eager
+step (``capture=False``) twice and captured once: when the eager runs
+repeat bit for bit, the captured run must too, else it may be no farther
+from the first eager run than the second is, and the tensors one eager
+step already changes name the op. Then 5 steps of each arm are profiled
+(wall and device ms per step, busy share, GPU activities, the host's
+launch calls, K1 and K2 by name: 57 a step on the BN paths), the captured
+graph's kernel nodes are read through libcuda's graph API (57 K1 + 57 K2
+nodes, all cooperative, on the BN paths; 72 K3 and 36 cooperative K4 on
+the lanes path; 4 K6 on path (A)), and the grid-barrier words of each
+capturing stream must be back at zero. Phases 4 and 4b also run their
+rounds again from the same weights through the eager step, for real
+images/s both ways. Phase 12 profiles one more (eager) step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -96,10 +111,12 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -257,31 +274,125 @@ def cuda_time_ms(fn, iters: int = 40, repeats: int = 5, warmup: int = 5) -> floa
     return float(np.median(runs))
 
 
-def device_ms(fn, iters: int = 20, attempts: int = 3):
-    """Device time per call: the summed durations of every GPU kernel and
-    copy the profiler traces over ``iters`` calls (no host time). The
-    profiler now and then records no device activity for a window; such a
-    window is profiled again, and after ``attempts`` empty ones the result
-    is None."""
+# torch.profiler loses the first device records of a window, in two ways
+# (on the H100): now and then whatever ran in the first milliseconds of
+# the window, and late in a long process the first few records of every
+# window, whatever idle, sync or spin came first. So a window opens
+# with ``SENTINELS`` short spins (``torch.cuda._sleep`` of
+# ``SENTINEL_CYCLES``) and ``PROFILE_PAD_S`` of idle before the work; no
+# count includes the sentinels, and a window whose work still lost records
+# is profiled again, at most ``PROFILE_ATTEMPTS`` times
+# (tools/torch_profile_window.py counts lost windows, plain and as here).
+SENTINELS = 16
+SENTINEL_CYCLES = 2_000
+PROFILE_PAD_S = 0.01
+PROFILE_ATTEMPTS = 5
+# the host calls whose every launch makes at least one device record
+KERNEL_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch)")
+# profile windows opened, sentinel records lost in them (all, and the most
+# in one window), and windows whose work lost records and were profiled
+# again
+PROFILE_TALLY = {"windows": 0, "sentinel_records_lost": 0, "most_sentinel_records_lost": 0,
+                 "profiled_again": 0}
+
+
+def _launches(events) -> list:
+    """The kernel and graph launch calls among a profile's ``events``, in
+    the order the host made them."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in events if e.device_type == DeviceType.CPU
+                   and KERNEL_LAUNCH.match(e.name)), key=lambda e: e.time_range.start)
+
+
+def lost_device_records(events) -> int:
+    """Kernel and graph launches in a profile's ``events`` that left no
+    device record: the device records of a launch carry its correlation id."""
+    from torch.autograd import DeviceType
+
+    recorded = {e.id for e in events if e.device_type == DeviceType.CUDA}
+    return sum(e.id not in recorded for e in _launches(events))
+
+
+def profile_window(fn, sentinels: int = SENTINELS, pad_s: float = PROFILE_PAD_S) -> tuple:
+    """``fn()`` under torch.profiler (host and CUDA activity), in a window
+    that opens after a sync with ``sentinels`` sentinel launches, a sync
+    and ``pad_s`` of idle, and ends with a sync. Returns ``(profile,
+    events, sentinel records lost)``: ``events`` are the profile's without
+    the sentinels' launches and records."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA)
-        if total_us <= 0:   # the device events themselves, as step_profile reads them
-            total_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                           if e.device_type == DeviceType.CUDA)
-        if total_us > 0:
-            return total_us / 1e3 / iters
-    return None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(sentinels):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    if not sentinels:
+        return prof, events, 0
+    ids = {e.id for e in _launches(events)[:sentinels]}
+    dropped = [e for e in events if e.id in ids and (e.device_type == DeviceType.CUDA
+                                                     or KERNEL_LAUNCH.match(e.name))]
+    recorded = [e for e in dropped if e.device_type == DeviceType.CUDA]
+    if any("spin" not in e.name for e in recorded):
+        raise AssertionError("the profile window's first launches are not all its sentinels: "
+                             f"{sorted({e.name for e in recorded})}")
+    keep = {id(e) for e in dropped}
+    return prof, [e for e in events if id(e) not in keep], sentinels - len(recorded)
+
+
+def profiled(fn, what: str) -> tuple:
+    """``fn()`` in a ``profile_window``. A window whose work lost device
+    records (``lost_device_records``) is profiled again; after
+    ``PROFILE_ATTEMPTS`` such windows this raises. Returns ``(profile,
+    events)`` as ``profile_window`` does."""
+    for _ in range(PROFILE_ATTEMPTS):
+        prof, events, sentinel_lost = profile_window(fn)
+        PROFILE_TALLY["windows"] += 1
+        PROFILE_TALLY["sentinel_records_lost"] += sentinel_lost
+        PROFILE_TALLY["most_sentinel_records_lost"] = max(
+            PROFILE_TALLY["most_sentinel_records_lost"], sentinel_lost)
+        lost = lost_device_records(events)
+        if not lost:
+            return prof, events
+        PROFILE_TALLY["profiled_again"] += 1
+        from torch.autograd import DeviceType
+        launches = _launches(events)
+        recorded = {e.id for e in events if e.device_type == DeviceType.CUDA}
+        t0 = launches[0].time_range.start
+        detail = [(i, e.name, e.time_range.start - t0) for i, e in enumerate(launches)
+                  if e.id not in recorded][:8]
+        log(f"[profile] {what}: {sentinel_lost} of {SENTINELS} sentinel records lost, and "
+            f"{lost} launches' device records of the work (index, call, us after its first "
+            f"launch): {detail} of {len(launches)} launches; profiling again")
+    raise AssertionError(f"{what}: the profiler lost device records in {PROFILE_ATTEMPTS} "
+                         "windows")
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time per call: the summed durations of every GPU kernel and
+    copy the profiler traces over ``iters`` calls (no host time), from a
+    window that lost no device record (``profiled``). None when every
+    window lost records, or when the calls launched nothing."""
+    from torch.autograd import DeviceType
+
+    fn()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    try:
+        _, events = profiled(calls, "device_ms")
+    except AssertionError:
+        return None
+    total_us = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA)
+    return total_us / 1e3 / iters if total_us > 0 else None
 
 
 def queued_device_ms(fn, sm_clock_mhz: float, iters: int = 10, repeats: int = 3) -> float:
@@ -784,76 +895,103 @@ def kernel_family(name: str) -> str:
     return "other elementwise / reductions"
 
 
-def step_profile(api, client: int = 0, steps: int = 5) -> dict:
-    """The first ``steps`` live steps of one client's local training (its
-    first ``steps`` batches of real records), as tools/torch_step_profile.py
-    profiles a whole client: wall ms per step (unprofiled, ending in a
-    sync), device ms per step by kernel family under torch.profiler, and
-    the busy share = device time over the unprofiled wall. Few steps keep
-    the profiler's post-processing (~3,300 events a step) short."""
+def client_run(api, trainer=None, client: int = 0, steps: int = 5):
+    """``(run, live steps)``: ``run()`` trains one client's first ``steps``
+    batches of real records from ``api.variables`` through ``trainer`` (the
+    API's own by default) and returns its LocalResult."""
     import torch
 
+    trainer = trainer or api._local_train
     tx, ty, tm = api._dev_train
     count = min(int(api.dataset.train_counts[client]), steps * api.config.batch_size)
-    steps = -(-count // api.config.batch_size)
 
-    def run():   # the rounds before it have warmed the path up
-        res = api._local_train(api.variables, tx[client], ty[client], tm[client], count,
-                               torch.Generator().manual_seed(1))
-        float(res.train_loss)
+    def run():
+        return trainer(api.variables, tx[client], ty[client], tm[client], count,
+                       torch.Generator().manual_seed(1))
 
-    return {"client": client, **_profile(run, steps)}
+    return run, -(-count // api.config.batch_size)
 
 
-def packed_step_profile(api, steps: int = 5) -> dict:
-    """``steps`` packed steps of the first ``lanes`` clients, one a lane
-    (each client's first ``steps`` batches), through the round's packed
-    program: per step as ``step_profile``, and per real image."""
+def cohort_run(api, trainer=None, steps: int = 5):
+    """``(run, executed packed steps, real images)``: ``run()`` trains the
+    first ``lanes`` clients, one a lane, each on its first ``steps``
+    batches, through the packed ``trainer`` (the API's own by default) and
+    returns its PackedResult."""
     from fedml_tpu_torch.parallel.packed import executed_steps, plan_packing
 
+    trainer = trainer or api._packed_train
     c = api.config
-    lanes = c.pack_lanes
-    clients = np.arange(lanes)
+    clients = np.arange(c.pack_lanes)
     counts = np.minimum(api.dataset.train_counts[clients], steps * c.batch_size).astype(np.float32)
-    plan = plan_packing(counts, c.batch_size, 1, lanes)
-    steps = len(executed_steps(plan.live))
-    orders = api._round_orders(0, lanes)
+    plan = plan_packing(counts, c.batch_size, 1, c.pack_lanes)
+    orders = api._round_orders(0, c.pack_lanes)
     tx, ty, tm = api._dev_train
 
     def run():
-        float(api._packed_train(api.variables, tx, ty, tm, clients, counts, orders,
-                                plan).train_loss)
+        return trainer(api.variables, tx, ty, tm, clients, counts, orders, plan)
 
-    prof = _profile(run, steps)
-    real = float(counts.sum())
-    return {"clients": clients.tolist(), "lanes": plan.n_lanes, "real_images": real,
+    return run, len(executed_steps(plan.live)), float(counts.sum())
+
+
+def step_profile(api, client: int = 0, steps: int = 5, trainer=None) -> dict:
+    """The first ``steps`` live steps of one client's local training (its
+    first ``steps`` batches of real records) through ``trainer`` (the API's
+    own by default), as tools/torch_step_profile.py profiles a whole
+    client: wall ms per step (unprofiled, ending in a sync), device ms per
+    step by kernel family under torch.profiler, the busy share = device time
+    over the unprofiled wall, and the host's launch calls. Few steps keep
+    the profiler's post-processing (~3,300 events a step) short. The rounds
+    before it have warmed the path up."""
+    run, steps = client_run(api, trainer, client, steps)
+    return {"client": client, **_profile(lambda: float(run().train_loss), steps)}
+
+
+def packed_step_profile(api, steps: int = 5, trainer=None) -> dict:
+    """``steps`` packed steps of the first ``lanes`` clients, one a lane
+    (each client's first ``steps`` batches), through the packed ``trainer``
+    (the round's by default): per step as ``step_profile``, and per real
+    image."""
+    run, steps, real = cohort_run(api, trainer, steps)
+    prof = _profile(lambda: float(run().train_loss), steps)
+    return {"clients": list(range(api.config.pack_lanes)), "lanes": api.config.pack_lanes,
+            "real_images": real,
             "gpu_activities_per_real_image": prof["gpu_activities_per_step"] * steps / real,
             "device_ms_per_real_image": prof["device_ms_per_step"] * steps / real,
             "wall_ms_per_real_image": prof["wall_ms_per_step"] * steps / real, **prof}
 
 
+# the host calls that put work on the card (CUDA runtime and libcuda API
+# names, as torch.profiler records them)
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy|"
+                         r"Memset)")
+# kernels counted by name in a profile: K1 and K2
+NAMED_KERNELS = ("bn_fwd_onepass", "bn_bwd_onepass")
+
+
 def _profile(run, steps: int) -> dict:
     """Profile one call of ``run`` (``steps`` training steps), then time an
-    unprofiled call: per-step wall, device time by kernel family, busy share
-    and GPU activities, and the host operators that launched the most device
-    time."""
+    unprofiled call: per-step wall, device time by kernel family, busy share,
+    GPU activities, host launch calls, K1 and K2 by name, and the host
+    operators that launched the most device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    prof, events = profiled(run, f"{steps} steps")
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    by_family, n = {}, 0
-    for e in prof.events():
+    by_family, n, launches, graphs, named = {}, 0, 0, 0, dict.fromkeys(NAMED_KERNELS, 0)
+    for e in events:
         if e.device_type == DeviceType.CUDA:
             n += 1
             fam = kernel_family(e.name)
             by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+            for k in named:
+                named[k] += k in e.name
+        elif HOST_LAUNCH.match(e.name):
+            launches += 1
+            graphs += e.name.startswith(("cudaGraphLaunch", "cuGraphLaunch"))
     total = sum(by_family.values())
     # the host-side operators that launched the most device time, and those
     # that took the most host time themselves
@@ -864,11 +1002,314 @@ def _profile(run, steps: int) -> dict:
     return {"live_steps": steps, "wall_ms_per_step": wall_s / steps * 1e3,
             "device_ms_per_step": total, "device_busy_share": total * steps / (wall_s * 1e3),
             "gpu_activities_per_step": n / steps,
+            # CUDA runtime and libcuda calls that enqueue work (kernels,
+            # graphs, copies, fills) as the profiler sees them, and of them
+            # the graph launches
+            "host_launches_per_step": launches / steps, "graph_launches_per_step": graphs / steps,
+            "kernels_by_name": named,
             "device_ms_per_step_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1])),
             "top_ops": [{"name": e.key, "device_ms_per_step": e.self_device_time_total / 1e3 / steps,
                          "calls_per_step": e.count / steps} for e in top],
             "top_host_ops": [{"name": e.key, "host_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
                               "calls_per_step": e.count / steps} for e in host]}
+
+
+# -- the captured step: eager against captured --------------------------------
+
+# live steps of one client (or of each lane's client) in the eager-against-
+# captured gate
+GATE_STEPS = 12
+# CUgraphNodeType CU_GRAPH_NODE_TYPE_KERNEL and CUkernelNodeAttrID
+# CU_KERNEL_NODE_ATTRIBUTE_COOPERATIVE (cuda.h)
+_CU_GRAPH_NODE_TYPE_KERNEL = 0
+_CU_KERNEL_NODE_ATTRIBUTE_COOPERATIVE = 2
+# the cooperative kernels: K1, K2 and the bf16 K4
+COOPERATIVE_KERNELS = ("bn_fwd_onepass", "bn_bwd_onepass", "conv_wgrad_mma")
+# the port's kernels as a graph's nodes are counted: K1, K2, the bf16 K4,
+# the bf16 K3 (and the CUDA-core one), the bf16 K6
+GRAPH_KERNELS = (*COOPERATIVE_KERNELS, "conv_fwd_mma", "conv_fwd_kernel", "flash_fwd_")
+# each path's step graph: its kernel nodes, and K1/K2 by name a step
+BN_GRAPH = {"bn_fwd_onepass": BNS_PER_STEP, "bn_bwd_onepass": BNS_PER_STEP}
+
+
+def trainer_programs(trainer) -> list:
+    """The step programs (``parallel/capture.CapturedStep``) of a plain or
+    packed trainer."""
+    if hasattr(trainer, "lanes"):
+        return [p for lanes in trainer.lanes.values() for p in lanes.programs.values()]
+    return list(trainer.programs.values())
+
+
+def step_programs(api) -> list:
+    """The step programs of the API's trainer."""
+    return trainer_programs(api._packed_train if api._packed_train is not None
+                            else api._local_train)
+
+
+def one_step_profile(prog) -> dict:
+    """One turn of a trainer's step loop under the profiler: the gathers
+    into the step's static inputs, the step (a graph replay, or the eager
+    body), the loss sum. Returns the host's launch calls, the graph
+    launches, the GPU activities and K1 and K2 by name. The step trains
+    the module from wherever it stands; every client reloads it."""
+    import torch
+    from torch.autograd import DeviceType
+
+    src = [t.clone() for t in prog.inputs]
+    idx = torch.arange(src[0].shape[0], device=src[0].device)
+    total = torch.zeros((), device=src[0].device)
+
+    def turn():
+        nonlocal total
+        for a, b in zip(src, prog.inputs):
+            torch.index_select(a, 0, idx, out=b)
+        out = prog()
+        total = total + (out if out.dim() == 0 else out.sum())
+
+    _, events = profiled(turn, "one turn of the step loop")
+    rec = {"host_launches": 0, "graph_launches": 0, "gpu_activities": 0,
+           "kernels_by_name": dict.fromkeys(NAMED_KERNELS, 0)}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            rec["gpu_activities"] += 1
+            for k in NAMED_KERNELS:
+                rec["kernels_by_name"][k] += k in e.name
+        elif HOST_LAUNCH.match(e.name):
+            rec["host_launches"] += 1
+            rec["graph_launches"] += e.name.startswith(("cudaGraphLaunch", "cuGraphLaunch"))
+    return rec
+
+
+def replays(api) -> int:
+    return sum(p.replays for p in step_programs(api))
+
+
+def eager_trainer(api):
+    """The API's trainer built again with ``capture=False``: the same step
+    body, run eagerly."""
+    from fedml_tpu_torch.parallel.local import make_local_train_fn
+    from fedml_tpu_torch.parallel.packed import make_packed_cohort_train
+
+    kw = dict(api._local_train_kwargs(), capture=False)
+    if api._packed_train is None:
+        return make_local_train_fn(api.bundle, api.task, **kw)
+    hooks = api._packing_hooks()
+    return make_packed_cohort_train(api.bundle, api.task, int(api.dataset.train_x.shape[1]),
+                                    client_transform=hooks.get("client_transform"),
+                                    reduce_extras=hooks.get("reduce_extras"), **kw)
+
+
+def _outcome(res) -> dict:
+    """A trainer's result as named tensors: its variables and losses."""
+    out = {f"variables/{k}": v for k, v in res.variables.items()}
+    out["train_loss"] = res.train_loss
+    if getattr(res, "first_loss", None) is not None:
+        out["first_loss"] = res.first_loss
+    return out
+
+
+def _distance(a: dict, b: dict) -> tuple[float, list]:
+    """The largest absolute difference over every tensor, and the names of
+    the tensors whose bits differ."""
+    import torch
+
+    names = [k for k in a if not torch.equal(a[k], b[k])]
+    worst = max((float((a[k].double() - b[k].double()).abs().max()) for k in names),
+                default=0.0)
+    return worst, names
+
+
+def capture_gate(api, eager, tag: str, packed: bool) -> dict:
+    """One client's first GATE_STEPS live steps (or one packed cohort's),
+    eager twice, then captured. Eager runs that repeat bit for bit make the
+    captured run's bits the gate; else the captured run may be no farther
+    from the first eager run than the second is, and the tensors that one
+    eager step already changes between two runs name the op that differs."""
+    import torch
+
+    def runner(trainer, steps=GATE_STEPS):
+        if packed:
+            run, n, _ = cohort_run(api, trainer, steps)
+        else:
+            run, n = client_run(api, trainer, 0, steps)
+        return run, n
+
+    run_e, steps = runner(eager)
+    run_c, _ = runner(None)
+    e1, e2 = _outcome(run_e()), _outcome(run_e())
+    r0 = replays(api)
+    c = _outcome(run_c())
+    torch.cuda.synchronize()
+    if replays(api) - r0 != steps:
+        raise AssertionError(f"{tag} the captured run replayed {replays(api) - r0} times for "
+                             f"{steps} live steps")
+    d_ee, diff_ee = _distance(e1, e2)
+    d_ce, diff_ce = _distance(c, e1)
+    rec = {"steps": steps, "eager_vs_eager": d_ee, "eager_vs_eager_tensors": len(diff_ee),
+           "captured_vs_eager": d_ce, "captured_vs_eager_tensors": len(diff_ce),
+           "tensors": len(e1)}
+    if not diff_ee:
+        if diff_ce:
+            raise AssertionError(f"{tag} the eager runs repeat bit for bit and the captured run "
+                                 f"differs by up to {d_ce:.3g} in {len(diff_ce)} tensors: "
+                                 f"{diff_ce[:6]}")
+        rec["verdict"] = "bit-identical"
+    else:
+        one_e, _ = runner(eager, 1)
+        _, ops = _distance(_outcome(one_e()), _outcome(one_e()))
+        rec["eager_differs_after_one_step_in"] = ops
+        if d_ce > d_ee:
+            raise AssertionError(f"{tag} captured run {d_ce:.3g} from eager, farther than the "
+                                 f"eager runs from each other ({d_ee:.3g}); one eager step "
+                                 f"already differs in {ops[:6]}")
+        rec["verdict"] = f"within the eager runs' distance; one eager step differs in {ops[:6]}"
+    log(f"{tag} eager vs captured over {steps} live steps: {rec['verdict']} (eager-eager "
+        f"{d_ee:.3g} in {len(diff_ee)} of {len(e1)} tensors, captured-eager {d_ce:.3g} in "
+        f"{len(diff_ce)})")
+    return rec
+
+
+def _cu(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what} failed: CUresult {code}")
+
+
+def graph_kernel_nodes(graph) -> dict:
+    """The kernel nodes of a captured graph, read through libcuda's graph API:
+    each kernel's node count and how many of those nodes are cooperative."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    vp = ctypes.c_void_p
+    g = vp(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _cu(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (vp * n.value)()
+    _cu(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    by_name: dict = {}
+    kernel_nodes = 0
+    for node in nodes:
+        kind = ctypes.c_int()
+        _cu(cu.cuGraphNodeGetType(vp(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != _CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        kernel_nodes += 1
+        # CUDA_KERNEL_NODE_PARAMS_v2: func at byte 0, kern at byte 56
+        params = (ctypes.c_uint64 * 16)()
+        _cu(cu.cuGraphKernelNodeGetParams_v2(vp(node), params), "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            _cu(cu.cuFuncGetName(ctypes.byref(name), vp(params[0])), "cuFuncGetName")
+        else:
+            _cu(cu.cuKernelGetName(ctypes.byref(name), vp(params[7])), "cuKernelGetName")
+        attr = (ctypes.c_int * 16)()
+        _cu(cu.cuGraphKernelNodeGetAttribute(vp(node), _CU_KERNEL_NODE_ATTRIBUTE_COOPERATIVE,
+                                             attr), "cuGraphKernelNodeGetAttribute")
+        key = next((k for k in GRAPH_KERNELS if k in name.value.decode()), "other")
+        rec = by_name.setdefault(key, {"nodes": 0, "cooperative": 0})
+        rec["nodes"] += 1
+        rec["cooperative"] += bool(attr[0])
+    return {"nodes": n.value, "kernel_nodes": kernel_nodes, "by_name": by_name}
+
+
+def capture_arms(api, tag: str, smi: str, packed: bool = False, graph_kernels=None,
+                 named_per_step: int = 0) -> dict:
+    """The phase's path on one client (or one packed cohort), eager and
+    captured: the gate, both profiles (wall, device, busy share, host
+    launches per step), the captured graph's kernel nodes against
+    ``graph_kernels`` (name -> nodes; K1, K2 and K4's all cooperative), K1
+    and K2 by name in each profile against ``named_per_step`` a step, and
+    the grid-barrier words of every capturing stream, zero after the
+    replays."""
+    import torch
+
+    from fedml_tpu_torch.ops.grid_barrier import barrier_words
+
+    eager = eager_trainer(api)
+    gate = capture_gate(api, eager, tag, packed)
+    prof_fn = packed_step_profile if packed else step_profile
+    profiles = {"eager": prof_fn(api, trainer=eager), "captured": prof_fn(api)}
+    for arm, prof in profiles.items():
+        extra = (f" ({prof['gpu_activities_per_real_image']:.2f} GPU activities per real image)"
+                 if packed else "")
+        log(f"{tag} {arm} step: wall {prof['wall_ms_per_step']:.2f} ms, device "
+            f"{prof['device_ms_per_step']:.3f} ms (busy share {prof['device_busy_share']:.3f}), "
+            f"{prof['gpu_activities_per_step']:.0f} GPU activities{extra}, "
+            f"{prof['host_launches_per_step']:.1f} host launches "
+            f"({prof['graph_launches_per_step']:.1f} graph launches); K1/K2 by name "
+            f"{prof['kernels_by_name']} over {prof['live_steps']} steps; device ms by family "
+            + ", ".join(f"{k} {v:.3f}" for k, v in prof["device_ms_per_step_by_family"].items())
+            + f"; {smi}")
+        for k, v in prof["kernels_by_name"].items():
+            if v != named_per_step * prof["live_steps"]:
+                raise AssertionError(f"{tag} {arm}: the profile counts {v} {k} kernels over "
+                                     f"{prof['live_steps']} steps; expected {named_per_step} a step")
+    if profiles["captured"]["graph_launches_per_step"] != 1.0:
+        raise AssertionError(f"{tag} the captured step made "
+                             f"{profiles['captured']['graph_launches_per_step']} graph launches")
+    progs = step_programs(api)
+    # one turn of the step loop each way: the host's launches a step, and
+    # the profiler's count of K1 and K2 in one replayed step
+    one = {"eager": one_step_profile(trainer_programs(eager)[0]),
+           "captured": one_step_profile(progs[0])}
+    log(f"{tag} one turn of the step loop: " + "; ".join(
+        f"{arm} {r['host_launches']} host launches ({r['graph_launches']} graph), "
+        f"{r['gpu_activities']} GPU activities, {r['kernels_by_name']}" for arm, r in one.items()))
+    for arm, r in one.items():
+        if any(v != named_per_step for v in r["kernels_by_name"].values()) or \
+                r["graph_launches"] != (arm == "captured"):
+            raise AssertionError(f"{tag} one {arm} step: {r}; expected {named_per_step} of each "
+                                 f"of K1 and K2 and {int(arm == 'captured')} graph launch")
+    nodes = [graph_kernel_nodes(p.graph) for p in progs]
+    for rec in nodes:
+        got = {k: v["nodes"] for k, v in rec["by_name"].items() if k != "other"}
+        want = {k: v for k, v in (graph_kernels or {}).items() if v}
+        if got != want:
+            raise AssertionError(f"{tag} the captured graph holds kernel nodes {got}; expected "
+                                 f"{want}")
+        for k in COOPERATIVE_KERNELS:
+            if k in rec["by_name"] and rec["by_name"][k]["cooperative"] != rec["by_name"][k]["nodes"]:
+                raise AssertionError(f"{tag} {k}: {rec['by_name'][k]} cooperative nodes")
+    words = [int(barrier_words(p.stream.device, p.stream.cuda_stream)[0]) for p in progs]
+    if any(words):
+        raise AssertionError(f"{tag} grid-barrier arrival words {words} after the replays")
+    log(f"{tag} captured graph(s): {nodes}; warm-up launches (not counted) "
+        f"{[p.warmup_launches for p in progs]}; launches a replay adds "
+        f"{[p.launches_per_step for p in progs]}; barrier arrival words {words}")
+    torch.cuda.synchronize()
+    return {"gate": gate, "profiles": profiles, "one_step": one, "graph_nodes": nodes,
+            "launches_per_replay": [p.launches_per_step for p in progs],
+            "warmup_launches": [p.warmup_launches for p in progs], "replays": replays(api)}
+
+
+def eager_rounds(api, init: dict, tag: str, smi: str, captured: tuple) -> dict:
+    """The phase's rounds again from the same initial variables, through
+    the eager step (``capture=False``), for real images/s beside the
+    captured rounds': the same launch counts, and the losses side by
+    side."""
+    packed = api._packed_train is not None
+    name = "_packed_train" if packed else "_local_train"
+    kept = getattr(api, name)
+    setattr(api, name, eager_trainer(api))
+    api.variables = {k: v.clone() for k, v in init.items()}
+    api.server_state = api.init_server_state()
+    try:
+        rounds, metrics, _eval_s, trained, _launches = run_rounds(api, f"{tag} eager", smi)
+    finally:
+        setattr(api, name, kept)
+    c_rounds, _, _, c_trained, _ = captured
+    if trained != c_trained:
+        raise AssertionError(f"{tag} eager rounds launched {trained}; the captured {c_trained}")
+    e_s = sum(r["seconds"] for r in rounds)
+    c_s = sum(r["seconds"] for r in c_rounds)
+    real = sum(r["real_images"] for r in rounds)
+    rec = {"rounds": rounds, "eval": metrics, "real_images_per_s": real / e_s,
+           "captured_real_images_per_s": real / c_s,
+           "loss_eager_minus_captured": [r["loss"] - c["loss"] for r, c in zip(rounds, c_rounds)]}
+    log(f"{tag} real images/s: captured {real / c_s:.1f}, eager {real / e_s:.1f} "
+        f"({e_s / c_s:.3f}x the captured rounds' wall); losses eager - captured "
+        f"{rec['loss_eager_minus_captured']}; {smi}")
+    return rec
 
 
 @functools.lru_cache(maxsize=1)
@@ -904,15 +1345,18 @@ def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", api_cls=None, 
     return (api_cls or FedAvgAPI)(ds, cfg, bundle)
 
 
-def run_rounds(api, tag: str, smi: str) -> tuple:
+def run_rounds(api, tag: str, smi: str, replayed: Optional[int] = None) -> tuple:
     """The configured rounds (one sync each), then evaluate_global. Returns
     (rounds, metrics, eval seconds, launches after the rounds, launches
-    after the evaluation); the counters are set to 0 just before."""
+    after the evaluation); the counters are set to 0 just before. With
+    ``replayed``, the rounds must have replayed the captured step that many
+    times: once a live (or executed packed) step."""
     from fedml_tpu_torch.ops import batchnorm as bn
     from fedml_tpu_torch.ops import conv_lanes as cl
 
     bn.reset_launches()
     cl.reset_launches()
+    r0 = replays(api)
     rounds = []
     for r in range(api.config.comm_round):
         t = time.perf_counter()
@@ -926,6 +1370,9 @@ def run_rounds(api, tag: str, smi: str) -> tuple:
         if not np.isfinite(loss):
             raise AssertionError(f"round {r} loss is not finite: {loss}")
     trained = {**bn.LAUNCHES, **cl.LAUNCHES}
+    if replayed is not None and replays(api) - r0 != replayed:
+        raise AssertionError(f"{tag} the rounds replayed the captured step "
+                             f"{replays(api) - r0} times; expected {replayed}, one a step")
     t = time.perf_counter()
     metrics = api.evaluate_global()
     eval_s = time.perf_counter() - t
@@ -952,7 +1399,9 @@ def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
     log(f"{tag} set-up (data {ds.train_x.shape}, model, placement) {time.perf_counter() - t0:.1f} s")
 
     steps = sum(api.round_counts(r)[1] // cfg.batch_size for r in range(cfg.comm_round))
-    rounds, metrics, eval_s, trained, launches = run_rounds(api, tag, smi)
+    init = {k: v.clone() for k, v in api.variables.items()}
+    captured = run_rounds(api, tag, smi, replayed=steps)
+    rounds, metrics, eval_s, trained, launches = captured
     train_s = sum(r["seconds"] for r in rounds)
     # per live step: the BN path runs 57 K1 + 57 K2; the lanes path 72 K3
     # (36 forward + 36 dgrad) and 36 K4, and 36 K3 per eval batch
@@ -969,13 +1418,14 @@ def phase_train(smi: str, bn_impl: str = "pallas", conv_impl: str = "xla"):
         if launches[k] - trained[k] != want_eval:
             raise AssertionError(f"{tag} {k} launched {launches[k] - trained[k]} times in "
                                  f"evaluate_global; expected {want_eval}")
-    prof = step_profile(api)
-    log(f"{tag} one client's local step: wall {prof['wall_ms_per_step']:.2f} ms, device "
-        f"{prof['device_ms_per_step']:.3f} ms (busy share {prof['device_busy_share']:.3f}), "
-        f"{prof['gpu_activities_per_step']:.0f} GPU activities; device ms by family "
-        + ", ".join(f"{k} {v:.3f}" for k, v in prof["device_ms_per_step_by_family"].items()))
+    bn_path = bn_impl == "pallas"
+    arms = capture_arms(api, tag, smi, graph_kernels=BN_GRAPH if bn_path else
+                        {"conv_fwd_mma": CONV_PER_STEP, "conv_wgrad_mma": WGRAD_PER_STEP},
+                        named_per_step=BNS_PER_STEP if bn_path else 0)
+    # the eager arm's rounds: phase 4 only (the lanes path's would add ~40 s)
+    eager = eager_rounds(api, init, tag, smi, captured) if bn_path else None
     return {"bn_impl": bn_impl, "conv_impl": conv_impl, "rounds": rounds, "eval": metrics,
-            "step_profile": prof,
+            "step_profile": arms["profiles"]["captured"], "capture": arms, "eager_rounds": eager,
             "eval_s": eval_s, "steps": steps, "eval_batches": eval_batches,
             "launches_train": trained, "launches": launches,
             "rounds_per_s": len(rounds) / train_s,
@@ -1004,7 +1454,9 @@ def phase_train_packed(smi: str):
                   "lane_steps": pl.live.sum(1).astype(int).tolist()} for pl in plans]
     log(f"{tag} plans: {per_round}")
     steps = sum(r["executed_steps"] for r in per_round)
-    rounds, metrics, eval_s, trained, launches = run_rounds(api, tag, smi)
+    init = {k: v.clone() for k, v in api.variables.items()}
+    captured = run_rounds(api, tag, smi, replayed=steps)
+    rounds, metrics, eval_s, trained, launches = captured
     train_s = sum(r["seconds"] for r in rounds)
     for k in ("bn_fwd", "bn_bwd"):
         if trained[k] != BNS_PER_STEP * steps:
@@ -1019,15 +1471,12 @@ def phase_train_packed(smi: str):
     bf16_check = packed_bf16_step_check()
     control = order_control()
     conv_timing = packed_conv_timing()
-    prof = packed_step_profile(api)
-    log(f"{tag} one packed step ({prof['lanes']} lanes x {api.config.batch_size} images): wall "
-        f"{prof['wall_ms_per_step']:.2f} ms, device {prof['device_ms_per_step']:.3f} ms (busy "
-        f"share {prof['device_busy_share']:.3f}), {prof['gpu_activities_per_step']:.0f} GPU "
-        f"activities ({prof['gpu_activities_per_real_image']:.2f} per real image); device ms by "
-        "family " + ", ".join(f"{k} {v:.3f}"
-                              for k, v in prof["device_ms_per_step_by_family"].items()))
+    arms = capture_arms(api, tag, smi, packed=True, graph_kernels=BN_GRAPH,
+                        named_per_step=BNS_PER_STEP)
+    eager = eager_rounds(api, init, tag, smi, captured)
     return {"pack_lanes": PACK_LANES, "plans": per_round, "rounds": rounds, "eval": metrics,
-            "step_profile": prof, "replay_check": replay, "bf16_step_check": bf16_check,
+            "step_profile": arms["profiles"]["captured"], "capture": arms,
+            "eager_rounds": eager, "replay_check": replay, "bf16_step_check": bf16_check,
             "order_control": control, "conv_timing": conv_timing,
             "eval_s": eval_s, "steps": steps,
             "launches_train": trained, "launches": launches,
@@ -1314,7 +1763,8 @@ def phase_train_zoo(smi: str):
                         for r in range(n_rounds))
         else:
             steps = sum(api.round_counts(r)[1] // api.config.batch_size for r in range(n_rounds))
-        rounds, metrics, eval_s, trained, after_eval = run_rounds(api, tag, smi)
+        rounds, metrics, eval_s, trained, after_eval = run_rounds(api, tag, smi,
+                                                                 replayed=steps)
         for k in launches:
             if trained[k] != BNS_PER_STEP * steps or after_eval[k] != trained[k]:
                 raise AssertionError(f"{tag} {k} launched {trained[k]} times over the rounds and "
@@ -1338,27 +1788,14 @@ def phase_train_zoo(smi: str):
                                      f"counts {[int(c) for c in counts]}")
             rec["server_state_abs_max"] = max(float(t.abs().max()) for t in tensors)
             rec["server_step"] = server_step_timing(api)
-            prof = rec["step_profile"] = packed_step_profile(api)
             log(f"{tag} server state on the card, |max| {rec['server_state_abs_max']:.4g}, "
                 f"count {[int(c) for c in counts]}; server step {rec['server_step']['ms']:.3f} ms "
                 f"(device {rec['server_step']['device_ms']}) over "
                 f"{rec['server_step']['params']} parameters; {smi}")
-            log(f"{tag} one packed step ({prof['lanes']} lanes x {api.config.batch_size} images): "
-                f"wall {prof['wall_ms_per_step']:.2f} ms, device {prof['device_ms_per_step']:.3f} "
-                f"ms (busy share {prof['device_busy_share']:.3f}), "
-                f"{prof['gpu_activities_per_step']:.0f} GPU activities "
-                f"({prof['gpu_activities_per_real_image']:.2f} per real image); device ms by "
-                "family " + ", ".join(f"{k} {v:.3f}"
-                                      for k, v in prof["device_ms_per_step_by_family"].items())
-                + f"; {smi}")
-        elif not packed:
-            prof = rec["step_profile"] = step_profile(api)
-            log(f"{tag} one client's local step: wall {prof['wall_ms_per_step']:.2f} ms, device "
-                f"{prof['device_ms_per_step']:.3f} ms (busy share "
-                f"{prof['device_busy_share']:.3f}), {prof['gpu_activities_per_step']:.0f} GPU "
-                "activities; device ms by family " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in prof["device_ms_per_step_by_family"].items())
-                + f"; {smi}")
+        if cls is FedOptAPI or not packed:     # eager and captured, profiled
+            rec["capture"] = capture_arms(api, tag, smi, packed=packed, graph_kernels=BN_GRAPH,
+                                          named_per_step=BNS_PER_STEP)
+            rec["step_profile"] = rec["capture"]["profiles"]["captured"]
         out[label] = rec
         del api
     out["replay_check"] = packed_replay_check(FedOptAPI, "[zoo fedopt-adam]",
@@ -1638,6 +2075,7 @@ def phase_train_lm_fedavg(smi: str):
     mods = (att, xe, bn, cl)
     for mod in mods:
         mod.reset_launches()
+    r0 = replays(api)
     rounds = []
     for r in range(cfg.comm_round):
         t = time.perf_counter()
@@ -1651,6 +2089,9 @@ def phase_train_lm_fedavg(smi: str):
         if not np.isfinite(loss):
             raise AssertionError(f"round {r} loss is not finite: {loss}")
     trained = {k: val for mod in mods for k, val in mod.LAUNCHES.items()}
+    if replays(api) - r0 != steps:
+        raise AssertionError(f"{tag} the rounds replayed the captured step "
+                             f"{replays(api) - r0} times for {steps} live steps")
     t = time.perf_counter()
     metrics = api.evaluate_global()
     eval_s = time.perf_counter() - t
@@ -1673,15 +2114,11 @@ def phase_train_lm_fedavg(smi: str):
         if launches[k] - trained[k] != want_eval:
             raise AssertionError(f"{tag} {k} launched {launches[k] - trained[k]} times in "
                                  f"evaluate_global; expected {want_eval}")
-    prof = step_profile(api)
-    log(f"{tag} one client's local step: wall {prof['wall_ms_per_step']:.2f} ms, device "
-        f"{prof['device_ms_per_step']:.3f} ms (busy share {prof['device_busy_share']:.3f}), "
-        f"{prof['gpu_activities_per_step']:.0f} GPU activities; device ms by family "
-        + ", ".join(f"{k} {v:.3f}" for k, v in prof["device_ms_per_step_by_family"].items()))
+    arms = capture_arms(api, tag, smi, graph_kernels={"flash_fwd_": layers})
     return {"rounds": rounds, "eval": metrics, "eval_s": eval_s, "steps": steps,
             "eval_batches": eval_batches, "launches_train": trained, "launches": launches,
             "rounds_per_s": len(rounds) / train_s, "real_tokens_per_s": tokens / train_s,
-            "step_profile": prof}
+            "step_profile": arms["profiles"]["captured"], "capture": arms}
 
 
 def phase_train_lm_step(smi: str, steps: int = 5):
@@ -1693,7 +2130,6 @@ def phase_train_lm_step(smi: str, steps: int = 5):
     profiles one more step."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from fedml_tpu_torch.data.shakespeare import _synthetic_nwp
     from fedml_tpu_torch.models import create_model
@@ -1739,11 +2175,9 @@ def phase_train_lm_step(smi: str, steps: int = 5):
     want = {"attention": LM_K6_PER_STEP * steps, "xent": steps}
     if launches != want:
         raise AssertionError(f"{tag} launches {launches}; expected {want}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(opt, x, y, mask)
-        torch.cuda.synchronize()
+    _, events = profiled(lambda: step(opt, x, y, mask), f"{tag} step")
     by_family, n = {}, 0
-    for e in prof.events():
+    for e in events:
         if e.device_type == DeviceType.CUDA:
             n += 1
             fam = kernel_family(e.name)
@@ -1924,7 +2358,12 @@ def main() -> int:
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,
         "lm_check_cases": lm_cases, "small_lm_rel_err": lm_model_err, "lm_timing": lm_timing,
         "train_lm_fedavg": train_lm, "train_lm_step": lm_step,
-        "kernels": kernels}, indent=1))
+        "profile_windows": PROFILE_TALLY, "kernels": kernels}, indent=1))
+    log(f"[profile] {PROFILE_TALLY['windows']} profile windows; their sentinels lost "
+        f"{PROFILE_TALLY['sentinel_records_lost']} device records (at most "
+        f"{PROFILE_TALLY['most_sentinel_records_lost']} in one window); "
+        f"{PROFILE_TALLY['profiled_again']} lost records of their work and were profiled "
+        f"again; {smi}")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

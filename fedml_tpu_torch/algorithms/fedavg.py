@@ -15,6 +15,12 @@ lanes that train together in the model's lane-stacked twin. As in the JAX
 package, ``device_data="off"`` runs the plain round whatever
 ``pack_lanes`` says (logged once).
 
+The trainers (``build_local_train``, ``build_packed_train``) live as long
+as the API, and with them one step program per step shape: on CUDA each
+live (or packed) step of every client and round replays the step captured
+once (``parallel/capture.py``), the counterpart of the JAX package's one
+compiled program.
+
 The algorithm contract is the JAX package's: a subclass changes
 ``_local_train_kwargs`` (FedProx), ``init_server_state`` and
 ``aggregate(variables, stacked_vars, counts, infos, rng, server_state) ->

@@ -52,16 +52,46 @@ class Transform(NamedTuple):
 
 class Optimizer:
     """A transform bound to parameters: holds the state; ``step()`` applies
-    the update computed from each parameter's ``.grad``, in place."""
+    the update computed from each parameter's ``.grad``, in place.
+
+    The state is allocated once, at the bind, and every update writes into
+    it, so its tensors keep their addresses for the optimizer's life (what
+    a captured step, ``parallel/capture.py``, needs). ``reset()`` puts the
+    initial state back in place: a trainer binds one optimizer and resets it
+    for each client instead of binding a new one."""
 
     def __init__(self, tx: Transform, params, n_lanes: int = 0):
         self.tx = tx
         self.params = list(params)
         self.state = tx.init(self.params, n_lanes)
+        self.initial = [t.clone() for t in self.tensors()]    # reset()'s values
 
-    def zero_grad(self) -> None:
+    def tensors(self) -> list:
+        """Every state tensor (the folded ones, then the step counts)."""
+        folded, counts = state_tensors(self.state)
+        return folded + counts
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """The initial state, in place: optax's init values (moments and
+        momentum 0, adagrad's accumulator 0.1, yogi's moments 1e-6, step
+        count 0)."""
+        for t, v in zip(self.tensors(), self.initial):
+            t.copy_(v)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """Drop every ``.grad``, or with ``set_to_none=False`` zero it in
+        place (allocating it the first time), so the gradients too keep
+        their addresses: backward then accumulates into them."""
+        if set_to_none:
+            for p in self.params:
+                p.grad = None
+            return
         for p in self.params:
-            p.grad = None
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        with torch.no_grad():
+            torch._foreach_zero_([p.grad for p in self.params])
 
     @torch.no_grad()
     def step(self) -> None:

@@ -6,6 +6,13 @@ Here only those live steps run, which gives the same result: a frozen step
 changes nothing. The last live batch still holds padding records (mask 0);
 they enter BatchNorm's batch statistics as they do in JAX, and only the loss
 masks them.
+
+As the JAX package compiles the step, the port runs it as one program: on
+CUDA each live step is a replay of one captured CUDA graph per step shape
+(``parallel/capture.py``), which holds forward, loss, backward, FedProx's
+term, the clip, the optimizer update and the gradients' reset. The
+permutation, the real-first sort and the gather of each batch into the
+step's static inputs stay eager, as do evaluation and aggregation.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.tasks import Task
 from fedml_tpu_torch.models import ModelBundle
+from fedml_tpu_torch.parallel.capture import CapturedStep
 
 
 def make_optimizer(name: str, lr: float, momentum: float = 0.0, wd: float = 0.0
@@ -71,17 +79,20 @@ def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
                         grad_clip: Optional[float] = None, prox_mu: float = 0.0):
     """ONE minibatch step on ``bundle.module``:
     ``step(module, opt, bx, by, bm, anchor=None) -> loss``, ``opt`` a bound
-    optimizer (``make_optimizer(...)(params)``). With ``prox_mu`` the loss
-    gains ``0.5 * prox_mu * ||w - anchor||^2`` over the parameters
-    (``anchor``: the global model's, in ``opt.params`` order), before the
-    clip. The optional clip scales every gradient by
+    optimizer (``make_optimizer(...)(params)``). The gradients are zeroed
+    in place first (``opt.zero_grad(set_to_none=False)``), so they keep
+    their addresses. With ``prox_mu`` the loss gains
+    ``0.5 * prox_mu * ||w - anchor||^2`` over the parameters (``anchor``:
+    the global model's, in ``opt.params`` order), before the clip. The
+    optional clip scales every gradient by
     ``min(1, clip / max(global_norm, 1e-12))``, as the JAX step does
-    (``clip_grad_norm_`` adds 1e-6 instead)."""
+    (``clip_grad_norm_`` adds 1e-6 instead). Syncs nothing with the host,
+    so it can be captured."""
 
     def batch_step(module, opt, bx, by, bm, anchor=None):
         module.train()
+        opt.zero_grad(set_to_none=False)
         loss = task.loss(module(bx), by, bm)
-        opt.zero_grad()
         loss.backward()
         loss = loss.detach()
         if prox_mu:
@@ -98,6 +109,13 @@ def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
     return batch_step
 
 
+def module_state(module: torch.nn.Module, opt: optim.Optimizer) -> list:
+    """Every tensor a step mutates: the module's parameters and buffers,
+    the optimizer's state and the gradients."""
+    return (list(module.state_dict(keep_vars=True).values()) + opt.tensors()
+            + [p.grad for p in opt.params])
+
+
 def make_local_train_fn(
     bundle: ModelBundle,
     task: Task,
@@ -111,6 +129,7 @@ def make_local_train_fn(
     grad_clip: Optional[float] = None,
     prox_mu: float = 0.0,
     compute_dtype=None,
+    capture: bool = True,
 ):
     """Build ``local_train(variables, x, y, mask, count, generator=None,
     orders=None) -> LocalResult``. ``optimizer``: any name of
@@ -122,9 +141,40 @@ def make_local_train_fn(
     its real record count. Each epoch draws a permutation of n_pad (from
     ``generator``, or ``orders[e]`` when given — the hook parity tests use
     to inject the JAX package's permutations) and stable-sorts it so the
-    real records lead."""
+    real records lead.
+
+    The optimizer is bound to ``bundle.module`` once, at the first call,
+    and reset for every client; FedProx's anchor is a static copy of the
+    global parameters. Each live step gathers its batch into the static
+    inputs of the step program for its shape and runs it: on CUDA a replay
+    of the captured step, unless ``capture=False`` asks for the eager step
+    (``parallel/capture.py``). ``local_train.bound`` holds the optimizer and
+    the anchor, ``local_train.programs`` the step programs by shape."""
     tx = make_optimizer(optimizer, lr, momentum, wd)
     batch_step = make_batch_sgd_step(bundle, task, grad_clip=grad_clip, prox_mu=prox_mu)
+    bound: dict = {}
+    programs: dict = {}
+
+    def bind(module) -> optim.Optimizer:
+        opt = bound.get("opt")
+        if opt is None:
+            opt = bound["opt"] = tx(module.parameters())
+            opt.zero_grad(set_to_none=False)
+            if prox_mu:
+                bound["anchor"] = [p.detach().clone() for p in opt.params]
+        return opt
+
+    def program(module, opt, x, y, mask) -> CapturedStep:
+        key = tuple((tuple(t.shape[1:]), t.dtype) for t in (x, y, mask)) + (x.device,)
+        prog = programs.get(key)
+        if prog is None:
+            inputs = [torch.empty((batch_size, *t.shape[1:]), dtype=t.dtype, device=t.device)
+                      for t in (x, y, mask)]
+            anchor = bound.get("anchor")
+            prog = programs[key] = CapturedStep(
+                lambda bx, by, bm: batch_step(module, opt, bx, by, bm, anchor), inputs,
+                lambda: module_state(module, opt), capture)
+        return prog
 
     def local_train(variables: dict, x, y, mask, count: int,
                     generator: Optional[torch.Generator] = None,
@@ -134,11 +184,16 @@ def make_local_train_fn(
             raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
         module = bundle.module
         module.load_state_dict(variables)
-        opt = tx(module.parameters())
-        anchor = [variables[k] for k, _ in module.named_parameters()] if prox_mu else None
+        opt = bind(module)
+        opt.reset()
+        if prox_mu:
+            with torch.no_grad():
+                torch._foreach_copy_(bound["anchor"],
+                                     [variables[k] for k, _ in module.named_parameters()])
         steps_real = -(-int(count) // batch_size)
         if compute_dtype is not None and x.is_floating_point():
             x = x.to(compute_dtype)
+        step = program(module, opt, x, y, mask)
         ep_losses = []
         for e in range(epochs):
             perm = orders[e] if orders is not None else torch.randperm(n_pad, generator=generator)
@@ -147,11 +202,15 @@ def make_local_train_fn(
             total = torch.zeros((), device=x.device)
             for s in range(steps_real):
                 idx = order[s * batch_size:(s + 1) * batch_size]
-                total = total + batch_step(module, opt, x[idx], y[idx], mask[idx], anchor)
+                for src, dst in zip((x, y, mask), step.inputs):
+                    torch.index_select(src, 0, idx, out=dst)
+                total = total + step()
             ep_losses.append(total / max(steps_real, 1))
         state = {k: v.detach().clone() for k, v in module.state_dict().items()}
         return LocalResult(state, ep_losses[-1], float(epochs * steps_real), ep_losses[0])
 
+    local_train.bound = bound
+    local_train.programs = programs
     return local_train
 
 

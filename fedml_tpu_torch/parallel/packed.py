@@ -29,6 +29,13 @@ sums, the accumulator). The plan is numpy on the host, so the step loop
 branches on it per step: steps where no lane is live are skipped, and the
 dead-step freeze and the resets touch only the lanes that need them.
 
+The step itself (forward, the per-lane losses summed over a static
+``[L]`` live mask, backward, FedProx's term, the per-lane clip, the
+optimizer update, the gradients' reset) is one program: on CUDA a replay of
+one captured CUDA graph per step shape (``parallel/capture.py``), whatever
+lanes are dead. The gather of each step's batches into its static inputs,
+the resets, the dead-lane save and restore and the emits stay eager.
+
 ``pad_plan`` and ``plan_packing_mesh`` (the cross-silo mesh form) and the
 joint lowerings of ``packed_conv != "off"`` are not ported.
 """
@@ -45,7 +52,8 @@ from fedml_tpu_torch.core.pytree import tree_add
 from fedml_tpu_torch.core.tasks import Task
 from fedml_tpu_torch.models import ModelBundle
 from fedml_tpu_torch.ops.packed_conv import stack_variables
-from fedml_tpu_torch.parallel.local import LocalResult, make_optimizer, prox_term
+from fedml_tpu_torch.parallel.capture import CapturedStep
+from fedml_tpu_torch.parallel.local import LocalResult, make_optimizer, module_state, prox_term
 
 
 class PackPlan(NamedTuple):
@@ -171,14 +179,26 @@ class PackedResult(NamedTuple):
     total: float               # sum(w) over the emits
 
 
+def live_loss(lane_loss: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """The sum of the live lanes' own mean losses, over the static ``[L]``
+    mask ``live`` (1 live, 0 dead): each live lane's gradient is its own, a
+    dead lane's is 0, and the program is the same for every dead set. A
+    dead lane still trains on a real member's batch, so its loss is finite
+    (``core/tasks.py`` clamps the mask sum at 1)."""
+    return (lane_loss * live).sum()
+
+
 class _Lanes:
     """The lane-stacked model for one lane count, its optimizer and its
     per-lane state: each lane's view of every state-dict leaf, in the plain
     model's shapes (``names`` order), flat per-lane views of every
     optimizer state tensor, and each lane's step counts; the step loop
-    resets, freezes and reads them in place."""
+    resets, freezes and reads them in place. ``anchor`` is FedProx's static
+    lane-folded copy of the global parameters (None without the term),
+    ``programs`` the step programs by shape."""
 
-    def __init__(self, module: torch.nn.Module, n_lanes: int, variables: dict, tx):
+    def __init__(self, module: torch.nn.Module, n_lanes: int, variables: dict, tx,
+                 prox_mu: float = 0.0):
         self.module = module
         self.n_lanes = n_lanes
         L = n_lanes
@@ -187,8 +207,8 @@ class _Lanes:
         self.names = list(state)
         self.param_names = [n for n, _ in module.named_parameters()]
         self.opt = tx(module.parameters(), n_lanes)
+        self.opt.zero_grad(set_to_none=False)
         opt_tensors, self.counts = state_tensors(self.opt.state)
-        opt_init = [t.clone() for t in opt_tensors]
 
         def views(tensors):
             return [[t.detach().view(L, -1)[lane] for t in tensors] for lane in range(L)]
@@ -196,7 +216,17 @@ class _Lanes:
         self.lane_state = [[t.detach().view(L, *variables[n].shape)[lane]
                             for n, t in state.items()] for lane in range(L)]
         self.opt_views = views(opt_tensors)
-        self.opt_init_views = views(opt_init)
+        self.opt_init_views = views(self.opt.initial[:len(opt_tensors)])
+        self.anchor = [p.detach().clone() for p in self.opt.params] if prox_mu else None
+        self.programs: dict = {}
+
+    def set_anchor(self, variables: dict) -> None:
+        """Every lane's block of the anchor: the global parameters."""
+        L = self.n_lanes
+        with torch.no_grad():
+            for a, n in zip(self.anchor, self.param_names):
+                v = variables[n]
+                a.view(L, *v.shape).copy_(v.unsqueeze(0).expand(L, *v.shape))
 
     def reset(self, lane: int, glob: list) -> None:
         """Lane ``lane`` starts a client: the global variables, the
@@ -222,7 +252,8 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
                              grad_clip: Optional[float] = None, prox_mu: float = 0.0,
                              compute_dtype=None,
                              client_transform: Optional[Callable] = None,
-                             reduce_extras: Optional[Callable] = None):
+                             reduce_extras: Optional[Callable] = None,
+                             capture: bool = True):
     """Build ``packed_train(variables, tx, ty, tm, sampled_rows, weights_pos,
     orders, plan) -> PackedResult``; the trainer arguments are
     ``make_local_train_fn``'s (``local.local_train_kwargs``), the hooks the
@@ -235,7 +266,11 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
     cohort position to its stack row; ``weights_pos`` [cohort] the
     aggregation weights by position; ``orders`` [cohort, epochs, n_pad] each
     position's per-epoch permutations of n_pad (the plain path's draws, or
-    injected ones)."""
+    injected ones).
+
+    Every executed step runs the lane program's step program for its shape:
+    on CUDA a replay of the captured step, unless ``capture=False`` asks for
+    the eager step (``parallel/capture.py``)."""
     if n_pad % batch_size:
         raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
     lane_stacked = getattr(bundle.module, "lane_stacked", None)
@@ -261,6 +296,36 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         pick = (torch.as_tensor(a.T.astype(np.int64), device=tm.device)
                 for a in (pos, plan.epoch[:, steps], plan.sie[:, steps]))
         return flat[tuple(pick)].view(len(steps), -1)                 # [S, L*bs]
+
+    def lane_step(lanes: _Lanes, bx, by, bm, live) -> torch.Tensor:
+        """One packed step of every lane; returns the lanes' losses [L]."""
+        L, module, opt = lanes.n_lanes, lanes.module, lanes.opt
+        module.train()
+        opt.zero_grad(set_to_none=False)
+        logits = module(bx)
+        lane_loss = torch.stack([task.loss(logits[lane], by[lane], bm[lane])
+                                 for lane in range(L)])
+        live_loss(lane_loss, live).backward()
+        lane_loss = lane_loss.detach()
+        if prox_mu:
+            lane_loss = lane_loss + prox_term(opt.params, lanes.anchor, prox_mu, L)
+        if grad_clip:
+            clip([p.grad for p in opt.params], L)
+        opt.step()
+        return lane_loss
+
+    def program(lanes: _Lanes, x_flat, y_flat, m_flat) -> CapturedStep:
+        L = lanes.n_lanes
+        key = tuple((tuple(t.shape[1:]), t.dtype) for t in (x_flat, y_flat, m_flat))
+        prog = lanes.programs.get(key)
+        if prog is None:
+            inputs = [torch.empty((L, bs, *t.shape[1:]), dtype=t.dtype, device=t.device)
+                      for t in (x_flat, y_flat, m_flat)]
+            inputs.append(torch.ones(L, dtype=torch.float32, device=x_flat.device))
+            prog = lanes.programs[key] = CapturedStep(
+                lambda bx, by, bm, live: lane_step(lanes, bx, by, bm, live), inputs,
+                lambda: module_state(lanes.module, lanes.opt), capture)
+        return prog
 
     @torch.no_grad()
     def clip(grads: list, L: int) -> None:
@@ -296,33 +361,34 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         L = plan.n_lanes
         lanes = cache.get(L)
         if lanes is None:
-            lanes = cache[L] = _Lanes(lane_stacked(L), L, variables, opt_tx)
-        module = lanes.module
+            lanes = cache[L] = _Lanes(lane_stacked(L), L, variables, opt_tx, prox_mu)
         dev = tx.device
         glob = [variables[k] for k in lanes.names]
-        anchor = ([variables[k].repeat(L, *([1] * (variables[k].dim() - 1)))
-                   for k in lanes.param_names] if prox_mu else None)
+        if prox_mu:
+            lanes.set_anchor(variables)
         acc = [torch.zeros_like(v, dtype=torch.float32) for v in glob]
         C = tx.shape[0]
         x_flat = tx.reshape((C * n_pad,) + tuple(tx.shape[2:]))
         if compute_dtype is not None and x_flat.is_floating_point():
             x_flat = x_flat.to(compute_dtype)
         y_flat, m_flat = ty.reshape((C * n_pad,) + tuple(ty.shape[2:])), tm.reshape(-1)
+        step = program(lanes, x_flat, y_flat, m_flat)
+        bx, by, bm, live_in = step.inputs
         rows = torch.as_tensor(np.asarray(sampled_rows, np.int64), device=dev)
         steps = executed_steps(plan.live)
         table = lane_tables(tm, rows, orders, plan, steps)
         lanes_ix = np.arange(L)
         member_w = (np.asarray(weights_pos, np.float32)[plan.member_pos]
                     * plan.member_valid)                               # [L, k_max]
-        # per executed step: 1 where a lane's loss enters its client's
-        # last-epoch sum (live, last epoch)
+        # per executed step: each lane's live flag, and 1 where a lane's
+        # loss enters its client's last-epoch sum (live, last epoch)
+        live_steps = torch.as_tensor(plan.live[:, steps].T.copy(), device=dev)
         last = torch.as_tensor(((plan.live * (plan.epoch == epochs - 1))[:, steps]).T.copy(),
                                device=dev)
         loss_acc = torch.zeros(L, device=dev)
         acc_loss = torch.zeros((), device=dev)
         acc_w = 0.0
         acc_extras = None
-        module.train()
         for i, t in enumerate(steps):
             reset = np.nonzero(plan.reset[:, t] > 0)[0]
             if reset.size:
@@ -332,29 +398,15 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
                     keep = torch.ones(L, device=dev)
                     keep[torch.as_tensor(reset)] = 0.0
                     loss_acc = loss_acc * keep
-            live = plan.live[:, t] > 0
-            dead = np.nonzero(~live)[0]
+            dead = np.nonzero(plan.live[:, t] <= 0)[0]
             # a dead lane's step changes nothing of it: not its parameters,
             # optimizer state or BatchNorm running statistics
             frozen = {lane: lanes.save(lane) for lane in dead}
             ix = table[i]
-            bx = x_flat[ix].view((L, bs) + tuple(x_flat.shape[1:]))
-            by = y_flat[ix].view((L, bs) + tuple(y_flat.shape[1:]))
-            bm = m_flat[ix].view(L, bs)
-            logits = module(bx)
-            lane_loss = torch.stack([task.loss(logits[lane], by[lane], bm[lane])
-                                     for lane in range(L)])
-            # the sum of the lanes' own means: each lane's gradient is its own
-            total = lane_loss.sum() if not dead.size else lane_loss[torch.as_tensor(
-                np.nonzero(live)[0], device=dev)].sum()
-            total.backward()
-            lane_loss = lane_loss.detach()
-            if prox_mu:
-                lane_loss = lane_loss + prox_term(lanes.opt.params, anchor, prox_mu, L)
-            if grad_clip:
-                clip([p.grad for p in lanes.opt.params], L)
-            lanes.opt.step()
-            lanes.opt.zero_grad()
+            for src, dst in ((x_flat, bx), (y_flat, by), (m_flat, bm)):
+                torch.index_select(src, 0, ix, out=dst.view(L * bs, *dst.shape[2:]))
+            live_in.copy_(live_steps[i])
+            lane_loss = step()
             with torch.no_grad():
                 for lane, saved in frozen.items():
                     lanes.restore(lane, saved)
