@@ -41,6 +41,19 @@ Phases (any failure raises and the script exits non-zero):
    FedOpt's server state on the card and nonzero, small f32 FedOpt-adam and
    client-adam rounds packed against unpacked, the server step's time, a
    profile of 5 packed FedOpt steps and one of 5 client-adam steps.
+4d. The cross-silo paradigm (``CrossSiloFedAvgAPI``, one rank) in
+   ``bench.py``'s cross-silo configuration: the 32 flagship silos, every
+   one every round, data resident; arms (a) the packed mesh (2 lanes), (b)
+   the grouped schedule (``bucket_groups=6``), (c) resident-sharded, (d)
+   FedOpt with server adam on (a), (e) (a) at 8 and 16 silos and the fit
+   T(c) = a + b*c. Each: a warm-up round, then 2 timed rounds (1 for (d))
+   ending in a sync, real and padded images/s, 57 K1 + 57 K2 and one
+   replay per executed step, finite losses, a 5-step profile; FedOpt's
+   server state on the card and nonzero; a small f32 packed and resident
+   mesh round against the simulation round (relative norm 1e-5); one
+   packed mesh round at 8 silos under a world-size-1 NCCL process group
+   (``file://`` store in a temporary directory) bit-identical to the
+   group-less round, its all-reduce profiled and timed.
 5. Hold K3 (lanes 3x3 conv, also the dgrad), K4 (its wgrad) and K7 (K3's
    probe variants) against their plain versions at the lanes path's conv
    shapes at batch 64, 1 and 3 and five ragged shapes (the last takes the
@@ -83,11 +96,12 @@ Phases (any failure raises and the script exits non-zero):
    fixed batch; 8 K6 and 1 K5 per step, the loss falls; tokens/s, ms/step
    and peak memory.
 
-Every live step of phases 4, 4b, 4c, 8 and 11 is a replay of the step
+Every live step of phases 4, 4b, 4c, 4d, 8 and 11 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-(in 4c the FedOpt-adam packed run and the client-adam plain run) then runs
+but 4d (in 4c the FedOpt-adam packed run and the client-adam plain run;
+4d's arms take their steps from the same trainers) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
 step (``capture=False``) twice and captured once: when the eager runs
 repeat bit for bit, the captured run must too, else it may be no farther
@@ -895,6 +909,32 @@ def kernel_family(name: str) -> str:
     return "other elementwise / reductions"
 
 
+def api_trainer(api):
+    """The trainer an API's rounds run: the packed lane program (the
+    simulation round's, or the cross-silo packed mesh round's) or the plain
+    local trainer."""
+    pm = getattr(api, "_packed_mesh", None)
+    if pm is not None:
+        return pm["round_fn"].lanes
+    return api._packed_train if api._packed_train is not None else api._local_train
+
+
+def train_block(api) -> tuple:
+    """``(rows, tx, ty, tm)``: the clients an API keeps on the card and
+    their stacked train tensors: the whole federation (simulation), the
+    rank's block (cross-silo packed mesh, in plan order; resident) or the
+    rank's block of the grouped schedule's last group (its largest
+    clients)."""
+    if getattr(api, "_packed_mesh", None) is not None:
+        return (api._packed_mesh["rows"],) + tuple(api._packed_mesh["data"])
+    if getattr(api, "_dev_sharded", None) is not None:
+        return tuple(api._dev_sharded)
+    if getattr(api, "_dev_groups", None) is not None:
+        rows, _, *data = api._dev_groups[-1]
+        return (rows, *data)
+    return (np.arange(api.dataset.num_clients), *api._dev_train)
+
+
 def client_run(api, trainer=None, client: int = 0, steps: int = 5):
     """``(run, live steps)``: ``run()`` trains one client's first ``steps``
     batches of real records from ``api.variables`` through ``trainer`` (the
@@ -902,8 +942,8 @@ def client_run(api, trainer=None, client: int = 0, steps: int = 5):
     import torch
 
     trainer = trainer or api._local_train
-    tx, ty, tm = api._dev_train
-    count = min(int(api.dataset.train_counts[client]), steps * api.config.batch_size)
+    rows, tx, ty, tm = train_block(api)
+    count = min(int(api.dataset.train_counts[rows[client]]), steps * api.config.batch_size)
 
     def run():
         return trainer(api.variables, tx[client], ty[client], tm[client], count,
@@ -919,13 +959,14 @@ def cohort_run(api, trainer=None, steps: int = 5):
     returns its PackedResult."""
     from fedml_tpu_torch.parallel.packed import executed_steps, plan_packing
 
-    trainer = trainer or api._packed_train
+    trainer = trainer or api_trainer(api)
     c = api.config
     clients = np.arange(c.pack_lanes)
-    counts = np.minimum(api.dataset.train_counts[clients], steps * c.batch_size).astype(np.float32)
+    rows, tx, ty, tm = train_block(api)
+    counts = np.minimum(api.dataset.train_counts[rows[clients]],
+                        steps * c.batch_size).astype(np.float32)
     plan = plan_packing(counts, c.batch_size, 1, c.pack_lanes)
     orders = api._round_orders(0, c.pack_lanes)
-    tx, ty, tm = api._dev_train
 
     def run():
         return trainer(api.variables, tx, ty, tm, clients, counts, orders, plan)
@@ -1042,8 +1083,7 @@ def trainer_programs(trainer) -> list:
 
 def step_programs(api) -> list:
     """The step programs of the API's trainer."""
-    return trainer_programs(api._packed_train if api._packed_train is not None
-                            else api._local_train)
+    return trainer_programs(api_trainer(api))
 
 
 def one_step_profile(prog) -> dict:
@@ -1324,10 +1364,11 @@ def flagship_data():
 
 
 def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", api_cls=None, ds=None,
-                 **config):
+                 mesh=None, **config):
     """bench.py's flagship cut to 2 rounds: ResNet-56 FedAvg (or
     ``api_cls``) on 32 non-IID synthetic CIFAR-10-shaped clients, 8 a
-    round, batch 64, bf16; ``config`` overrides FedConfig fields."""
+    round, batch 64, bf16; ``config`` overrides FedConfig fields, ``mesh``
+    is a cross-silo API's client mesh."""
     import torch
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
@@ -1342,7 +1383,7 @@ def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", api_cls=None, 
     cfg = FedConfig(**{**base, **config})
     bundle = create_model("resnet56", 10, input_shape=ds.train_x.shape[2:],
                           dtype=torch.bfloat16, bn_impl=bn_impl, conv_impl=conv_impl)
-    return (api_cls or FedAvgAPI)(ds, cfg, bundle)
+    return (api_cls or FedAvgAPI)(ds, cfg, bundle, **({"mesh": mesh} if mesh else {}))
 
 
 def run_rounds(api, tag: str, smi: str, replayed: Optional[int] = None) -> tuple:
@@ -1808,6 +1849,292 @@ def phase_train_zoo(smi: str):
     return out
 
 
+# -- phase 4d: the cross-silo paradigm ------------------------------------------
+
+# bench.py's cross-silo configuration (bench.py:101-131): full
+# participation, resident data, the grouped schedule's bucket_groups=6, the
+# packed mesh's 2 lanes; and the weak-scaling points (bench.py:980-1008)
+CROSSSILO_BUCKET_GROUPS = 6
+WEAK_SCALING_SILOS = (8, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def silo_data(silos: int):
+    """``silos`` silos of the flagship's records each (1562, hetero, seed 0);
+    32 is the flagship's federation."""
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+
+    if silos == 32:
+        return flagship_data()
+    return make_synthetic_classification(
+        "cifar10-bench", (32, 32, 3), 10, silos, records_per_client=1562,
+        partition_method="hetero", partition_alpha=0.5, batch_size=64, seed=SEED)
+
+
+def crosssilo_api(ds, api_cls=None, mesh=None, **config):
+    """The flagship under the cross-silo paradigm (``CrossSiloFedAvgAPI`` or
+    ``api_cls``) on one rank (``mesh``, or the process group's): every silo
+    every round, the data resident."""
+    from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI
+
+    base = dict(client_num_in_total=ds.num_clients, client_num_per_round=ds.num_clients,
+                device_data="on", bucket_groups=CROSSSILO_BUCKET_GROUPS, rounds_per_step=1)
+    return flagship_api(api_cls=api_cls or CrossSiloFedAvgAPI, ds=ds, mesh=mesh,
+                        **{**base, **config})
+
+
+def crosssilo_steps(api) -> int:
+    """The steps one round of a cross-silo API executes on this rank: the
+    packed mesh's steps where one of its lanes is live, else every client's
+    live steps."""
+    from fedml_tpu_torch.parallel.packed import executed_steps, rank_plan
+
+    pm = api._packed_mesh
+    if pm is not None:
+        return len(executed_steps(rank_plan(pm["plan"], api.mesh.world_size,
+                                            api.mesh.rank).live))
+    return api.round_counts(0)[1] // api.config.batch_size
+
+
+def crosssilo_arm(api, tag: str, smi: str, timed: int = 2) -> dict:
+    """One warm-up round, then ``timed`` rounds ending in a host sync: real
+    and padded images/s, rounds/s, K1 and K2 launches (57 + 57 a step) and
+    one replay a step over the timed rounds, finite losses; then a profile of
+    5 steps (packed: of two silos' first 5 batches in the two lanes)."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    t = time.perf_counter()
+    warm = float(api.run_round(0))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    steps = crosssilo_steps(api) * timed
+    bn.reset_launches()
+    r0 = sum(p.replays for p in step_programs(api))
+    t = time.perf_counter()
+    losses = [api.run_round(r) for r in range(1, timed + 1)]
+    losses = [float(x) for x in losses]          # the host sync
+    dt = time.perf_counter() - t
+    launches = dict(bn.LAUNCHES)
+    replayed = sum(p.replays for p in step_programs(api)) - r0
+    counts = [api.round_counts(r) for r in range(1, timed + 1)]
+    real, padded = sum(c[0] for c in counts), sum(c[1] for c in counts)
+    rec = {"schedule": ("packed mesh" if api._packed_mesh is not None else
+                        "grouped" if api._group_plan is not None else "resident"),
+           "silos": api.dataset.num_clients, "warmup_round_s": warm_s, "warmup_loss": warm,
+           "losses": losses, "seconds": dt, "round_s": dt / timed, "rounds_per_s": timed / dt,
+           "real_images": real, "padded_images": padded, "real_images_per_s": real / dt,
+           "padded_images_per_s": padded / dt, "steps": steps, "replays": replayed,
+           "launches": launches}
+    if api._group_plan is not None:
+        rec["groups"] = [(len(i), int(b)) for i, b in api._group_plan]
+    if api._packed_mesh is not None:
+        rec["plan"] = {"lanes": api._packed_mesh["plan"].n_lanes, "T": api._packed_mesh["plan"].T}
+    log(f"{tag} {rec['schedule']}, {rec['silos']} silos: warm-up round {warm_s:.2f} s; "
+        f"{timed} rounds in {dt:.3f} s: {rec['rounds_per_s']:.4f} rounds/s, "
+        f"{rec['real_images_per_s']:.1f} real images/s ({rec['padded_images_per_s']:.1f} "
+        f"padded), losses {losses}; {steps} steps, {replayed} replays, launches {launches}; {smi}")
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f"{tag} a loss is not finite: {[warm] + losses}")
+    for k in ("bn_fwd", "bn_bwd"):
+        if launches[k] != BNS_PER_STEP * steps:
+            raise AssertionError(f"{tag} {k} launched {launches[k]} times over {timed} rounds; "
+                                 f"expected {BNS_PER_STEP} x {steps} steps")
+    if replayed != steps:
+        raise AssertionError(f"{tag} {replayed} replays for {steps} steps")
+    prof = packed_step_profile(api) if api._packed_mesh is not None else step_profile(api)
+    for k, v in prof["kernels_by_name"].items():
+        if v != BNS_PER_STEP * prof["live_steps"]:
+            raise AssertionError(f"{tag} the profile counts {v} {k} over {prof['live_steps']} "
+                                 f"steps; expected {BNS_PER_STEP} a step")
+    log(f"{tag} 5-step profile: wall {prof['wall_ms_per_step']:.2f} ms, device "
+        f"{prof['device_ms_per_step']:.3f} ms a step (busy {prof['device_busy_share']:.3f}), "
+        f"{prof['host_launches_per_step']:.1f} host launches a step; {smi}")
+    rec["step_profile"] = prof
+    return rec
+
+
+def small_crosssilo_check() -> dict:
+    """The small CifarResNet (widths 8/16/16, 8x8 images, 4 silos, 2
+    epochs) in f32 on the card: one packed mesh round and one resident
+    mesh round against the simulation round from the same weights and
+    orders, by the relative global norm of the parameters' difference
+    (bound 1e-5, tests/test_crosssilo.py:40)."""
+    from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.core.pytree import split_params, tree_global_norm, tree_sub
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import ModelBundle
+    from fedml_tpu_torch.models.resnet import CifarResNet
+
+    ds = make_synthetic_classification(
+        "xsilo-check", (8, 8, 3), 10, 4, records_per_client=16, test_records=40,
+        partition_method="hetero", partition_alpha=0.5, batch_size=8, seed=SEED)
+    base = dict(model="cifar-small", client_num_in_total=4, client_num_per_round=4,
+                comm_round=1, batch_size=8, epochs=2, lr=0.05, momentum=0.9, seed=SEED,
+                device_data="on")
+
+    def bundle():
+        return ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16),
+                                                      bn_impl="pallas"), (8, 8, 3))
+
+    sim = FedAvgAPI(ds, FedConfig(**base), bundle())
+    init = {k: v.clone() for k, v in sim.variables.items()}
+    loss_sim = float(sim.run_round(0))
+    want = split_params(sim.variables)[0]
+    out = {"loss_simulation": loss_sim}
+    for label, kw in (("packed", dict(pack_lanes=PACK_LANES)), ("resident", {})):
+        cs = CrossSiloFedAvgAPI(ds, FedConfig(**base, **kw), bundle())
+        cs.variables = {k: v.clone() for k, v in init.items()}
+        loss = float(cs.run_round(0))
+        rel = float(tree_global_norm(tree_sub(split_params(cs.variables)[0], want))
+                    / tree_global_norm(want))
+        out[label] = {"loss": loss, "rel_norm": rel}
+        if not rel < 1e-5 or not abs(loss - loss_sim) <= 1e-5 * abs(loss_sim):
+            raise AssertionError(f"[crosssilo] f32 {label} mesh round {rel:.3g} (relative norm) "
+                                 f"from the simulation round, loss {loss} vs {loss_sim}")
+    log(f"[crosssilo] f32 mesh rounds on the card against the simulation round: {out}")
+    return out
+
+
+def nccl_one_rank_check(ds, smi: str) -> dict:
+    """One packed mesh round of ``ds`` under a world-size-1 NCCL process
+    group (a ``file://`` store in a temporary directory, no network) against
+    the same round without a group, from the same weights: bit for bit. The
+    round's all-reduce (its flat buffer) profiled under the group (the
+    host's ``nccl:all_reduce`` record, the device's NCCL records) and timed
+    by CUDA events, with the group and without one."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from fedml_tpu_torch.parallel.crosssilo import all_reduce_flat
+    from fedml_tpu_torch.parallel.mesh import ClientMesh, client_mesh, init_multihost
+
+    plain = crosssilo_api(ds, pack_lanes=PACK_LANES)
+    init = {k: v.clone() for k, v in plain.variables.items()}
+    loss_plain = float(plain.run_round(0))
+    want = {k: v.clone() for k, v in plain.variables.items()}
+    del plain
+    tmp = tempfile.mkdtemp(prefix="nccl-store-")
+    try:
+        init_multihost(f"file://{tmp}/store", 1, 0, timeout_s=120)
+        mesh = client_mesh()
+        if mesh.group is None or mesh.world_size != 1:
+            raise AssertionError(f"[crosssilo nccl] the mesh has no one-rank group: {mesh}")
+        api = crosssilo_api(ds, mesh=mesh, pack_lanes=PACK_LANES)
+        api.variables = {k: v.clone() for k, v in init.items()}
+        loss = float(api.run_round(0))
+        differ = [k for k, v in want.items() if not torch.equal(api.variables[k], v)]
+        if differ or loss != loss_plain:
+            raise AssertionError(f"[crosssilo nccl] the NCCL round differs from the group-less "
+                                 f"round: loss {loss} vs {loss_plain}, tensors {differ[:6]}")
+        buf = [v.float() for v in api.variables.values()]
+        _, events = profiled(lambda: all_reduce_flat(mesh, buf), "one-rank NCCL all-reduce")
+        host = sorted({e.name for e in events if e.device_type == DeviceType.CPU
+                       and ("nccl" in e.name.lower() or "allreduce" in e.name.replace("_", ""))})
+        device = sorted({e.name for e in events if e.device_type == DeviceType.CUDA
+                         and "nccl" in e.name.lower()})
+        if not any("allreduce" in n.replace("_", "") for n in host):
+            raise AssertionError(f"[crosssilo nccl] the profile holds no NCCL all-reduce: {host}")
+        # the round's tail collective, timed: the flat buffer's assembly and
+        # the one call, under the group and without one
+        tail_ms = {"nccl": cuda_time_ms(lambda: all_reduce_flat(mesh, buf), iters=20),
+                   "no_group": cuda_time_ms(lambda: all_reduce_flat(
+                       ClientMesh(1, 0, None, mesh.device), buf), iters=20)}
+        backend = dist.get_backend()
+        del api
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = {"silos": ds.num_clients, "backend": backend, "loss": loss, "bit_identical": True,
+           "host_nccl_records": host, "device_nccl_kernels": device,
+           "buffer_floats": sum(b.numel() for b in buf), "all_reduce_flat_ms": tail_ms}
+    log(f"[crosssilo nccl] one packed mesh round under a world-size-1 {backend} group equals "
+        f"the group-less round bit for bit (loss {loss}); its all-reduce of "
+        f"{rec['buffer_floats']} floats: host {host}, device kernels {device}; "
+        f"all_reduce_flat {tail_ms['nccl']:.4f} ms under the group, {tail_ms['no_group']:.4f} "
+        f"ms without; {smi}")
+    return rec
+
+
+def phase_train_crosssilo(smi: str) -> dict:
+    """Phase 4d: bench.py's cross-silo configuration on one rank, arms (a)
+    packed mesh, (b) grouped, (c) resident, (d) FedOpt-adam on (a), (e) (a)
+    at 8 and 16 silos with the fit T(c) = a + b*c; the f32 gate, the
+    world-size-1 NCCL gate, FedOpt's server state on the card."""
+    import gc
+
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedopt import CrossSiloFedOptAPI
+    from fedml_tpu_torch.core.optim import state_tensors
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out, launches = {"arms": {}}, {"bn_fwd": 0, "bn_bwd": 0}
+    arms = (("a-packed", None, dict(pack_lanes=PACK_LANES), 2),
+            ("b-grouped", None, dict(pack_lanes=0), 2),
+            ("c-resident", None, dict(pack_lanes=0, bucket_groups=1), 2),
+            ("d-fedopt-adam", CrossSiloFedOptAPI,
+             dict(pack_lanes=PACK_LANES, server_optimizer="adam", server_lr=ZOO_SERVER_LR), 1))
+    expect = {"a-packed": "packed mesh", "b-grouped": "grouped", "c-resident": "resident",
+              "d-fedopt-adam": "packed mesh"}
+    for label, cls, cfg, timed in arms:
+        tag = f"[crosssilo {label}]"
+        t0 = time.perf_counter()
+        api = crosssilo_api(silo_data(32), cls, **cfg)
+        torch.cuda.synchronize()
+        log(f"{tag} set-up {time.perf_counter() - t0:.1f} s")
+        rec = crosssilo_arm(api, tag, smi, timed)
+        if rec["schedule"] != expect[label]:
+            raise AssertionError(f"{tag} ran the {rec['schedule']} schedule")
+        if cls is CrossSiloFedOptAPI:
+            tensors, counts = state_tensors(api.server_state["opt"])
+            if not all(t.is_cuda for t in tensors + counts) or \
+                    not any(bool(t.abs().max() > 0) for t in tensors):
+                raise AssertionError(f"{tag} the server state is not on the card, or zero")
+            rec["server_state_abs_max"] = max(float(t.abs().max()) for t in tensors)
+            rec["server_state_count"] = [int(c) for c in counts]
+            log(f"{tag} server state on the card, |max| {rec['server_state_abs_max']:.4g}, "
+                f"count {rec['server_state_count']}")
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        out["arms"][label] = rec
+        del api
+        free()
+    scaling = {32: out["arms"]["a-packed"]}
+    for silos in WEAK_SCALING_SILOS:
+        api = crosssilo_api(silo_data(silos), pack_lanes=PACK_LANES)
+        scaling[silos] = rec = crosssilo_arm(api, f"[crosssilo e-{silos}-silos]", smi)
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        out["arms"][f"e-packed-{silos}"] = rec
+        del api
+        free()
+    T = {c: r["round_s"] for c, r in scaling.items()}
+    b = (T[32] - T[8]) / (32 - 8)
+    a = T[8] - b * 8
+    out["weak_scaling"] = {"round_s": T, "fit_overhead_ms": a * 1e3, "fit_per_silo_ms": b * 1e3,
+                           "midpoint_pred_s": a + b * 16,
+                           "midpoint_err": abs(a + b * 16 - T[16]) / T[16]}
+    log(f"[crosssilo e] T(c) {T}; fit a + b*c through 8 and 32: a {a * 1e3:.1f} ms, b "
+        f"{b * 1e3:.2f} ms a silo; at 16 predicted {a + b * 16:.4f} s against {T[16]:.4f} s; "
+        f"{smi}")
+    out["f32_check"] = small_crosssilo_check()
+    out["nccl_one_rank"] = nccl_one_rank_check(silo_data(WEAK_SCALING_SILOS[0]), smi)
+    free()
+    out["launches"] = launches
+    return out
+
+
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
                     ) -> tuple[float, float, int]:
     """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
@@ -2235,6 +2562,7 @@ def main() -> int:
     train = timed("train", phase_train, smi)
     train_packed = timed("train_packed", phase_train_packed, smi)
     zoo = timed("train_zoo", phase_train_zoo, smi)
+    crosssilo = timed("train_crosssilo", phase_train_crosssilo, smi)
     conv_err, conv_cases, lanes_model_err = timed("check_conv", phase_check_conv)
     conv_timing = timed("time_conv", phase_time_conv)
     probe, probe_launches = timed("probe", phase_probe)
@@ -2268,11 +2596,13 @@ def main() -> int:
         if name.startswith("bn"):
             rows, b_ms, b_by = bn_step(timing, name)
             source = "batchnorm.cu"
-            # the BN path's 2 rounds, the packed flagship's and the zoo's
-            # runs, each counted from 0 just before it
+            # the BN path's 2 rounds, the packed flagship's, the zoo's and
+            # the cross-silo arms' timed rounds, each counted from 0 just
+            # before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
-                       "zoo": zoo["launches"][name]}
+                       "zoo": zoo["launches"][name],
+                       "crosssilo": crosssilo["launches"][name]}
             launches = sum(by_path.values())
             prows, pb_ms, pb_by = bn_step(timing_packed, name)
             extra = {"launches_by_path": by_path, "packed": {
@@ -2352,7 +2682,7 @@ def main() -> int:
         "phase_seconds": seconds,
         "check_cases": cases, "small_model_rel_err": model_err, "timing": timing,
         "timing_packed": timing_packed, "train": train, "train_packed": train_packed,
-        "train_zoo": zoo,
+        "train_zoo": zoo, "train_crosssilo": crosssilo,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

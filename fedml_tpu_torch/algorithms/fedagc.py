@@ -10,7 +10,7 @@ the next round.
 
 from __future__ import annotations
 
-from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
 from fedml_tpu_torch.core.aggregation import agc_clip_update
 from fedml_tpu_torch.core.pytree import split_params, tree_weighted_mean
 
@@ -30,3 +30,9 @@ class FedAGCAPI(FedAvgAPI):
 
     def crosssilo_hooks(self) -> dict:
         return dict(client_transform=self._clip_stacked)
+
+
+class CrossSiloFedAGCAPI(CrossSiloFedAvgAPI, FedAGCAPI):
+    """FedAGC on the cross-silo mesh: each rank clips its clients' updates
+    unit-wise before the weighted all-reduce (the ``client_transform`` of
+    :meth:`FedAGCAPI.crosssilo_hooks`)."""

@@ -31,12 +31,23 @@ The algorithm contract is the JAX package's: a subclass changes
 threads across rounds; a round whose total weight is 0 keeps the weights and
 the server state. ``rng`` is None: no ported algorithm draws on the server.
 
+Elastic rounds: with ``failure_prob > 0`` each sampled client fails a
+round (numpy, bit-equal to the JAX package's draw) and, like a client that
+``set_client_active`` has taken out, aggregates with weight 0; on the
+packed rounds such a client's lane span is also frozen
+(``parallel/packed.mask_plan``), so its steps run only where another lane
+is live.
+
+:class:`CrossSiloFedAvgAPI` is the cross-silo paradigm: clients over the
+ranks of a ``torch.distributed`` process group (``parallel/mesh.py``), the
+aggregate one all-reduce (``parallel/crosssilo.py``).
+
 Not ported yet, and refused with ``NotImplementedError``: the joint packed
-lowerings (``packed_conv`` other than ``"off"``), injected failures
-(``failure_prob > 0``) and streaming aggregation. The bucketed and grouped
-schedules of the JAX package are not needed: running only each client's
-live steps (parallel/local.py) already skips the padding they trim. The
-cross-silo paradigm is a later port.
+lowerings (``packed_conv`` other than ``"off"``), streaming aggregation and
+the cross-silo super-step (``rounds_per_step > 1``). The simulation
+paradigm's bucketed and grouped schedules are not needed: running only
+each client's live steps (parallel/local.py) already skips the padding
+they trim.
 """
 
 from __future__ import annotations
@@ -56,17 +67,51 @@ from fedml_tpu_torch.core.rng import client_generator, sample_clients
 from fedml_tpu_torch.core.tasks import get_task
 from fedml_tpu_torch.data import FedDataset
 from fedml_tpu_torch.models import ModelBundle, create_model
-from fedml_tpu_torch.parallel.crosssilo import apply_server_and_rollback
+from fedml_tpu_torch.parallel.crosssilo import (SiloWork, apply_server_and_rollback,
+                                                make_crosssilo_round)
 from fedml_tpu_torch.parallel.local import (LocalResult, finalize_metrics, local_train_kwargs,
                                             make_eval_fn, make_local_train_fn)
+from fedml_tpu_torch.parallel.mesh import ClientMesh, client_mesh, shard_client_batch
 from fedml_tpu_torch.parallel.packed import (PackedResult, PackPlan, executed_steps,
-                                             make_packed_cohort_train, plan_packing)
+                                             make_crosssilo_packed_round,
+                                             make_packed_cohort_train, mask_plan,
+                                             mesh_member_active, plan_packing,
+                                             plan_packing_mesh, rank_plan)
 
 log = logging.getLogger(__name__)
 
 #: ``order_hook(round_idx, cohort_pos) -> orders``, ``orders[e]`` a
-#: LongTensor permutation of n_pad for epoch e
-OrderHook = Callable[[int, int], Sequence[torch.Tensor]]
+#: LongTensor permutation of n_pad for epoch e. The cross-silo grouped and
+#: host-slice rounds train on a record axis cut to ``n < n_pad`` and call
+#: ``order_hook(round_idx, cohort_pos, n)`` for permutations of n.
+OrderHook = Callable[..., Sequence[torch.Tensor]]
+
+
+def _chunk_buckets(sorted_maxes, G: int, q: int, n_pad: int) -> list:
+    """The grouping core of the bucketed schedules (bit-equal to the JAX
+    package's): split the ascending max-count sequence into at most ``G``
+    contiguous chunks, give each the scan length of its largest member
+    rounded up to quantum ``q`` (capped at ``n_pad``), and merge adjacent
+    chunks whose scan lengths round equal. Returns ``[[a, b, scan_len],
+    ...]`` half-open index chunks."""
+    n = len(sorted_maxes)
+    bounds = np.linspace(0, n, G + 1).round().astype(int)
+    merged: list[list] = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        if a == b:
+            continue
+        bucket = min(int(np.ceil(max(float(sorted_maxes[b - 1]), 1.0) / q) * q), n_pad)
+        if merged and merged[-1][2] == bucket:
+            merged[-1][1] = b
+        else:
+            merged.append([a, b, bucket])
+    return merged
+
+
+def _live_slots(counts: np.ndarray, bs: int) -> int:
+    """Batch slots of the clients' live steps: ``ceil(count / bs) * bs``
+    each, the padding of each client's last batch included."""
+    return int(sum(-(-int(c) // bs) * bs for c in counts))
 
 
 class FedAvgAPI:
@@ -77,8 +122,6 @@ class FedAvgAPI:
         if config.packed_conv != "off":
             raise NotImplementedError(f"packed_conv={config.packed_conv!r}: the joint packed "
                                       "lowerings are not ported yet (packed_conv='off' is)")
-        if config.failure_prob > 0:
-            raise NotImplementedError("failure_prob > 0: elastic rounds are not ported yet")
         if config.stream_aggregate != "off":
             raise NotImplementedError("stream_aggregate: streaming rounds are not ported yet")
         self.device = default_device(device)
@@ -88,6 +131,8 @@ class FedAvgAPI:
             config.model, dataset.class_num, input_shape=dataset.train_x.shape[2:] or None)
         self.task = get_task(dataset.task, dataset.class_num)
         self.order_hook = order_hook
+        #: the per-client exit mask of set_client_active; None = all active
+        self._client_active: Optional[np.ndarray] = None
         self.variables = self.bundle.init(config.seed, self.device)
         self.server_state = self.init_server_state()
         self._local_train = self.build_local_train()
@@ -109,10 +154,24 @@ class FedAvgAPI:
         return (xt, torch.from_numpy(np.ascontiguousarray(y)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(mask)).to(self.device))
 
+    def _resident_ok(self, shard_factor: int = 1, slots_fraction: float = 1.0) -> bool:
+        """Whether the stacked train set is placed on the device:
+        ``device_data="on"``, or ``"auto"`` when its bytes per rank
+        (``shard_factor`` ranks; ``slots_fraction`` of the record axis kept)
+        fit ``device_data_max_bytes``, train_x counted in the compute dtype."""
+        c, ds = self.config, self.dataset
+        if c.device_data != "auto":
+            return c.device_data == "on"
+        x = ds.train_x
+        x_bytes = x.size * 2 if c.dtype == "bfloat16" and x.dtype.kind == "f" else x.nbytes
+        nbytes = (x_bytes + ds.train_y.nbytes + ds.train_mask.nbytes
+                  + ds.train_counts.nbytes) * slots_fraction
+        return nbytes / max(shard_factor, 1) <= c.device_data_max_bytes
+
     def _maybe_place_train_data(self):
-        """The whole stacked client dataset on the device, once; None with
-        ``device_data="off"`` (each round then ships its cohort)."""
-        if self.config.device_data == "off":
+        """The whole stacked client dataset on the device, once; None when
+        it is not to be resident (each round then ships its cohort)."""
+        if not self._resident_ok():
             return None
         ds = self.dataset
         return self._to_device(ds.train_x, ds.train_y, ds.train_mask)
@@ -211,28 +270,92 @@ class FedAvgAPI:
         self._packed_plan_memo = (key, plan)
         return plan
 
-    def _round_orders(self, round_idx: int, cohort: int) -> torch.Tensor:
-        """[cohort, epochs, n_pad] per-epoch permutations of every cohort
-        position, which the plain and the packed round both train on: each
-        position's draws from ``client_generator``, or the order hook's."""
+    def _round_orders(self, round_idx: int, positions: "int | Sequence[int]",
+                      n: Optional[int] = None) -> torch.Tensor:
+        """[len(positions), epochs, n] per-epoch permutations of n (n_pad
+        by default) for each cohort position (``positions``, or an int for
+        ``range(positions)``): its draws from ``client_generator``, or the
+        order hook's. Every round trains on these; at full participation a
+        position is the client's index."""
         n_pad = int(self.dataset.train_x.shape[1])
+        n = n_pad if n is None else int(n)
+        if isinstance(positions, (int, np.integer)):
+            positions = range(int(positions))
         out = []
-        for i in range(cohort):
+        for i in (int(p) for p in positions):
             if self.order_hook is not None:
-                orders = self.order_hook(round_idx, i)
+                orders = (self.order_hook(round_idx, i) if n == n_pad
+                          else self.order_hook(round_idx, i, n))
             else:
                 g = client_generator(self.config.seed, round_idx, i)
-                orders = [torch.randperm(n_pad, generator=g) for _ in range(self.config.epochs)]
+                orders = [torch.randperm(n, generator=g) for _ in range(self.config.epochs)]
             out.append(torch.stack([torch.as_tensor(o, dtype=torch.int64) for o in orders]))
         return torch.stack(out)
 
-    def _run_packed_round(self, sampled: np.ndarray, round_idx: int) -> Optional[PackedResult]:
+    # -- elastic rounds ----------------------------------------------------------
+
+    def _sample_failures(self, round_idx: int, cohort: int,
+                         record: bool = True) -> Optional[np.ndarray]:
+        """The round's injected failures (bit-equal to the JAX package's):
+        with ``failure_prob > 0`` each of the ``cohort`` sampled clients
+        fails independently; returns the {0,1} live vector, or None when
+        injection is off. ``record`` logs the failures and appends their
+        number to ``history["failed_clients"]``."""
+        p = self.config.failure_prob
+        if not p:
+            return None
+        rng = np.random.default_rng([self.config.seed, 0x0F41, round_idx])
+        live = (rng.random(cohort) >= p).astype(np.float32)
+        if record:
+            n_failed = int(cohort - live.sum())
+            if n_failed:
+                log.info("round %d: %d/%d clients failed (injected)", round_idx, n_failed,
+                         cohort)
+            self.history.setdefault("failed_clients", []).append(n_failed)
+        return live
+
+    def set_client_active(self, active) -> None:
+        """Per-client participation mask (``[num_clients]`` {0,1}, or None
+        to clear): a client whose entry is 0 stops contributing from the
+        next round, with weight 0 on every schedule and its lane span frozen
+        on the packed ones."""
+        a = None if active is None else np.asarray(active, np.float32)
+        self._client_active = None if a is None or a.all() else a
+
+    def _live(self, round_idx: int, clients: np.ndarray,
+              record: bool = False) -> Optional[np.ndarray]:
+        """The {0,1} live mask of ``clients`` (the round's cohort) this
+        round, failures and exits folded, or None when every one is live."""
+        live = self._sample_failures(round_idx, len(clients), record=record)
+        if self._client_active is not None:
+            av = self._client_active[clients]
+            live = av if live is None else live * av
+        return live
+
+    def _round_plan(self, round_idx: int, record: bool = False):
+        """The round's (sampled cohort, live mask or None): what run_round
+        trains and round_counts reports."""
+        sampled = self.sample(round_idx)
+        return sampled, self._live(round_idx, sampled, record)
+
+    def _masked_packed_plan(self, sampled: np.ndarray,
+                            live: Optional[np.ndarray]) -> Optional[PackPlan]:
+        """The cohort's plan, with the members that ``live`` zeroes frozen."""
+        plan = self._packed_plan(sampled)
+        if plan is None or live is None:
+            return plan
+        return mask_plan(plan, np.asarray(live, np.float32)[plan.member_pos])
+
+    def _run_packed_round(self, sampled: np.ndarray, live: Optional[np.ndarray],
+                          round_idx: int) -> Optional[PackedResult]:
         """The round under the packed schedule, or None when the cohort has
         no records to train."""
-        plan = self._packed_plan(sampled)
+        plan = self._masked_packed_plan(sampled, live)
         if plan is None:
             return None
         counts = np.asarray(self.dataset.train_counts, np.float32)[sampled]
+        if live is not None:
+            counts = counts * live
         tx, ty, tm = self._dev_train
         return self._packed_train(self.variables, tx, ty, tm, sampled, counts,
                                   self._round_orders(round_idx, len(sampled)), plan)
@@ -242,27 +365,30 @@ class FedAvgAPI:
 
     def round_counts(self, round_idx: int) -> tuple:
         """(real, executed) training examples one epoch of this round
-        processes: the cohort's real record counts, and the batch slots the
-        live steps execute (padding in each client's last batch included).
-        Packed: every lane of every executed plan step, one epoch's share
-        rounded to the nearest step."""
-        sampled = self.sample(round_idx)
+        processes: the live cohort's real record counts (failed and exited
+        clients excluded, as in the JAX package), and the batch slots the
+        live steps execute (padding in each client's last batch included;
+        a failed client still trains). Packed: every lane of every executed
+        step of the (masked) plan, one epoch's share rounded to the nearest
+        step."""
+        sampled, live = self._round_plan(round_idx)
         counts = np.asarray(self.dataset.train_counts, np.int64)[sampled]
+        real = int(counts.sum() if live is None else (counts * live).sum())
         bs = self.config.batch_size
         if self._packed_train is not None:
-            plan = self._packed_plan(sampled)
+            plan = self._masked_packed_plan(sampled, live)
             if plan is not None:
                 slots = plan.n_lanes * len(executed_steps(plan.live))
-                return int(counts.sum()), int(round(slots / max(self.config.epochs, 1)) * bs)
-        return int(counts.sum()), int(sum(-(-int(c) // bs) * bs for c in counts))
+                return real, int(round(slots / max(self.config.epochs, 1)) * bs)
+        return real, _live_slots(counts, bs)
 
     def run_round(self, round_idx: int) -> "float | torch.Tensor":
         """Train one round; returns the count-weighted train loss — a float,
         or with ``config.async_rounds`` a 0-dim device tensor (no host sync)."""
         c = self.config
-        sampled = self.sample(round_idx)
+        sampled, live = self._round_plan(round_idx, record=True)
         if self._packed_train is not None:
-            out = self._run_packed_round(sampled, round_idx)
+            out = self._run_packed_round(sampled, live, round_idx)
             if out is not None:
                 self.variables, self.server_state = apply_server_and_rollback(
                     self.variables, out.variables, out.extras, out.total, self.server_state,
@@ -280,11 +406,12 @@ class FedAvgAPI:
         results = [self._local_train(self.variables, cx[i], cy[i], cm[i], int(counts[i]),
                                      orders=orders[i])
                    for i in range(len(sampled))]
-        w = torch.as_tensor(counts, dtype=torch.float32, device=self.device)
+        wn = counts.astype(np.float32) * (1.0 if live is None else live)
+        w = torch.as_tensor(wn, dtype=torch.float32, device=self.device)
         losses = torch.stack([r.train_loss for r in results])
         infos = LocalResult(tree_stack([r.variables for r in results]), losses,
                             torch.tensor([r.tau for r in results], device=self.device))
-        if counts.sum() > 0:      # else the round keeps weights and server state
+        if wn.sum() > 0:      # else the round keeps weights and server state
             self.variables, self.server_state = self.aggregate(
                 self.variables, infos.variables, w, infos, None, self.server_state)
         train_loss = (losses * w).sum() / torch.clamp(w.sum(), min=1e-12)
@@ -314,3 +441,288 @@ class FedAvgAPI:
             torch.cuda.synchronize(self.device)
         self.history["rounds_per_sec"] = c.comm_round / max(time.perf_counter() - t0, 1e-12)
         return self.history
+
+
+class CrossSiloFedAvgAPI(FedAvgAPI):
+    """Cross-silo paradigm (counterpart of the JAX package's
+    ``CrossSiloFedAvgAPI``): the cohort split over the ranks of the client
+    mesh (``parallel/mesh.client_mesh``; one rank without a process group),
+    each rank training its block of clients, the aggregate one all-reduce
+    (``parallel/crosssilo.mesh_finish``). The effective cohort must be a
+    multiple of the world size. Every rank holds the whole host dataset and
+    computes the same host plan, masks and weights.
+
+    The schedule is chosen as the JAX package chooses it:
+
+    - **packed mesh** (``pack_lanes > 0``, full participation, an algorithm
+      the lane program mirrors): the clients dealt to ranks by
+      ``plan_packing_mesh``, each rank's block resident in plan order and
+      trained by the lane program over its lanes
+      (``make_crosssilo_packed_round``);
+    - **grouped** (``bucket_groups > 1``, full participation, something to
+      trim): count-sorted clients dealt to ranks in strips, each group's
+      block resident on its record axis cut to the group's scan length;
+    - **resident-sharded** (full participation): each rank's block of the
+      stacked clients resident;
+    - **host slice** (partial participation, ``device_data="off"`` or over
+      the byte budget): each round ships the rank's block of the sampled
+      cohort, its record axis cut to the cohort's bucket.
+
+    Every client's per-epoch orders are its original index's (the cohort
+    position's on the host slice): a schedule changes which steps are
+    padding, never which orders a client draws; the grouped and host-slice
+    rounds draw permutations of their cut axis, as the JAX package does.
+    Failed and exited clients train with weight 0 (frozen lane spans on
+    the packed mesh); a round whose total weight is 0 keeps the weights and
+    the server state. The super-step (``rounds_per_step > 1``) is refused;
+    ``cohort_vmap_width`` is ignored (logged), as in the JAX package.
+    """
+
+    def __init__(self, dataset: FedDataset, config: FedConfig,
+                 bundle: Optional[ModelBundle] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 order_hook: Optional[OrderHook] = None,
+                 mesh: Optional[ClientMesh] = None):
+        if config.rounds_per_step > 1:
+            raise NotImplementedError(f"rounds_per_step={config.rounds_per_step}: the cross-silo "
+                                      "super-step is not ported yet")
+        self.mesh = mesh or client_mesh(device=device)
+        super().__init__(dataset, config, bundle, device=self.mesh.device,
+                         order_hook=order_hook)
+        D = self.mesh.world_size
+        cohort = self._cohort
+        if cohort % D:
+            raise ValueError(f"effective cohort size ({cohort}) must be a multiple of the mesh "
+                             f"'clients' axis ({D})")
+        if config.cohort_vmap_width > 0:
+            log.warning("cohort_vmap_width=%d ignored: the cross-silo mesh round trains "
+                        "each rank's client block whole", config.cohort_vmap_width)
+        self._round = make_crosssilo_round(self._local_train, self.mesh,
+                                           **self._crosssilo_hooks_checked())
+        self._dev_sharded = self._dev_groups = self._group_plan = self._packed_mesh = None
+        if config.pack_lanes > 0:
+            self._packed_mesh = self._mesh_packed_setup(cohort)
+        if self._packed_mesh is None:
+            plan = self._mesh_group_plan(cohort)
+            if plan is not None:
+                self._dev_groups = self._place_grouped(plan)
+                if self._dev_groups is not None:
+                    self._group_plan = plan
+            if self._dev_groups is None:
+                self._dev_sharded = self._maybe_place_sharded(cohort)
+
+    # the mesh schedules place their own blocks; the simulation paradigm's
+    # whole-federation placement and packed program do not apply
+    def _maybe_place_train_data(self):
+        return None
+
+    def build_packed_train(self):
+        return None
+
+    def _crosssilo_hooks_checked(self) -> dict:
+        hooks = self.crosssilo_hooks()
+        if hooks is None:
+            if type(self).aggregate is not FedAvgAPI.aggregate:
+                raise NotImplementedError(
+                    f"{type(self).__name__} overrides aggregate(), which the mesh round cannot "
+                    "honor; implement crosssilo_hooks() or use the simulation paradigm "
+                    "(FedAvgAPI)")
+            hooks = {}
+        return hooks
+
+    def packed_status(self) -> dict:
+        """As the simulation paradigm's, for the packed mesh schedule."""
+        if self.config.pack_lanes <= 0 or self._packing_hooks() is None:
+            return super().packed_status()
+        if self._packed_mesh is None:
+            return {"scheduled": False, "packed_conv_active": False,
+                    "reason": "partial participation, or the data is not resident"}
+        return {"scheduled": True, "packed_conv_active": False, "reason": "packed_conv=off"}
+
+    def _place_rows(self, rows: np.ndarray, n: Optional[int] = None) -> tuple:
+        """The stacked train arrays of ``rows`` (their record axis cut to
+        ``n``) on the rank's device, x in the compute dtype."""
+        ds = self.dataset
+        cut = slice(None) if n is None else slice(0, n)
+        return self._to_device(ds.train_x[rows, cut], ds.train_y[rows, cut],
+                               ds.train_mask[rows, cut])
+
+    def _mesh_packed_setup(self, cohort: int) -> Optional[dict]:
+        """The packed mesh schedule: the plan, this rank's block of the
+        clients in plan order on its device, and the round program; None
+        when packing does not apply."""
+        c, ds = self.config, self.dataset
+        hooks = self._packing_hooks()
+        if hooks is None:
+            return None
+        if cohort != ds.num_clients:
+            log.warning("pack_lanes=%d ignored on the mesh path: the packed schedule is "
+                        "resident-sharded and needs full participation (cohort %d != clients "
+                        "%d)", c.pack_lanes, cohort, ds.num_clients)
+            return None
+        D = self.mesh.world_size
+        lanes_dev = max(1, -(-c.pack_lanes // D))
+        # full participation: one static plan, no quantum on its length
+        out = plan_packing_mesh(np.asarray(ds.train_counts), c.batch_size, c.epochs, D,
+                                lanes_dev, t_quantum=1)
+        if out is None or not self._resident_ok(D):
+            return None
+        perm, plan = out
+        rows = perm[self.mesh.block(len(perm))]
+        round_fn = make_crosssilo_packed_round(
+            self.bundle, self.task, int(ds.train_x.shape[1]), self.mesh, **hooks,
+            **self._local_train_kwargs())
+        return dict(perm=perm, plan=plan, rows=rows, data=self._place_rows(rows),
+                    round_fn=round_fn)
+
+    def _maybe_place_sharded(self, cohort: int) -> Optional[tuple]:
+        """Full participation keeps each rank's block of the stacked
+        clients resident on its device; partial participation ships the
+        round's host slice instead."""
+        c, ds = self.config, self.dataset
+        if c.device_data == "off":
+            return None
+        if cohort != ds.num_clients:
+            if c.device_data == "on":
+                log.warning("device_data='on' ignored for cross-silo partial participation "
+                            "(%d/%d clients); resident sharding needs full participation",
+                            cohort, ds.num_clients)
+            return None
+        if not self._resident_ok(self.mesh.world_size):
+            return None
+        rows = np.arange(ds.num_clients)[self.mesh.block(ds.num_clients)]
+        return (rows,) + self._place_rows(rows)
+
+    def _mesh_group_plan(self, cohort: int):
+        """The grouped schedule (bit-equal to the JAX package's): clients
+        sorted by count and dealt to ranks in strips (strip s = the s-th
+        ``D`` clients, one a rank), consecutive strips chunked into at most
+        ``bucket_groups`` groups whose scan length is the chunk's largest
+        count rounded up to the quantum. None when it is off or trims
+        nothing, else a tuple of ``(idx_g, scan_len_g)``, ``idx_g`` the
+        group's clients rank-major (rank d's block = its strip slots)."""
+        c, ds = self.config, self.dataset
+        if c.device_data == "off" or cohort != ds.num_clients:
+            return None
+        D = self.mesh.world_size
+        L = ds.num_clients // D
+        if c.bucket_groups <= 1 or L < 2:
+            return None
+        n_pad = int(ds.train_x.shape[1])
+        q = c.bucket_quantum_batches * c.batch_size
+        if c.bucket_quantum_batches <= 0 or q >= n_pad:
+            return None
+        counts = np.asarray(ds.train_counts, np.float64)
+        strips = np.argsort(counts, kind="stable").reshape(L, D)
+        strip_max = counts[strips].max(axis=1)
+        merged = _chunk_buckets(strip_max, min(c.bucket_groups, L), q, n_pad)
+        if len(merged) == 1 and merged[0][2] >= n_pad:
+            return None
+        return tuple((strips[a:b].T.reshape(-1), bucket) for a, b, bucket in merged)
+
+    def _place_grouped(self, plan) -> Optional[list]:
+        """Each group's block of this rank on its device, the record axis
+        cut to the group's scan length (one cut copy per group); None when
+        the cut federation is not to be resident."""
+        ds = self.dataset
+        kept = sum(len(idx_g) * bucket for idx_g, bucket in plan)
+        if not self._resident_ok(self.mesh.world_size,
+                                 kept / max(ds.num_clients * int(ds.train_x.shape[1]), 1)):
+            return None
+        groups = []
+        for idx_g, bucket in plan:
+            rows = idx_g[self.mesh.block(len(idx_g))]
+            groups.append((rows, bucket) + self._place_rows(rows, bucket))
+        return groups
+
+    def _round_bucket(self, sampled: np.ndarray, live: Optional[np.ndarray]) -> Optional[int]:
+        """The host-slice round's record axis: the live cohort's largest
+        count rounded up to the quantum, or None (the whole n_pad)."""
+        c = self.config
+        n_pad = int(self.dataset.train_x.shape[1])
+        q = c.bucket_quantum_batches * c.batch_size
+        if c.bucket_quantum_batches <= 0 or q >= n_pad:
+            return None
+        counts = np.asarray(self.dataset.train_counts, np.float64)[sampled]
+        if live is not None:
+            counts = counts * live
+        maxc = float(counts.max()) if counts.size else 0.0
+        bucket = int(np.ceil(max(maxc, 1.0) / q) * q)
+        return None if bucket >= n_pad else bucket
+
+    def _work(self, round_idx: int, rows: np.ndarray, x, y, m, weights: np.ndarray,
+              positions: Optional[np.ndarray] = None) -> list:
+        """One SiloWork per row of a rank's placed block: ``weights`` and
+        the orders (of the block's record axis) by row, or by
+        ``positions`` in the cohort."""
+        pos = rows if positions is None else positions
+        orders = self._round_orders(round_idx, pos, x.shape[1])
+        counts = self.dataset.train_counts
+        return [SiloWork(x[i], y[i], m[i], int(counts[r]), float(weights[p]), orders[i])
+                for i, (r, p) in enumerate(zip(rows, pos))]
+
+    def run_round(self, round_idx: int) -> "float | torch.Tensor":
+        c, ds = self.config, self.dataset
+        if self._packed_mesh is None and self._dev_groups is None and self._dev_sharded is None:
+            return self._run_host_slice_round(round_idx)
+        clients = np.arange(ds.num_clients)
+        live = self._live(round_idx, clients, record=True)
+        w = np.asarray(ds.train_counts, np.float32) * (1.0 if live is None else live)
+        total = float(w.astype(np.float64).sum())
+        if self._packed_mesh is not None:
+            pm = self._packed_mesh
+            plan = pm["plan"]
+            if live is not None:
+                plan = mask_plan(plan, mesh_member_active(plan, self.mesh.world_size,
+                                                          live[pm["perm"]]))
+            rows = pm["rows"]
+            tx, ty, tm = pm["data"]
+            out = pm["round_fn"](self.variables, self.server_state, tx, ty, tm, w[rows],
+                                 self._round_orders(round_idx, rows),
+                                 rank_plan(plan, self.mesh.world_size, self.mesh.rank), total)
+        else:
+            blocks = self._dev_groups or [self._dev_sharded]
+            work = [wk for rows, *rest in blocks
+                    for wk in self._work(round_idx, rows, *rest[-3:], w)]
+            out = self._round(self.variables, self.server_state, work, total)
+        self.variables, self.server_state, loss = out
+        return loss if c.async_rounds else float(loss)
+
+    def _run_host_slice_round(self, round_idx: int) -> "float | torch.Tensor":
+        """Partial participation: this rank's block of the sampled cohort,
+        shipped from the host, its record axis cut to the round's bucket;
+        orders by cohort position."""
+        c, ds = self.config, self.dataset
+        sampled, live = self._round_plan(round_idx, record=True)
+        w = np.asarray(ds.train_counts, np.float32)[sampled] * (1.0 if live is None else live)
+        bucket = self._round_bucket(sampled, live)
+        cx, cy, cm, _ = ds.client_slice(sampled)
+        if bucket is not None:
+            cx, cy, cm = cx[:, :bucket], cy[:, :bucket], cm[:, :bucket]
+        x, y, m = shard_client_batch(self.mesh, (cx, cy, cm),
+                                     torch.bfloat16 if c.dtype == "bfloat16" else None)
+        pos = np.arange(len(sampled))[self.mesh.block(len(sampled))]
+        work = self._work(round_idx, sampled[pos], x, y, m, w, positions=pos)
+        self.variables, self.server_state, loss = self._round(
+            self.variables, self.server_state, work, float(w.astype(np.float64).sum()))
+        return loss if c.async_rounds else float(loss)
+
+    def round_counts(self, round_idx: int) -> tuple:
+        """(real, executed) examples one epoch of the round processes: the
+        live clients' real records (as the JAX package's), and on the
+        packed mesh the plan's ``executed_slots * bs / epochs`` (the JAX
+        package's, the plans being bit-equal); on the grouped, resident and
+        host-slice rounds the port's own count, the batch slots of every
+        client's live steps (a group's cut axis runs the same live steps)."""
+        ds, bs = self.dataset, self.config.batch_size
+        if self._packed_mesh is None and self._dev_groups is None and self._dev_sharded is None:
+            sampled, live = self._round_plan(round_idx)
+        else:
+            sampled = np.arange(ds.num_clients)
+            live = self._live(round_idx, sampled)
+        counts = np.asarray(ds.train_counts, np.int64)[sampled]
+        real = int(counts.sum() if live is None else (counts * live).sum())
+        if self._packed_mesh is not None:
+            plan = self._packed_mesh["plan"]
+            return real, int(plan.executed_slots * bs // max(self.config.epochs, 1))
+        return real, _live_slots(counts, bs)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
 from fedml_tpu_torch.core.pytree import split_params, tree_weighted_mean
 
 
@@ -72,3 +72,9 @@ class FedNovaAPI(FedAvgAPI):
             return new_vars, server_state
 
         return dict(reduce_extras=reduce_extras, server_update=server_update)
+
+
+class CrossSiloFedNovaAPI(CrossSiloFedAvgAPI, FedNovaAPI):
+    """FedNova on the cross-silo mesh: the partial sums of
+    :meth:`FedNovaAPI.crosssilo_hooks` ride the same all-reduce as the
+    variables."""

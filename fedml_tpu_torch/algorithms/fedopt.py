@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
 from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.pytree import split_params, tree_weighted_mean
 
@@ -66,3 +66,10 @@ class FedOptAPI(FedAvgAPI):
             return server_step(tx, self._param_names, vars0, agg, server_state), server_state
 
         return dict(server_update=server_update)
+
+
+class CrossSiloFedOptAPI(CrossSiloFedAvgAPI, FedOptAPI):
+    """FedOpt on the cross-silo mesh: the weighted all-reduce gives every
+    rank the client average, then the server step runs on every rank on
+    the reduced values (the hooks of :meth:`FedOptAPI.crosssilo_hooks`),
+    the server state on each rank's device."""

@@ -8,9 +8,15 @@ the packed trainer both carry the term. Aggregation is FedAvg's.
 
 from __future__ import annotations
 
-from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
 
 
 class FedProxAPI(FedAvgAPI):
     def _local_train_kwargs(self) -> dict:
         return dict(super()._local_train_kwargs(), prox_mu=self.config.fedprox_mu)
+
+
+class CrossSiloFedProxAPI(CrossSiloFedAvgAPI, FedProxAPI):
+    """FedProx on the cross-silo mesh: the proximal term is all client-side
+    (the trainer kwargs) and the aggregate is the plain weighted
+    all-reduce; the MRO composes the two."""

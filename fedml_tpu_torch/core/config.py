@@ -1,10 +1,11 @@
 """Typed configuration (counterpart of ``fedml_tpu/core/config.py``).
 
-Only the fields the ported path reads, with the JAX package's names and
-defaults. ``packed_conv`` values other than ``"off"``, ``failure_prob`` and
-``stream_aggregate`` exist so that a launch line asking for an unported
-schedule fails loudly (``FedAvgAPI`` raises ``NotImplementedError``) instead
-of being ignored. Optimizer names are checked where they are built, as in
+Only the fields the ported path reads, with the JAX package's names,
+defaults and checks. ``packed_conv`` values other than ``"off"``,
+``stream_aggregate`` and ``rounds_per_step > 1`` exist so that a launch
+line asking for an unported schedule fails loudly (``FedAvgAPI`` or
+``CrossSiloFedAvgAPI`` raises ``NotImplementedError``) instead of being
+ignored. Optimizer names are checked where they are built, as in
 the JAX package: ``parallel/local.make_optimizer`` and
 ``algorithms/fedopt.make_server_optimizer`` raise ``ValueError`` for an
 unknown name, so an API given one fails when it is constructed.
@@ -49,8 +50,16 @@ class FedConfig:
     # return each round's loss as a 0-dim device tensor (no host sync)
     async_rounds: bool = False
     # "off" ships each round's cohort from host memory; otherwise the whole
-    # stacked client dataset is placed on the device once
+    # stacked client dataset is placed on the device once ("auto": when its
+    # bytes per rank fit device_data_max_bytes)
     device_data: str = "auto"
+    device_data_max_bytes: int = 6_000_000_000
+    # the cross-silo grouped schedule (CrossSiloFedAvgAPI): count-sorted
+    # clients in up to bucket_groups groups, each trained on its record axis
+    # cut to its largest count rounded up to bucket_quantum_batches batches;
+    # the host-slice mesh round cuts the cohort's axis the same way (0 = off)
+    bucket_quantum_batches: int = 8
+    bucket_groups: int = 1
 
     # client packing (parallel/packed.py): the cohort runs in up to
     # pack_lanes lanes, each lane's clients back to back. Only
@@ -58,8 +67,16 @@ class FedConfig:
     pack_lanes: int = 0
     packed_conv: str = "off"
 
-    # schedules of the JAX package that are not ported yet
+    # elastic rounds: each sampled client fails a round with this
+    # probability and aggregates with weight 0
     failure_prob: float = 0.0
+    # the cross-silo super-step (rounds folded into one program) is not
+    # ported: CrossSiloFedAvgAPI refuses rounds_per_step > 1
+    rounds_per_step: int = 1
+    # the simulation paradigm's chunked vmap; the mesh rounds ignore it (and
+    # log so), and the port's plain round trains client by client anyway
+    cohort_vmap_width: int = 0
+    # not ported yet (FedAvgAPI refuses anything but "off")
     stream_aggregate: str = "off"
 
     def __post_init__(self):
@@ -71,11 +88,18 @@ class FedConfig:
             raise ValueError(f"dtype must be float32|bfloat16, got {self.dtype!r}")
         if self.device_data not in ("auto", "on", "off"):
             raise ValueError(f"device_data must be auto|on|off, got {self.device_data!r}")
+        if self.bucket_groups < 1:
+            raise ValueError(f"bucket_groups must be >= 1, got {self.bucket_groups}")
         if self.pack_lanes < 0:
             raise ValueError(f"pack_lanes must be >= 0, got {self.pack_lanes}")
         if self.packed_conv not in ("off", "blockdiag", "grouped", "auto"):
             raise ValueError(f"packed_conv must be off|blockdiag|grouped|auto, got "
                              f"{self.packed_conv!r}")
+        if self.stream_aggregate not in ("off", "deterministic", "arrival"):
+            raise ValueError(f"stream_aggregate must be off|deterministic|arrival, got "
+                             f"{self.stream_aggregate!r}")
+        if self.rounds_per_step < 1:
+            raise ValueError(f"rounds_per_step must be >= 1, got {self.rounds_per_step}")
         if not 0.0 <= self.failure_prob < 1.0:
             raise ValueError(f"failure_prob must be in [0, 1), got {self.failure_prob}")
 

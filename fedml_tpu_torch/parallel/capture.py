@@ -15,8 +15,10 @@ the body's output. On CUDA tensors the first call
    cuBLAS's plans and workspaces;
 2. puts back every tensor the body mutates (``state()``: parameters,
    buffers, optimizer state, gradients), so the warm-up trains nothing;
-3. captures one step into a ``torch.cuda.CUDAGraph`` with a memory pool of
-   its own, on the same side stream, and instantiates it;
+3. collects the cyclic garbage (a dead trainer's graphs) and, with the
+   cyclic collector off, captures one step into a ``torch.cuda.CUDAGraph``
+   with a memory pool of its own, on the same side stream, and
+   instantiates it;
 
 and every call replays that graph (``graph.replay()``, one launch on the
 current stream) and returns the body's static output, which the next
@@ -38,6 +40,7 @@ kernels that the steps launched. ``warmup_launches`` keeps the warm-up's.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -116,10 +119,19 @@ class CapturedStep:
         # keep_graph: the captured cudaGraph_t stays readable
         # (``graph.raw_cuda_graph()``), so its kernel nodes can be inspected
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # a dead trainer's graphs sit in reference cycles (a program's body
+        # holds its trainer); destroying a graph while a capture is under
+        # way invalidates the capture, so the cycles go now and the cyclic
+        # collector stays off until the capture ends
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=stream):
                 output = self.body(*self.inputs)
         finally:
+            if gc_on:
+                gc.enable()
             captured = _counts()
             _set_counts(start)
         graph.instantiate()

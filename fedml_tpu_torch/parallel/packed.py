@@ -36,8 +36,10 @@ one captured CUDA graph per step shape (``parallel/capture.py``), whatever
 lanes are dead. The gather of each step's batches into its static inputs,
 the resets, the dead-lane save and restore and the emits stay eager.
 
-``pad_plan`` and ``plan_packing_mesh`` (the cross-silo mesh form) and the
-joint lowerings of ``packed_conv != "off"`` are not ported.
+The cross-silo mesh form (``plan_packing_mesh``, ``pad_plan``,
+``mesh_member_active``, ``make_crosssilo_packed_round``) runs each rank's
+lanes over its block of the clients and all-reduces the emitted sums once.
+The joint lowerings of ``packed_conv != "off"`` are not ported.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from fedml_tpu_torch.core.tasks import Task
 from fedml_tpu_torch.models import ModelBundle
 from fedml_tpu_torch.ops.packed_conv import stack_variables
 from fedml_tpu_torch.parallel.capture import CapturedStep
+from fedml_tpu_torch.parallel.crosssilo import mesh_finish
 from fedml_tpu_torch.parallel.local import LocalResult, make_optimizer, module_state, prox_term
 
 
@@ -167,9 +170,24 @@ def mask_plan_arrays(plan: PackPlan, member_active: np.ndarray) -> tuple:
             plan.steps_real)
 
 
+def mask_plan(plan: PackPlan, member_active: np.ndarray) -> PackPlan:
+    """The plan with :func:`mask_plan_arrays` applied: the members whose
+    ``member_active[lane, k]`` is 0 frozen, shapes unchanged."""
+    return PackPlan(plan.n_lanes, plan.k_max, plan.T, plan.epochs,
+                    *mask_plan_arrays(plan, member_active))
+
+
 def executed_steps(live: np.ndarray) -> np.ndarray:
     """The plan steps the port executes: those where some lane is live."""
     return np.nonzero(np.asarray(live).max(0) > 0)[0]
+
+
+class PackedSums(NamedTuple):
+    """A packed cohort's weighted partial sums, before any reduction."""
+    acc: dict              # name -> sum(w * vars) in f32, the lane state's order
+    loss_sum: torch.Tensor     # sum(w * last-epoch mean loss), 0-dim
+    extras: Optional[dict]     # reduce_extras summed over the emits (None without the hook)
+    total: float               # sum(w) over the emits
 
 
 class PackedResult(NamedTuple):
@@ -270,7 +288,9 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
 
     Every executed step runs the lane program's step program for its shape:
     on CUDA a replay of the captured step, unless ``capture=False`` asks for
-    the eager step (``parallel/capture.py``)."""
+    the eager step (``parallel/capture.py``). ``packed_train.sums`` takes
+    the same arguments and returns the :class:`PackedSums` the aggregate
+    divides, which the cross-silo packed round all-reduces first."""
     if n_pad % batch_size:
         raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
     lane_stacked = getattr(bundle.module, "lane_stacked", None)
@@ -356,8 +376,8 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         return reduce_extras(variables, res, torch.full((1,), w, dtype=torch.float32,
                                                         device=dev))
 
-    def packed_train(variables: dict, tx, ty, tm, sampled_rows, weights_pos,
-                     orders: torch.Tensor, plan: PackPlan) -> PackedResult:
+    def packed_sums(variables: dict, tx, ty, tm, sampled_rows, weights_pos,
+                    orders: torch.Tensor, plan: PackPlan) -> PackedSums:
         L = plan.n_lanes
         lanes = cache.get(L)
         if lanes is None:
@@ -376,6 +396,11 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         bx, by, bm, live_in = step.inputs
         rows = torch.as_tensor(np.asarray(sampled_rows, np.int64), device=dev)
         steps = executed_steps(plan.live)
+        acc_loss = torch.zeros((), device=dev)
+        acc_w = 0.0
+        acc_extras = None
+        if not len(steps):       # every member frozen: nothing to train
+            return PackedSums(dict(zip(lanes.names, acc)), acc_loss, acc_extras, acc_w)
         table = lane_tables(tm, rows, orders, plan, steps)
         lanes_ix = np.arange(L)
         member_w = (np.asarray(weights_pos, np.float32)[plan.member_pos]
@@ -386,9 +411,6 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         last = torch.as_tensor(((plan.live * (plan.epoch == epochs - 1))[:, steps]).T.copy(),
                                device=dev)
         loss_acc = torch.zeros(L, device=dev)
-        acc_loss = torch.zeros((), device=dev)
-        acc_w = 0.0
-        acc_extras = None
         for i, t in enumerate(steps):
             reset = np.nonzero(plan.reset[:, t] > 0)[0]
             if reset.size:
@@ -420,9 +442,138 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
                         acc_extras = ex if acc_extras is None else tree_add(acc_extras, ex)
                     acc_w += w
                     acc_loss = acc_loss + loss_acc[lane] / sr * w
-        denom = max(acc_w, 1e-12)
-        agg = {k: (a / denom).to(variables[k].dtype) for k, a in zip(lanes.names, acc)}
-        return PackedResult(agg, acc_loss / denom, acc_extras, acc_w)
+        return PackedSums(dict(zip(lanes.names, acc)), acc_loss, acc_extras, acc_w)
 
+    def packed_train(variables: dict, tx, ty, tm, sampled_rows, weights_pos,
+                     orders: torch.Tensor, plan: PackPlan) -> PackedResult:
+        sums = packed_sums(variables, tx, ty, tm, sampled_rows, weights_pos, orders, plan)
+        denom = max(sums.total, 1e-12)
+        agg = {k: (a / denom).to(variables[k].dtype) for k, a in sums.acc.items()}
+        return PackedResult(agg, sums.loss_sum / denom, sums.extras, sums.total)
+
+    packed_train.sums = packed_sums
     packed_train.lanes = cache      # L -> its lane-stacked model and per-lane state
     return packed_train
+
+
+# -- cross-silo mesh form ------------------------------------------------------
+
+def mesh_member_active(plan: PackPlan, n_devices: int, active_perm: np.ndarray) -> np.ndarray:
+    """Per-(lane, member) activity for the mesh plan, whose ``member_pos``
+    index local rows of each rank's client block and whose lane axis is
+    rank-major ``[D * lanes_dev]``. ``active_perm``: per-client {0,1} in
+    plan (rank-major ``perm``) order."""
+    ap = np.asarray(active_perm, np.float32)
+    D = int(n_devices)
+    rows = ap.reshape(D, -1)                       # [D, clients_per_rank]
+    lanes_dev = plan.n_lanes // D
+    dev = np.repeat(np.arange(D), lanes_dev)       # lane -> rank
+    return rows[dev[:, None], plan.member_pos.astype(np.int64)]
+
+
+def pad_plan(plan: PackPlan, T: int, k_max: int, n_lanes: int) -> PackPlan:
+    """A plan padded to shared ``(n_lanes, k_max, T)``: the extra steps,
+    members and lanes are dead (live 0, member_valid 0)."""
+
+    def pad2(a, rows, cols, fill=0):
+        out = np.full((rows, cols), fill, a.dtype)
+        out[: a.shape[0], : a.shape[1]] = a
+        return out
+
+    return PackPlan(
+        n_lanes, k_max, T, plan.epochs,
+        pad2(plan.slot, n_lanes, T), pad2(plan.epoch, n_lanes, T),
+        pad2(plan.sie, n_lanes, T), pad2(plan.reset, n_lanes, T),
+        pad2(plan.emit, n_lanes, T), pad2(plan.live, n_lanes, T),
+        pad2(plan.member_pos, n_lanes, k_max),
+        pad2(plan.member_valid, n_lanes, k_max),
+        pad2(plan.steps_real, n_lanes, k_max, fill=1),
+    )
+
+
+def plan_packing_mesh(counts: np.ndarray, batch_size: int, epochs: int, n_devices: int,
+                      lanes_per_device: int, t_quantum: int = 1):
+    """Mesh packing (bit-equal to the JAX package's): deal the clients to
+    ranks by capacity-constrained LPT (the biggest client first, to the
+    least-loaded rank with a free row), pack each rank's clients into its
+    own lanes, and pad every rank's plan to shared shapes.
+
+    Returns ``(perm, plan)`` or None: ``perm`` is the rank-major client
+    order (rank d's block = ``perm[d*L:(d+1)*L]``); the plan's lane axis is
+    rank-major ``[D*lanes_dev, ...]`` and its ``member_pos`` index local
+    rows of a rank's block."""
+    counts = np.asarray(counts, np.float64)
+    C = len(counts)
+    D = int(n_devices)
+    if C % D or C // D < 1:
+        return None
+    L = C // D
+    cost = epochs * np.ceil(np.maximum(counts, 0.0) / batch_size)
+    order = np.argsort(-cost, kind="stable")
+    loads = np.zeros(D)
+    dev_clients = [[] for _ in range(D)]
+    for j in order:
+        free = [d for d in range(D) if len(dev_clients[d]) < L]
+        d = min(free, key=lambda i: loads[i])
+        dev_clients[d].append(int(j))
+        loads[d] += cost[j]
+    dev_clients = [np.asarray(m, np.int64) for m in dev_clients]
+    plans = []
+    for d in range(D):
+        p = plan_packing(counts[dev_clients[d]], batch_size, epochs, lanes_per_device,
+                         t_quantum=t_quantum)
+        if p is None:
+            return None
+        plans.append(p)
+    T = max(p.T for p in plans)
+    k_max = max(p.k_max for p in plans)
+    n_lanes_dev = max(p.n_lanes for p in plans)
+    plans = [pad_plan(p, T, k_max, n_lanes_dev) for p in plans]
+
+    def cat(field):
+        return np.concatenate([getattr(p, field) for p in plans], axis=0)
+
+    plan = PackPlan(D * n_lanes_dev, k_max, T, epochs,
+                    cat("slot"), cat("epoch"), cat("sie"), cat("reset"), cat("emit"),
+                    cat("live"), cat("member_pos"), cat("member_valid"), cat("steps_real"))
+    return np.concatenate(dev_clients), plan
+
+
+def rank_plan(plan: PackPlan, world_size: int, rank: int) -> PackPlan:
+    """Rank ``rank``'s lanes of a mesh plan (its block of the lane axis)."""
+    n = plan.n_lanes // world_size
+    rows = slice(rank * n, (rank + 1) * n)
+    return PackPlan(n, plan.k_max, plan.T, plan.epochs,
+                    *(a[rows] for a in plan_arrays_tuple(plan)))
+
+
+def make_crosssilo_packed_round(bundle: ModelBundle, task: Task, n_pad: int, mesh, *,
+                                client_transform: Optional[Callable] = None,
+                                reduce_extras: Optional[Callable] = None,
+                                server_update: Optional[Callable] = None,
+                                **lane_kwargs) -> Callable:
+    """The mesh form of the packed schedule: each rank runs its lanes
+    (``make_packed_cohort_train``'s lane program, the simulation round's)
+    over its block of the clients, then one all-reduce of the emitted
+    accumulators, the loss sum and the extras, and
+    ``apply_server_and_rollback`` (``crosssilo.mesh_finish``).
+
+    Returns ``round_fn(variables, server_state, tx, ty, tm, weights, orders,
+    plan, total) -> (variables, server_state, loss)``: ``tx/ty/tm`` this
+    rank's block of the clients in plan order (``perm``) on its device,
+    ``weights`` [block] their aggregation weights, ``orders`` [block,
+    epochs, n_pad] their per-epoch orders (each client's by its original
+    index), ``plan`` this rank's lanes (:func:`rank_plan`), ``total`` the
+    total weight over every rank, known on the host. ``round_fn.lanes`` is
+    the lane program (its ``.lanes`` cache)."""
+    lanes_fn = make_packed_cohort_train(bundle, task, n_pad, client_transform=client_transform,
+                                        reduce_extras=reduce_extras, **lane_kwargs)
+
+    def round_fn(variables, server_state, tx, ty, tm, weights, orders, plan, total: float):
+        sums = lanes_fn.sums(variables, tx, ty, tm, np.arange(tx.shape[0]), weights, orders,
+                             plan)
+        return mesh_finish(mesh, variables, sums.acc, sums.loss_sum, sums.extras, total,
+                           server_state, server_update)
+
+    round_fn.lanes = lanes_fn
+    return round_fn

@@ -160,6 +160,65 @@ def test_a_cpu_step_program_runs_its_body():
     assert len(calls) == 2 and prog.graph is None and prog.replays == 0
 
 
+def test_capture_collects_cycles_first_and_keeps_the_collector_off(monkeypatch):
+    """A dead trainer's graphs sit in reference cycles; one destroyed by
+    the cyclic collector while a capture is under way invalidates that
+    capture (seen on the H100 in a run of chip_smoke.py). ``_capture``
+    collects the cycles before it begins and keeps the collector off until
+    it ends; here with stand-ins for the CUDA stream and graph."""
+    import contextlib
+    import gc
+
+    from fedml_tpu_torch.parallel import capture
+
+    events, capturing = [], [False]
+
+    class Dead:            # cyclic garbage that records when it is collected
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            events.append(("collected while capturing", capturing[0]))
+
+    class Graph:
+        def __init__(self, keep_graph=False):
+            pass
+
+        def instantiate(self):
+            pass
+
+    class GraphCapture:
+        def __init__(self, graph, stream=None):
+            pass
+
+        def __enter__(self):
+            capturing[0] = True
+            events.append(("collector on while capturing", gc.isenabled()))
+
+        def __exit__(self, *exc):
+            capturing[0] = False
+
+    class Stream:
+        def __init__(self, device=None):
+            pass
+
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(capture.torch.cuda, "Stream", Stream)
+    monkeypatch.setattr(capture.torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(capture.torch.cuda, "current_stream", lambda device=None: Stream())
+    monkeypatch.setattr(capture.torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(capture.torch.cuda, "graph", GraphCapture)
+    was_on = gc.isenabled()
+    Dead()
+    x = torch.zeros(2)
+    prog = CapturedStep(lambda t: t + 1, [x], lambda: [x])
+    prog._capture()
+    assert events == [("collected while capturing", False), ("collector on while capturing", False)]
+    assert gc.isenabled() == was_on and torch.equal(prog.output, torch.ones(2))
+
+
 CASES = {"fedavg": (FedAvgAPI, JaxFedAvgAPI, {}),
          "fedprox": (FedProxAPI, JaxFedProxAPI, dict(fedprox_mu=0.5)),
          "fedavg-clip": (FedAvgAPI, JaxFedAvgAPI, dict(grad_clip=0.5))}

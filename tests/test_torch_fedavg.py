@@ -164,9 +164,21 @@ def test_async_rounds_return_a_device_scalar_and_train_runs():
 @pytest.mark.parametrize("field,value", [("packed_conv", "grouped"), ("failure_prob", 0.1),
                                          ("stream_aggregate", "deterministic")])
 def test_unported_schedules_raise(field, value):
+    """The unported schedules raise. ``failure_prob`` is ported now (the
+    elastic rounds): its case trains a round in which failed clients
+    aggregate with weight 0 (tests/test_torch_crosssilo.py holds the
+    rounds to the JAX package's)."""
     ds = make_synthetic_classification(**DATA)
-    with pytest.raises(NotImplementedError):
-        FedAvgAPI(ds, FedConfig(**{**RUN, field: value}), device="cpu")
+    cfg = FedConfig(**{**RUN, field: value})
+    if field != "failure_prob":
+        with pytest.raises(NotImplementedError):
+            FedAvgAPI(ds, cfg, device="cpu")
+        return
+    bundle = ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16), bn_impl="pallas"),
+                         (8, 8, 3))
+    api = FedAvgAPI(ds, cfg, bundle, device="cpu")
+    assert np.isfinite(api.run_round(0))
+    assert len(api.history["failed_clients"]) == 1
 
 
 def test_entry_points_default_to_cuda():

@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``fedml_tpu_torch``, nor
-``chip_smoke.py`` or the port's tools (``tools/torch_*.py``), imports JAX, flax, optax or the JAX package, and the
-package's modules import without a GPU, nvcc or triton."""
+``chip_smoke.py``, the port's tools (``tools/torch_*.py``) or the rank
+that ``tests/test_torch_crosssilo.py`` spawns, imports JAX, flax, optax or
+the JAX package, and the package's modules import without a GPU, nvcc or
+triton."""
 
 import ast
 import importlib
@@ -11,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedml_tpu")
 FILES = (sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-         + sorted((ROOT / "tools").glob("torch_*.py")))
+         + sorted((ROOT / "tools").glob("torch_*.py"))
+         + [ROOT / "tests" / "torch_crosssilo_ranks.py"])
 
 
 def _imported_roots(path: Path):

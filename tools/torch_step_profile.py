@@ -5,7 +5,9 @@ momentum 0.9, the synthetic CIFAR-10-shaped non-IID data of chip_smoke.py).
 
     python3 tools/torch_step_profile.py [--client 0]
 
-Trains one client once to warm up, then again under ``torch.profiler`` and
+Trains one client once to warm up, then again under ``torch.profiler``, in
+a window opened by ``chip_smoke.profiled`` (sentinel launches and idle
+before the work, and profiled again if the work lost device records), and
 reports: wall time per live step (host clock, ending in a sync, taken on
 an unprofiled repeat), the device's busy share (device time over that
 wall),
@@ -49,12 +51,12 @@ def main() -> int:
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("torch_step_profile: needs one GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from chip_smoke import profiled
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
     from fedml_tpu_torch.core.config import FedConfig
     from fedml_tpu_torch.data.synthetic import make_synthetic_classification
@@ -81,18 +83,14 @@ def main() -> int:
 
     run()                                  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    prof, events = profiled(run, "torch_step_profile")
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall_unprofiled_s = time.perf_counter() - t0
 
     intervals, by_family, n_kernels = [], defaultdict(float), 0
-    for e in prof.events():
+    for e in events:
         if e.device_type != DeviceType.CUDA:
             continue
         n_kernels += 1
@@ -113,7 +111,7 @@ def main() -> int:
     dev_total = sum(by_family.values())
     rec = {
         "device": torch.cuda.get_device_name(0), "client": c, "records": count,
-        "live_steps": steps, "wall_s_profiled": wall_s, "wall_s": wall_unprofiled_s,
+        "live_steps": steps, "wall_s": wall_unprofiled_s,
         "ms_per_step": wall_unprofiled_s / steps * 1e3,
         "images_per_s": count / wall_unprofiled_s,
         "gpu_activities": n_kernels, "activities_per_step": n_kernels / steps,
