@@ -54,6 +54,24 @@ Phases (any failure raises and the script exits non-zero):
    packed mesh round at 8 silos under a world-size-1 NCCL process group
    (``file://`` store in a temporary directory) bit-identical to the
    group-less round, its all-reduce profiled and timed.
+4e. The cross-device paradigm. (a) The flagship's host round
+   (``device_data="off"``) streamed in chunks of 4 clients (2 a round),
+   packed in 2 lanes, bf16 through K1/K2: the pipeline off, at depth 2, and
+   at depth 2 under the speed policy with the population's count prior
+   (its cohorts equal to the CPU ``plan_cohort``'s); a warm-up round, then
+   2 timed rounds ending in a sync; rounds/s, real images/s, the stage rows,
+   ``stream_stats``; 57 K1 + 57 K2 and one replay a packed step; the
+   pipelined rounds bit-identical to the serial ones. Then f32 ResNet-56 on
+   6 small clients: the unchunked streamed round equal to the batch host
+   round bit for bit, chunked against unchunked within rtol 1e-6 / atol
+   1e-7 (plain) and 1e-5 / 1e-6 (packed), and chunks of 4 and 1 clients
+   (a capture mid-round under a running prefetcher) pipelined equal to
+   serial. (b) bench.py's r05 basis row: ``lr`` on the 342,477-client
+   stackoverflow LR task, 50 a round, bf16, the pipeline off against depth
+   2 (3 warm-up rounds, prime, 3 timed). (c) bench.py's fedsched arms on a
+   million clients: 50 a round batched, 1,000 a round streamed in chunks of
+   250 at 4 lanes, uniform and speed. (b) and (c) run no TPU kernel. The
+   phase runs after phase 12 (see ``main``).
 5. Hold K3 (lanes 3x3 conv, also the dgrad), K4 (its wgrad) and K7 (K3's
    probe variants) against their plain versions at the lanes path's conv
    shapes at batch 64, 1 and 3 and five ragged shapes (the last takes the
@@ -96,12 +114,13 @@ Phases (any failure raises and the script exits non-zero):
    fixed batch; 8 K6 and 1 K5 per step, the loss falls; tokens/s, ms/step
    and peak memory.
 
-Every live step of phases 4, 4b, 4c, 4d, 8 and 11 is a replay of the step
+Every live step of phases 4, 4b, 4c, 4d, 4e, 8 and 11 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4d (in 4c the FedOpt-adam packed run and the client-adam plain run;
-4d's arms take their steps from the same trainers) then runs
+but 4d and 4e (in 4c the FedOpt-adam packed run and the client-adam plain
+run; 4d's arms take their steps from the same trainers; 4e's are neither
+re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
 step (``capture=False``) twice and captured once: when the eager runs
 repeat bit for bit, the captured run must too, else it may be no farther
@@ -2135,6 +2154,358 @@ def phase_train_crosssilo(smi: str) -> dict:
     return out
 
 
+# -- phase 4e: the cross-device paradigm ----------------------------------------
+
+# arm (a): the flagship's host round streamed in sub-cohort chunks of 4
+# clients (2 a round), packed in 2 lanes, with the pipeline off and at depth
+# 2, and a scheduled arm (speed policy under the population's count prior)
+XDEV_CHUNK, XDEV_DEPTH = 4, 2
+XDEV_WARM, XDEV_TIMED = 1, 2
+# arm (b), bench.py's r05 basis row (bench.py:284-391): stackoverflow LR at
+# its 342,477 clients, 50 a round; arm (c), bench.py's fedsched arms
+# (bench.py:394-): a million clients, 1,000 a round in 250-client chunks
+R05_CLIENTS, R05_COHORT, R05_ROUNDS = 342_477, 50, 3
+SCHED_CLIENTS, SCHED_COHORT, SCHED_CHUNK, SCHED_LANES, SCHED_ROUNDS = \
+    1_000_000, 1_000, 250, 4, 3
+# the f32 chunked-against-unchunked tolerances (tests/test_fedsched.py:35
+# and :337)
+STREAM_TOL = {"plain": (1e-6, 1e-7), "packed": (1e-5, 1e-6)}
+
+
+def _rounds(api, first: int, n: int, sync: bool = True) -> tuple:
+    """Rounds ``first .. first + n - 1``; ``(losses, seconds)``, the
+    seconds ending in a host sync."""
+    import torch
+
+    t = time.perf_counter()
+    losses = [api.run_round(r) for r in range(first, first + n)]
+    losses = [float(x) for x in losses]            # the host sync
+    if sync:
+        torch.cuda.synchronize()
+    return losses, time.perf_counter() - t
+
+
+def stream_steps(api, rounds) -> int:
+    """The packed steps the streamed rounds execute: each chunk's plan's
+    steps where some lane is live."""
+    from fedml_tpu_torch.parallel.packed import executed_steps, plan_packing
+
+    c = api.config
+    total = 0
+    for r in rounds:
+        sampled, _ = api._round_plan(r)
+        counts = np.asarray(api.dataset.train_counts, np.float64)[sampled]
+        for start, size in api._stream_chunk_spec(len(sampled)):
+            plan = plan_packing(counts[start:start + size], c.batch_size, c.epochs, c.pack_lanes)
+            total += 0 if plan is None else len(executed_steps(plan.live))
+    return total
+
+
+def crossdevice_flagship_arm(label: str, smi: str, init: Optional[dict] = None,
+                             **config) -> dict:
+    """One arm of (a): the flagship's host round, streamed and packed, warm-up
+    rounds, then timed rounds ending in a sync; K1/K2 at exactly 57 a packed
+    step and one replay a step over the timed rounds; the stage rows."""
+    from fedml_tpu_torch.ops import batchnorm as bn
+    from fedml_tpu_torch.utils.metrics import round_stats
+
+    tag = f"[crossdevice a {label}]"
+    c = dict(device_data="off", stream_aggregate="deterministic", cohort_chunk=XDEV_CHUNK,
+             pack_lanes=PACK_LANES, comm_round=XDEV_WARM + XDEV_TIMED, **config)
+    api = flagship_api(**c)
+    if config.get("cohort_policy", "uniform") != "uniform":
+        from fedml_tpu_torch.data.sched import plan_cohort, snapshot_from_counts
+
+        snap = snapshot_from_counts(api.dataset.train_counts)
+        api.set_cohort_profiler(snap)
+        cfg = api.config
+        for r in range(cfg.comm_round):
+            want = plan_cohort(r, cfg.client_num_in_total, cfg.client_num_per_round, cfg.seed,
+                               cfg.cohort_policy, snap)
+            if not np.array_equal(api.sample(r), want):
+                raise AssertionError(f"{tag} round {r}: cohort {api.sample(r)} is not the "
+                                     f"CPU plan_cohort's {want}")
+    if init is not None:
+        api.variables = {k: v.clone() for k, v in init.items()}
+    if not api.packed_status()["scheduled"] or api._dev_train is not None:
+        raise AssertionError(f"{tag} not a streamed packed host round: {api.packed_status()}")
+    warm, warm_s = _rounds(api, 0, XDEV_WARM)
+    api._stage_rows.clear()
+    timed = range(XDEV_WARM, XDEV_WARM + XDEV_TIMED)
+    steps = stream_steps(api, timed)
+    bn.reset_launches()
+    r0 = sum(p.replays for p in trainer_programs(api._stream_packed))
+    losses, dt = _rounds(api, XDEV_WARM, XDEV_TIMED)
+    launches = dict(bn.LAUNCHES)
+    replayed = sum(p.replays for p in trainer_programs(api._stream_packed)) - r0
+    real = sum(api.round_counts(r)[0] for r in timed)
+    rec = {"arm": label, "config": {k: v for k, v in c.items() if k != "comm_round"},
+           "cohorts": [api.sample(r).tolist() for r in timed],
+           "warmup_losses": warm, "warmup_s": warm_s, "losses": losses, "seconds": dt,
+           "rounds_per_s": XDEV_TIMED / dt, "real_images": real, "real_images_per_s": real / dt,
+           "steps": steps, "replays": replayed, "launches": launches,
+           "stage": round_stats(api._stage_rows, api.config.host_pipeline_depth),
+           "stream_stats": dict(api.stream_stats)}
+    log(f"{tag} {XDEV_TIMED} rounds in {dt:.3f} s: {rec['rounds_per_s']:.4f} rounds/s, "
+        f"{rec['real_images_per_s']:.1f} real images/s, losses {losses}; {steps} packed steps, "
+        f"{replayed} replays, launches {launches}; stages {rec['stage']}; stream "
+        f"{rec['stream_stats']}; {smi}")
+    if not all(np.isfinite(warm + losses)):
+        raise AssertionError(f"{tag} a loss is not finite: {warm + losses}")
+    for k in ("bn_fwd", "bn_bwd"):
+        if launches[k] != BNS_PER_STEP * steps:
+            raise AssertionError(f"{tag} {k} launched {launches[k]} times; expected "
+                                 f"{BNS_PER_STEP} x {steps} executed packed steps")
+    if replayed != steps:
+        raise AssertionError(f"{tag} {replayed} replays for {steps} packed steps")
+    rec["variables"] = {k: v.clone() for k, v in api.variables.items()}
+    api.close()
+    return rec
+
+
+def crossdevice_f32_gates(smi: str) -> dict:
+    """ResNet-56 at full width in f32 through K1/K2 on a small host-fed
+    federation (6 CIFAR-shaped clients of 64 records, batch 16, all six a
+    round), from one set of weights: two unchunked streamed rounds (no
+    packing) against two batch host rounds, bit for bit; one chunked round
+    against one unchunked, plain and packed, at STREAM_TOL (a deep net
+    carries one round's fold-order difference into the next many times
+    over, so the tolerance holds a round, as tests/test_fedsched.py's does
+    for ``lr`` over three); and two rounds in chunks of 4 and 1 clients
+    (round 0's second chunk captures its one-lane step while the prefetcher
+    builds round 1) at depth 2 against depth 0, bit for bit. cuDNN runs
+    its deterministic algorithms here (restored after): its default f32
+    wgrad may sum in a run-dependent order, which would part any two
+    rounds of this unstable small federation, whatever the fold did."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import create_model
+
+    ds = make_synthetic_classification("xdev-gate", (32, 32, 3), 10, 6, records_per_client=64,
+                                       partition_method="hetero", partition_alpha=0.5,
+                                       batch_size=16, seed=SEED)
+    base = dict(model="resnet56", client_num_in_total=6, client_num_per_round=6,
+                batch_size=16, epochs=1, lr=0.1, momentum=0.9, seed=SEED,
+                frequency_of_the_test=10_000, device_data="off")
+    init = None
+
+    def run(rounds: int = 1, **config):
+        nonlocal init
+        api = FedAvgAPI(ds, FedConfig(**{**base, "comm_round": rounds, **config}),
+                        create_model("resnet56", 10, input_shape=(32, 32, 3), bn_impl="pallas"))
+        if init is None:
+            init = {k: v.clone() for k, v in api.variables.items()}
+        api.variables = {k: v.clone() for k, v in init.items()}
+        losses = [float(api.run_round(r)) for r in range(api.config.comm_round)]
+        out = (losses, {k: v.clone() for k, v in api.variables.items()}, api.stream_stats)
+        api.close()
+        return out
+
+    def same(a, b, what):
+        if a[0] != b[0] or any(not torch.equal(a[1][k], b[1][k]) for k in a[1]):
+            bad = [k for k in a[1] if not torch.equal(a[1][k], b[1][k])]
+            raise AssertionError(f"[crossdevice gates] {what}: losses {a[0]} vs {b[0]}, "
+                                 f"tensors differ {bad[:6]}")
+
+    def close(a, b, what, tol):
+        rtol, atol = tol
+        np.testing.assert_allclose(a[0], b[0], rtol=rtol, atol=atol, err_msg=what)
+        return max(assert_close(f"{what} {k}", a[1][k], b[1][k], rtol, atol) for k in a[1])
+
+    stream = dict(stream_aggregate="deterministic")
+    mid = dict(stream, pack_lanes=PACK_LANES, cohort_chunk=4, client_num_per_round=5)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = run(2)
+        same(batch, run(2), "two batch host rounds")
+        same(batch, run(2, **stream), "the unchunked streamed rounds against the batch host rounds")
+        unchunked = run(**stream)
+        err = {"plain": close(run(**stream, cohort_chunk=3), unchunked,
+                              "chunked against unchunked (plain)", STREAM_TOL["plain"])}
+        packed_one = run(**stream, pack_lanes=PACK_LANES)
+        err["packed"] = close(run(**stream, pack_lanes=PACK_LANES, cohort_chunk=3), packed_one,
+                              "chunked against unchunked (packed)", STREAM_TOL["packed"])
+        serial = run(2, **mid)
+        same(serial, run(2, **mid, host_pipeline_depth=XDEV_DEPTH),
+             "chunks of 4 and 1 at depth 2 against depth 0")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[crossdevice gates] f32 ResNet-56 on the card: unchunked stream == batch host round "
+        f"bit for bit; chunked vs unchunked max |err| {err} (tolerances {STREAM_TOL}); chunks "
+        f"4+1 pipelined == serial bit for bit; {smi}")
+    return {"stream_equals_batch": True, "pipelined_equals_serial": True,
+            "chunked_max_abs_err": err, "tolerance": STREAM_TOL, "losses_batch": batch[0],
+            "losses_unchunked": unchunked[0], "losses_packed": packed_one[0],
+            "losses_chunks_4_1": serial[0]}
+
+
+def r05_basis_arm(smi: str) -> dict:
+    """(b) bench.py's r05 basis row: ``lr`` on the 342,477-client
+    stackoverflow LR task, 50 a round, bf16, async rounds, the pipeline off
+    against depth 2: 3 warm-up rounds, ``prime(1, wait=True)``, 3 timed
+    rounds. No TPU kernel runs on this path."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.crossdevice import load_stackoverflow_lr_full
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.utils.metrics import round_stats
+
+    t0 = time.perf_counter()
+    ds = load_stackoverflow_lr_full(client_num_in_total=R05_CLIENTS, batch_size=10)
+    setup_s = time.perf_counter() - t0
+
+    def measure(depth: int) -> dict:
+        cfg = FedConfig(model="lr", dataset="stackoverflow_lr", client_num_in_total=R05_CLIENTS,
+                        client_num_per_round=R05_COHORT, comm_round=R05_ROUNDS, batch_size=10,
+                        epochs=1, lr=0.05, seed=SEED, frequency_of_the_test=10_000,
+                        dtype="bfloat16", async_rounds=True, host_pipeline_depth=depth)
+        api = FedAvgAPI(ds, cfg, create_model("lr", ds.class_num,
+                                              input_shape=ds.train_x.shape[2:]))
+        warm, _ = _rounds(api, 1, R05_ROUNDS)
+        api._stage_rows.clear()
+        ds.materialized_rows = 0
+        pf = api._host_prefetcher()
+        if pf is not None:
+            pf.prime(1, wait=True)
+        r0 = replays(api)
+        losses, dt = _rounds(api, 1, R05_ROUNDS)
+        real = sum(api.round_counts(r)[0] for r in range(1, R05_ROUNDS + 1))
+        row = {"depth": depth, "rounds_per_s": R05_ROUNDS / dt,
+               "clients_per_s": R05_ROUNDS * R05_COHORT / dt, "examples_per_s": real / dt,
+               "seconds": dt, "materialized_rows": int(ds.materialized_rows),
+               "replays": replays(api) - r0, "losses": losses, "warmup_losses": warm,
+               "stage": round_stats(api._stage_rows, depth),
+               "on_card": all(v.is_cuda for v in api.variables.values())}
+        api.close()
+        if not (row["on_card"] and row["replays"] > 0 and np.isfinite(warm + losses).all()):
+            raise AssertionError(f"[crossdevice b] depth {depth}: {row}")
+        return row
+
+    off, on = measure(0), measure(XDEV_DEPTH)
+    rec = {"clients_total": R05_CLIENTS, "clients_per_round": R05_COHORT,
+           "dataset_setup_s": setup_s, "off": off, "on": on,
+           "speedup": on["rounds_per_s"] / off["rounds_per_s"]}
+    for row in (off, on):
+        log(f"[crossdevice b] r05 basis (lr, no TPU kernel on this path), depth "
+            f"{row['depth']}: {row['rounds_per_s']:.4f} rounds/s, {row['clients_per_s']:.2f} "
+            f"clients/s, {row['examples_per_s']:.1f} examples/s, {row['materialized_rows']} "
+            f"materialized rows, stages {row['stage']}; {smi}")
+    log(f"[crossdevice b] pipeline speed-up {rec['speedup']:.3f}x; {smi}")
+    return rec
+
+
+def fedsched_arms(smi: str) -> dict:
+    """(c) bench.py's fedsched arms on a million-client synthetic
+    federation: ``cohort50_batch``, ``streamed_uniform`` (1,000 a round in
+    chunks of 250, 4 lanes) and ``streamed_speed`` (the same under the
+    population's count prior). 3 warm-up rounds, then 3 timed rounds. No
+    TPU kernel runs on this path."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.crossdevice import make_synthetic_crossdevice
+    from fedml_tpu_torch.data.sched import snapshot_from_counts
+    from fedml_tpu_torch.models import create_model
+
+    t0 = time.perf_counter()
+    ds = make_synthetic_crossdevice("xdev-sched", 1024, 32, SCHED_CLIENTS, batch_size=8,
+                                    mean_records=12.0, max_records=96, seed=SEED)
+    setup_s = time.perf_counter() - t0
+
+    def measure(label, cohort, policy="uniform", streaming=False, snapshot=None) -> dict:
+        cfg = FedConfig(model="lr", dataset="xdev-sched", client_num_in_total=SCHED_CLIENTS,
+                        client_num_per_round=cohort, comm_round=SCHED_ROUNDS, batch_size=8,
+                        epochs=1, lr=0.1, seed=SEED, frequency_of_the_test=10_000,
+                        async_rounds=True, cohort_policy=policy,
+                        stream_aggregate="deterministic" if streaming else "off",
+                        cohort_chunk=SCHED_CHUNK if streaming else 0,
+                        pack_lanes=SCHED_LANES if streaming else 0)
+        api = FedAvgAPI(ds, cfg, create_model("lr", ds.class_num, input_shape=(1024,)))
+        if snapshot is not None:
+            api.set_cohort_profiler(snapshot)
+        warm, _ = _rounds(api, 1, SCHED_ROUNDS)
+        trainer = api._stream_packed if streaming else api._local_train
+        r0 = sum(p.replays for p in trainer_programs(trainer))
+        losses, dt = _rounds(api, 1, SCHED_ROUNDS)
+        real = sum(api.round_counts(r)[0] for r in range(1, SCHED_ROUNDS + 1))
+        row = {"arm": label, "clients_per_round": cohort, "policy": policy,
+               "rounds_per_s": SCHED_ROUNDS / dt, "clients_per_s": SCHED_ROUNDS * cohort / dt,
+               "examples_per_s": real / dt, "seconds": dt, "losses": losses,
+               "replays": sum(p.replays for p in trainer_programs(trainer)) - r0,
+               "stream": None if api.stream_stats is None else dict(api.stream_stats)}
+        api.close()
+        if not (row["replays"] > 0 and np.isfinite(warm + losses).all()):
+            raise AssertionError(f"[crossdevice c] {label}: {row}")
+        log(f"[crossdevice c] {label} (lr, no TPU kernel on this path): "
+            f"{row['clients_per_s']:.2f} clients/s, {row['examples_per_s']:.1f} examples/s, "
+            f"{row['rounds_per_s']:.4f} rounds/s; stream {row['stream']}; {smi}")
+        return row
+
+    basis = measure("cohort50_batch", 50)
+    uniform = measure("streamed_uniform", SCHED_COHORT, streaming=True)
+    speed = measure("streamed_speed", SCHED_COHORT, "speed", True,
+                    snapshot_from_counts(ds.train_counts, 1.0))
+    model_bytes = (1024 * 32 + 32) * 4 + 8
+    for row in (uniform, speed):
+        if row["stream"]["accumulator_bytes"] != model_bytes or row["stream"]["chunks"] != 4:
+            raise AssertionError(f"[crossdevice c] {row['arm']}: stream {row['stream']}, "
+                                 f"expected 4 chunks and {model_bytes} accumulator bytes")
+    return {"clients_total": SCHED_CLIENTS, "dataset_setup_s": setup_s,
+            "arms": [basis, uniform, speed],
+            "policy_uplift_clients_per_s": speed["clients_per_s"] / uniform["clients_per_s"],
+            "accumulator_bytes": model_bytes}
+
+
+def phase_train_crossdevice(smi: str) -> dict:
+    """Phase 4e: (a) the flagship's streamed and packed host round through
+    K1/K2, the pipeline at depth 0 and 2 and the speed policy at depth 2,
+    with the f32 gates; (b) bench.py's r05 basis row; (c) its fedsched
+    arms."""
+    import gc
+
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"arms": {}}
+    launches = {"bn_fwd": 0, "bn_bwd": 0}
+    serial = crossdevice_flagship_arm("depth-0", smi)
+    free()
+    piped = crossdevice_flagship_arm(f"depth-{XDEV_DEPTH}", smi, init=None,
+                                     host_pipeline_depth=XDEV_DEPTH)
+    free()
+    differ = [k for k in serial["variables"]
+              if not torch.equal(serial["variables"][k], piped["variables"][k])]
+    if differ or serial["losses"] != piped["losses"]:
+        raise AssertionError(f"[crossdevice a] the pipelined rounds differ from the serial ones: "
+                             f"losses {piped['losses']} vs {serial['losses']}, tensors "
+                             f"{differ[:6]}")
+    speed = crossdevice_flagship_arm(f"speed-depth-{XDEV_DEPTH}", smi,
+                                     host_pipeline_depth=XDEV_DEPTH, cohort_policy="speed")
+    free()
+    for rec in (serial, piped, speed):
+        rec.pop("variables")
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        out["arms"][rec["arm"]] = rec
+    out["pipeline_speedup"] = piped["rounds_per_s"] / serial["rounds_per_s"]
+    log(f"[crossdevice a] the pipelined rounds equal the serial rounds bit for bit; pipeline "
+        f"speed-up {out['pipeline_speedup']:.3f}x; {smi}")
+    out["f32_gates"] = crossdevice_f32_gates(smi)
+    free()
+    out["r05_basis"] = r05_basis_arm(smi)
+    free()
+    out["fedsched"] = fedsched_arms(smi)
+    free()
+    out["launches"] = launches
+    return out
+
+
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
                     ) -> tuple[float, float, int]:
     """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
@@ -2571,6 +2942,11 @@ def main() -> int:
     lm_timing = timed("time_lm", phase_time_lm, sm_clock_mhz)
     train_lm = timed("train_lm_fedavg", phase_train_lm_fedavg, smi)
     lm_step = timed("train_lm_step", phase_train_lm_step, smi)
+    # phase 4e runs last: run after phase 4d, it left every later
+    # torch.profiler window without its first 17 device records on the card
+    # (more than the sentinels absorb; short runs of the same rounds did
+    # not), and phase 4e profiles nothing
+    crossdevice = timed("train_crossdevice", phase_train_crossdevice, smi)
     err.update(conv_err)
     err.update(lm_err)
 
@@ -2596,13 +2972,14 @@ def main() -> int:
         if name.startswith("bn"):
             rows, b_ms, b_by = bn_step(timing, name)
             source = "batchnorm.cu"
-            # the BN path's 2 rounds, the packed flagship's, the zoo's and
-            # the cross-silo arms' timed rounds, each counted from 0 just
-            # before it
+            # the BN path's 2 rounds, the packed flagship's, the zoo's, the
+            # cross-silo arms' and the cross-device flagship arms' timed
+            # rounds, each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
-                       "crosssilo": crosssilo["launches"][name]}
+                       "crosssilo": crosssilo["launches"][name],
+                       "crossdevice": crossdevice["launches"][name]}
             launches = sum(by_path.values())
             prows, pb_ms, pb_by = bn_step(timing_packed, name)
             extra = {"launches_by_path": by_path, "packed": {
@@ -2682,7 +3059,7 @@ def main() -> int:
         "phase_seconds": seconds,
         "check_cases": cases, "small_model_rel_err": model_err, "timing": timing,
         "timing_packed": timing_packed, "train": train, "train_packed": train_packed,
-        "train_zoo": zoo, "train_crosssilo": crosssilo,
+        "train_zoo": zoo, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

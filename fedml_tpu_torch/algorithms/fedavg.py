@@ -2,11 +2,38 @@
 ``fedml_tpu/algorithms/fedavg.py:FedAvgAPI``: the plain round and the
 packed round).
 
-Each round samples a cohort (numpy, bit-equal to the JAX package), trains
-it from the global state on the device, and takes the sample-weighted mean
+Each round samples a cohort (``data/sched.CohortScheduler``; numpy,
+bit-equal to the JAX package under every ``cohort_policy``), trains it
+from the global state on the device, and takes the sample-weighted mean
 of the clients' state dicts, BatchNorm running statistics included. The
 stacked client dataset is placed on the device once (unless
-``device_data="off"``), as ``_maybe_place_train_data`` does.
+``device_data="off"``, over the byte budget, or a virtual cross-device
+dataset, ``data/crossdevice.py``), as ``_maybe_place_train_data`` does.
+
+The host round (data not on the device) ships each round's cohort: the
+sampled clients materialized on the host, their record axis cut to the
+round's bucket (the live cohort's largest count rounded up to
+``bucket_quantum_batches`` batches, ``_round_bucket``; each client's
+per-epoch orders permute the cut axis, as the JAX package's do), cast to
+bf16 on the host when training in bf16, and copied to the device
+(``data/pipeline.ship``). With ``host_pipeline_depth > 0`` a
+``CohortPrefetcher`` builds the next rounds on background threads while
+the current one trains; the inputs are the serial path's, so the rounds
+are bit-identical.
+
+Streamed rounds (``stream_aggregate``, host rounds only): the cohort trains
+in sub-cohort chunks of ``cohort_chunk`` clients, each folded into one f32
+model-shaped accumulator as it finishes (``_run_streaming_round``), so the
+server holds one model sum whatever the cohort's size. A plain chunk trains
+its clients on the bucket-cut axis and adds ``sum_j w_j * vars_j`` with the
+round's normalized weights (``counts / sum(counts)`` over the whole live
+cohort, known from the plan), the batch round's own arithmetic
+(``core/pytree.weighted_sum``): one chunk is the batch round bit for bit.
+With ``pack_lanes > 0`` a chunk runs the packing schedule over its clients
+on the full record axis and adds its unnormalized lane sums, divided by the
+total weight at the end. A chunk's client at position j takes the orders of
+its position in the whole cohort. Both fold modes fold the chunks in plan
+order. The prefetcher's depth then counts chunks.
 
 The plain round trains the cohort client by client. With ``pack_lanes > 0``
 and the data on the device the round runs the packing schedule
@@ -43,17 +70,18 @@ ranks of a ``torch.distributed`` process group (``parallel/mesh.py``), the
 aggregate one all-reduce (``parallel/crosssilo.py``).
 
 Not ported yet, and refused with ``NotImplementedError``: the joint packed
-lowerings (``packed_conv`` other than ``"off"``), streaming aggregation and
-the cross-silo super-step (``rounds_per_step > 1``). The simulation
-paradigm's bucketed and grouped schedules are not needed: running only
-each client's live steps (parallel/local.py) already skips the padding
-they trim.
+lowerings (``packed_conv`` other than ``"off"``) and the cross-silo
+super-step (``rounds_per_step > 1``). On data placed on the device the
+simulation paradigm's bucket cut and grouped schedule are not needed:
+running only each client's live steps (parallel/local.py) already skips
+the padding they trim (the orders there permute the whole n_pad).
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from collections import deque
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
@@ -62,10 +90,12 @@ import torch
 from fedml_tpu_torch import default_device
 from fedml_tpu_torch.core.aggregation import fedavg_aggregate
 from fedml_tpu_torch.core.config import FedConfig
-from fedml_tpu_torch.core.pytree import tree_stack
-from fedml_tpu_torch.core.rng import client_generator, sample_clients
+from fedml_tpu_torch.core.pytree import tree_stack, weighted_sum
+from fedml_tpu_torch.core.rng import client_generator
 from fedml_tpu_torch.core.tasks import get_task
 from fedml_tpu_torch.data import FedDataset
+from fedml_tpu_torch.data.pipeline import CohortPrefetcher, materialize_cohort, receive, ship
+from fedml_tpu_torch.data.sched import CohortScheduler
 from fedml_tpu_torch.models import ModelBundle, create_model
 from fedml_tpu_torch.parallel.crosssilo import (SiloWork, apply_server_and_rollback,
                                                 make_crosssilo_round)
@@ -77,6 +107,7 @@ from fedml_tpu_torch.parallel.packed import (PackedResult, PackPlan, executed_st
                                              make_packed_cohort_train, mask_plan,
                                              mesh_member_active, plan_packing,
                                              plan_packing_mesh, rank_plan)
+from fedml_tpu_torch.utils.dtypes import host_bf16_cast
 
 log = logging.getLogger(__name__)
 
@@ -122,8 +153,6 @@ class FedAvgAPI:
         if config.packed_conv != "off":
             raise NotImplementedError(f"packed_conv={config.packed_conv!r}: the joint packed "
                                       "lowerings are not ported yet (packed_conv='off' is)")
-        if config.stream_aggregate != "off":
-            raise NotImplementedError("stream_aggregate: streaming rounds are not ported yet")
         self.device = default_device(device)
         self.dataset = dataset
         self.config = config
@@ -138,11 +167,26 @@ class FedAvgAPI:
         self._local_train = self.build_local_train()
         self._eval = make_eval_fn(self.bundle, self.task)
         self._dev_train = self._maybe_place_train_data()
+        self._n_total = min(config.client_num_in_total, dataset.num_clients)
+        self._cohort = min(config.client_num_per_round, dataset.num_clients)
+        #: the one owner of per-round sampling (uniform: sample_clients)
+        self._cohort_sched = CohortScheduler(config.cohort_policy, config.seed, self._n_total,
+                                             self._cohort)
+        self._stream_mode_memo: Optional[str] = None
+        #: the last streamed round's accumulator record (None before one)
+        self.stream_stats: Optional[dict] = None
+        #: per host round: stage times for utils/metrics.round_stats
+        self._stage_rows: deque = deque(maxlen=1024)
+        self._prefetcher = self._stream_pf = self._stream_packed = None
+        # the host round's copies to the device run on a side stream
+        self._h2d_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        if self._dev_train is not None and config.stream_aggregate != "off":
+            log.warning("stream_aggregate=%r (and cohort_chunk) ignored: the dataset is on the "
+                        "device, so the round aggregates in one pass; streaming applies to the "
+                        "host round", config.stream_aggregate)
         self._packed_train = self.build_packed_train()
         self._packed_plan_memo = None
         self._dev_test = None
-        self._n_total = min(config.client_num_in_total, dataset.num_clients)
-        self._cohort = min(config.client_num_per_round, dataset.num_clients)
         self.history: dict[str, list] = {"round": [], "Test/Acc": [], "Test/Loss": []}
 
     def _to_device(self, x: np.ndarray, y: np.ndarray, mask: np.ndarray, cast: bool = True):
@@ -160,6 +204,14 @@ class FedAvgAPI:
         (``shard_factor`` ranks; ``slots_fraction`` of the record axis kept)
         fit ``device_data_max_bytes``, train_x counted in the compute dtype."""
         c, ds = self.config, self.dataset
+        if getattr(ds, "virtual", False):
+            # cross-device scale: the client stack does not exist; rounds
+            # materialize their cohorts on the host (data/crossdevice.py)
+            if c.device_data == "on":
+                log.warning("device_data='on' ignored: %s is a virtual cross-device dataset "
+                            "(%d clients); using the sampled host round", ds.name,
+                            ds.num_clients)
+            return False
         if c.device_data != "auto":
             return c.device_data == "on"
         x = ds.train_x
@@ -236,9 +288,11 @@ class FedAvgAPI:
         if hooks is None:
             return None
         if self._dev_train is None:
-            log.warning("pack_lanes=%d: the packed schedule runs on data placed on the device; "
-                        "with device_data='off' every round runs the plain schedule",
-                        c.pack_lanes)
+            if not self._stream_packed_active():
+                log.warning("pack_lanes=%d: the packed schedule runs on data placed on the "
+                            "device, or on streamed chunks; with device_data='off' and "
+                            "stream_aggregate='off' every round runs the plain schedule",
+                            c.pack_lanes)
             return None
         self._server_update = hooks.get("server_update")
         return make_packed_cohort_train(
@@ -254,7 +308,8 @@ class FedAvgAPI:
         if self._packing_hooks() is None:
             return {"scheduled": False, "packed_conv_active": False,
                     "reason": f"{type(self).__name__} has no packed-lane algorithm mirror"}
-        if self._packed_train is None:
+        if self._packed_train is None and not (self._dev_train is None
+                                               and self._stream_packed_active()):
             return {"scheduled": False, "packed_conv_active": False, "reason": "device_data=off"}
         return {"scheduled": True, "packed_conv_active": False, "reason": "packed_conv=off"}
 
@@ -361,31 +416,79 @@ class FedAvgAPI:
                                   self._round_orders(round_idx, len(sampled)), plan)
 
     def sample(self, round_idx: int) -> np.ndarray:
-        return sample_clients(round_idx, self._n_total, self._cohort, self.config.seed)
+        return self._cohort_sched.sample(round_idx)
+
+    def set_cohort_profiler(self, source) -> None:
+        """Freeze the cohort scheduler's signal to ``source`` (a
+        ``data/sched.ProfileSnapshot`` or an object with ``snapshot()``;
+        None clears it): every plan then derives from that one snapshot,
+        whatever the pipeline's depth."""
+        self._cohort_sched.set_static_profile(source)
+
+    def _round_bucket(self, sampled: np.ndarray, live: Optional[np.ndarray]) -> Optional[int]:
+        """The host round's record axis (bit-equal to the JAX package's): the
+        live cohort's largest count rounded up to the quantum
+        ``bucket_quantum_batches * batch_size``, or None (the whole n_pad:
+        bucketing off, or nothing to cut)."""
+        c = self.config
+        n_pad = int(self.dataset.train_x.shape[1])
+        q = c.bucket_quantum_batches * c.batch_size
+        if c.bucket_quantum_batches <= 0 or q >= n_pad:
+            return None
+        counts = np.asarray(self.dataset.train_counts, np.float64)[sampled]
+        if live is not None:
+            counts = counts * live
+        maxc = float(counts.max()) if counts.size else 0.0
+        bucket = int(np.ceil(max(maxc, 1.0) / q) * q)
+        return None if bucket >= n_pad else bucket
 
     def round_counts(self, round_idx: int) -> tuple:
         """(real, executed) training examples one epoch of this round
         processes: the live cohort's real record counts (failed and exited
         clients excluded, as in the JAX package), and the batch slots the
         live steps execute (padding in each client's last batch included;
-        a failed client still trains). Packed: every lane of every executed
-        step of the (masked) plan, one epoch's share rounded to the nearest
-        step."""
+        a failed client still trains). Packed, and streamed packed chunks:
+        every lane of every executed step of the plans, one epoch's share
+        rounded to the nearest step."""
+        c = self.config
         sampled, live = self._round_plan(round_idx)
         counts = np.asarray(self.dataset.train_counts, np.int64)[sampled]
         real = int(counts.sum() if live is None else (counts * live).sum())
-        bs = self.config.batch_size
+        bs, ep = c.batch_size, max(c.epochs, 1)
         if self._packed_train is not None:
             plan = self._masked_packed_plan(sampled, live)
             if plan is not None:
                 slots = plan.n_lanes * len(executed_steps(plan.live))
-                return real, int(round(slots / max(self.config.epochs, 1)) * bs)
+                return real, int(round(slots / ep) * bs)
+        if self._dev_train is None and self._stream_packed_active():
+            padded = 0
+            for start, size in self._stream_chunk_spec(len(sampled)):
+                plan = plan_packing(counts[start:start + size], bs, c.epochs, c.pack_lanes)
+                if plan is not None:
+                    padded += round(plan.n_lanes * len(executed_steps(plan.live)) / ep) * bs
+            return real, int(padded)
+        if self._dev_train is None:         # the host round's axis is cut to the bucket
+            bucket = self._round_bucket(sampled, live)
+            if bucket is not None:
+                counts = np.minimum(counts, bucket)
         return real, _live_slots(counts, bs)
 
     def run_round(self, round_idx: int) -> "float | torch.Tensor":
         """Train one round; returns the count-weighted train loss — a float,
-        or with ``config.async_rounds`` a 0-dim device tensor (no host sync)."""
+        or with ``config.async_rounds`` a 0-dim device tensor (no host sync).
+        Every paradigm's round is ``_run_round_inner``; this wrapper then
+        feeds the cohort scheduler's round boundary."""
+        out = self._run_round_inner(round_idx)
+        if self._cohort_sched.wants_notify:
+            self._cohort_sched.notify_round_done(round_idx)
+        return out
+
+    def _run_round_inner(self, round_idx: int) -> "float | torch.Tensor":
         c = self.config
+        if self._dev_train is None:
+            if self._stream_mode() != "off":
+                return self._run_streaming_round(round_idx)
+            return self._run_host_round(round_idx)
         sampled, live = self._round_plan(round_idx, record=True)
         if self._packed_train is not None:
             out = self._run_packed_round(sampled, live, round_idx)
@@ -395,18 +498,17 @@ class FedAvgAPI:
                     None, self._server_update)
                 return out.train_loss if c.async_rounds else float(out.train_loss)
         counts = np.asarray(self.dataset.train_counts, np.int64)[sampled]
-        if self._dev_train is not None:
-            tx, ty, tm = self._dev_train
-            idx = torch.from_numpy(sampled).to(self.device)
-            cx, cy, cm = tx[idx], ty[idx], tm[idx]
-        else:
-            cx, cy, cm, _ = self.dataset.client_slice(sampled)
-            cx, cy, cm = self._to_device(cx, cy, cm)
-        orders = self._round_orders(round_idx, len(sampled))
-        results = [self._local_train(self.variables, cx[i], cy[i], cm[i], int(counts[i]),
-                                     orders=orders[i])
-                   for i in range(len(sampled))]
+        tx, ty, tm = self._dev_train
+        idx = torch.from_numpy(sampled).to(self.device)
         wn = counts.astype(np.float32) * (1.0 if live is None else live)
+        return self._plain_round(round_idx, tx[idx], ty[idx], tm[idx], counts, wn)
+
+    def _plain_round(self, round_idx: int, cx, cy, cm, counts: np.ndarray,
+                     wn: np.ndarray) -> "float | torch.Tensor":
+        """Train the cohort client by client on its device arrays ``cx/cy/cm``
+        ``[cohort, n, ...]`` (each client's orders permute the n records),
+        then ``aggregate`` with the weights ``wn`` (counts x live)."""
+        results = self._train_clients(round_idx, range(len(counts)), cx, cy, cm, counts)
         w = torch.as_tensor(wn, dtype=torch.float32, device=self.device)
         losses = torch.stack([r.train_loss for r in results])
         infos = LocalResult(tree_stack([r.variables for r in results]), losses,
@@ -415,7 +517,266 @@ class FedAvgAPI:
             self.variables, self.server_state = self.aggregate(
                 self.variables, infos.variables, w, infos, None, self.server_state)
         train_loss = (losses * w).sum() / torch.clamp(w.sum(), min=1e-12)
+        return train_loss if self.config.async_rounds else float(train_loss)
+
+    def _train_clients(self, round_idx: int, positions: range, cx, cy, cm,
+                       counts: np.ndarray) -> list:
+        """``local_train`` of each client (cohort position ``positions[j]``,
+        row j of ``cx/cy/cm``) on the round's axis ``cx.shape[1]``. A failed
+        client's records past a bucket cut are gone (the bucket covers the
+        live clients), so it trains the steps of the records it has."""
+        n = cx.shape[1]
+        orders = self._round_orders(round_idx, positions, n)
+        return [self._local_train(self.variables, cx[j], cy[j], cm[j],
+                                  min(int(counts[j]), n), orders=orders[j])
+                for j in range(len(positions))]
+
+    # -- the host round and its pipeline (data/pipeline.py) -------------------
+
+    def _host_round_inputs(self, round_idx: int, pool=None, n_chunks: int = 0, plan=None):
+        """The host round's inputs, built the one way for the serial path and the
+        prefetcher (pure in seed and round): the sampled cohort materialized
+        (fanned out on ``pool``), cut to the round's bucket, cast to bf16 on
+        the host when training in bf16. Returns ``((x, y, mask), meta)``,
+        ``meta`` the raw ``counts`` and the weights ``wn`` (counts x live).
+        ``plan`` is an already computed ``_round_plan``."""
+        sampled, live = plan if plan is not None else self._round_plan(round_idx)
+        bucket = self._round_bucket(sampled, live)
+        cx, cy, cm, counts = materialize_cohort(self.dataset, sampled, pool, n_chunks)
+        if bucket is not None:
+            cx, cy, cm = cx[:, :bucket], cy[:, :bucket], cm[:, :bucket]
+        counts = np.asarray(counts, np.int64)
+        wn = counts.astype(np.float32) * (1.0 if live is None else live)
+        return (host_bf16_cast(cx, self.config.dtype), cy, cm), {"counts": counts, "wn": wn}
+
+    def _shipped(self, build: Callable, *args):
+        """``build(*args) -> (arrays, meta)``, then the arrays copied to the
+        device: ``((shipment, meta), stages)``, ``stages`` the two host
+        stages' ms (``utils/metrics.round_stats``)."""
+        t0 = time.perf_counter()
+        arrays, meta = build(*args)
+        t1 = time.perf_counter()
+        shipment = ship(arrays, self.device, self._h2d_stream)
+        t2 = time.perf_counter()
+        return (shipment, meta), {"materialize_ms": (t1 - t0) * 1e3, "h2d_ms": (t2 - t1) * 1e3}
+
+    def _fetch(self, pf: Optional[CohortPrefetcher], key: int, build: Callable, *args):
+        """A round's (or chunk's) inputs on the device: popped from the
+        prefetcher ``pf`` by ``key``, or built in line by ``build(*args)``,
+        whose host stages are then exposed in full. Returns ``(tensors,
+        meta, stages, wait_ms)``."""
+        if pf is not None:
+            (shipment, meta), stages, wait_ms = pf.pop(key)
+        else:
+            (shipment, meta), stages = self._shipped(build, *args)
+            wait_ms = stages["materialize_ms"] + stages["h2d_ms"]
+        return receive(shipment), meta, stages, wait_ms
+
+    def _prefetch_build(self, round_idx: int, pool):
+        """The pipeline's background build of one round."""
+        return self._shipped(self._host_round_inputs, round_idx, pool,
+                             getattr(pool, "_max_workers", 0))
+
+    def _host_prefetcher(self) -> Optional[CohortPrefetcher]:
+        """The host round's prefetcher, built at the first round that needs
+        it; None when the pipeline is off or the data is on the device."""
+        c = self.config
+        if c.host_pipeline_depth <= 0 or self._dev_train is not None:
+            return None
+        if self._prefetcher is None:
+            # speculate within the schedule, train()'s rounds [0, comm_round)
+            self._prefetcher = CohortPrefetcher(self._prefetch_build, c.host_pipeline_depth,
+                                                workers=c.host_pipeline_workers,
+                                                max_round=c.comm_round)
+        return self._prefetcher
+
+    def _stage_row(self, round_idx: int, stages: dict, wait_ms: float,
+                   compute_ms: float) -> None:
+        self._stage_rows.append(dict(stages, wait_ms=wait_ms, round=round_idx,
+                                     compute_ms=compute_ms))
+
+    def _run_host_round(self, round_idx: int) -> "float | torch.Tensor":
+        """The round on the host-shipped cohort."""
+        pf = self._host_prefetcher()
+        plan = None
+        if pf is None:
+            plan = self._round_plan(round_idx, record=True)
+        else:       # the build plans the round; only the failure record runs here
+            self._sample_failures(round_idx, self._cohort, record=True)
+        (cx, cy, cm), meta, stages, wait_ms = self._fetch(pf, round_idx, self._host_round_inputs,
+                                                          round_idx, None, 0, plan)
+        t0 = time.perf_counter()
+        out = self._plain_round(round_idx, cx, cy, cm, meta["counts"], meta["wn"])
+        self._stage_row(round_idx, stages, wait_ms, (time.perf_counter() - t0) * 1e3)
+        return out
+
+    # -- streamed rounds -----------------------------------------------------------
+
+    def _stream_mode(self) -> str:
+        """The streaming mode that applies to this API: the config's, or
+        "off" (logged once) when the streaming fold cannot mirror it: it
+        rewires aggregation, carries cross-silo hooks, or rewires the local
+        trainer or the round."""
+        if self._stream_mode_memo is not None:
+            return self._stream_mode_memo
+        mode = self.config.stream_aggregate
+        cls = type(self)
+        if mode != "off" and (cls.aggregate is not FedAvgAPI.aggregate
+                              or self.crosssilo_hooks() is not None
+                              or cls.build_local_train is not FedAvgAPI.build_local_train
+                              or cls._run_round_inner is not FedAvgAPI._run_round_inner):
+            log.warning("stream_aggregate=%r ignored: %s rewires aggregation (or carries "
+                        "crosssilo hooks) or the round, which the streaming fold cannot "
+                        "mirror; using the batch path", mode, cls.__name__)
+            mode = "off"
+        self._stream_mode_memo = mode
+        return mode
+
+    def _stream_packed_active(self) -> bool:
+        """Whether streamed chunks run the packing schedule."""
+        return self.config.pack_lanes > 0 and self._stream_mode() != "off"
+
+    @property
+    def _stream_chunks_per_round(self) -> int:
+        chunk = self.config.cohort_chunk
+        return 1 if chunk <= 0 or chunk >= self._cohort else -(-self._cohort // chunk)
+
+    def _stream_chunk_spec(self, cohort_n: int) -> list:
+        """``[(start, size)]``: the sub-cohort chunks in plan order."""
+        chunk = self.config.cohort_chunk
+        if chunk <= 0 or chunk >= cohort_n:
+            return [(0, cohort_n)]
+        return [(s, min(chunk, cohort_n - s)) for s in range(0, cohort_n, chunk)]
+
+    def _stream_chunk_inputs(self, round_idx: int, ci: int, pool=None, n_chunks: int = 0):
+        """One chunk's host inputs, pure in (seed, round, chunk): its clients
+        materialized, cut to the round's bucket (plain chunks; the packing
+        schedule takes the full record axis), cast on the host, and the
+        weights: ``wn`` (counts x live) and ``w_norm``, normalized over the
+        whole live cohort in f32 as ``tree_weighted_mean`` normalizes
+        (integer-valued f32 weights, so the host sum is exact). Returns
+        ``((x, y, mask), meta)``."""
+        sampled, live = self._round_plan(round_idx)
+        start, size = self._stream_chunk_spec(len(sampled))[ci]
+        cx, cy, cm, counts = materialize_cohort(self.dataset, sampled[start:start + size],
+                                                pool, n_chunks)
+        bucket = None if self._stream_packed_active() else self._round_bucket(sampled, live)
+        if bucket is not None:
+            cx, cy, cm = cx[:, :bucket], cy[:, :bucket], cm[:, :bucket]
+        counts = np.asarray(counts, np.int64)
+        wn = counts.astype(np.float32)
+        w_full = np.asarray(self.dataset.train_counts)[sampled].astype(np.float32)
+        if live is not None:
+            lv = np.asarray(live, np.float32)
+            wn = wn * lv[start:start + size]
+            w_full = w_full * lv
+        denom = np.maximum(np.float32(w_full.sum()), np.float32(1e-12))
+        meta = {"counts": counts, "wn": wn, "w_norm": (wn / denom).astype(np.float32),
+                "start": start, "size": size}
+        return (host_bf16_cast(cx, self.config.dtype), cy, cm), meta
+
+    def _stream_prefetch_build(self, gidx: int, pool):
+        """The background build of global chunk ``gidx`` = round x chunks a
+        round + chunk, so the prefetcher holds ``depth`` chunks in flight."""
+        r, ci = divmod(gidx, self._stream_chunks_per_round)
+        return self._shipped(self._stream_chunk_inputs, r, ci, pool,
+                             getattr(pool, "_max_workers", 0))
+
+    def _stream_prefetcher(self) -> Optional[CohortPrefetcher]:
+        c = self.config
+        if c.host_pipeline_depth <= 0:
+            return None
+        if self._stream_pf is None:
+            self._stream_pf = CohortPrefetcher(
+                self._stream_prefetch_build, c.host_pipeline_depth,
+                workers=c.host_pipeline_workers,
+                max_round=c.comm_round * self._stream_chunks_per_round, name="stream-prefetch")
+        return self._stream_pf
+
+    def _stream_packed_chunk(self):
+        """The packed cohort program of streamed chunks, built at the first
+        packed chunk."""
+        if self._stream_packed is None:
+            self._stream_packed = make_packed_cohort_train(
+                self.bundle, self.task, int(self.dataset.train_x.shape[1]),
+                **self._local_train_kwargs())
+        return self._stream_packed
+
+    def _run_streaming_round(self, round_idx: int) -> "float | torch.Tensor":
+        """One host round as streamed sub-cohort chunks folded into one f32
+        accumulator (module note). Plain chunks add normalized sums, and the
+        aggregate is the sum; packed chunks add their lane sums, and the
+        aggregate is the sum over the total weight. A round whose total
+        weight is 0 keeps the weights."""
+        c = self.config
+        sampled, live = self._round_plan(round_idx, record=True)
+        spec = self._stream_chunk_spec(len(sampled))
+        n_chunks = len(spec)
+        packed = self._stream_packed_active()
+        acc = {k: torch.zeros_like(v, dtype=torch.float32) for k, v in self.variables.items()}
+        acc_w = torch.zeros((), dtype=torch.float32, device=self.device)
+        acc_loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        total = 0.0
+        pf = self._stream_prefetcher()
+        mat_ms = h2d_ms = wait_ms = compute_ms = 0.0
+        for ci in range(n_chunks):
+            (cx, cy, cm), meta, stages, w_ms = self._fetch(
+                pf, round_idx * n_chunks + ci, self._stream_chunk_inputs, round_idx, ci)
+            mat_ms += stages["materialize_ms"]
+            h2d_ms += stages["h2d_ms"]
+            wait_ms += w_ms
+            t0 = time.perf_counter()
+            start, size, counts = meta["start"], meta["size"], meta["counts"]
+            positions = range(start, start + size)
+            if packed:
+                plan = plan_packing(counts.astype(np.float64), c.batch_size, c.epochs,
+                                    c.pack_lanes)
+                if plan is not None:
+                    sums = self._stream_packed_chunk().sums(
+                        self.variables, cx, cy, cm, np.arange(size), meta["wn"],
+                        self._round_orders(round_idx, positions), plan)
+                    torch._foreach_add_(list(acc.values()), [sums.acc[k] for k in acc])
+                    acc_loss = acc_loss + sums.loss_sum
+                    total += sums.total
+            else:
+                results = self._train_clients(round_idx, positions, cx, cy, cm, counts)
+                stacked = tree_stack([r.variables for r in results])
+                w_norm = torch.as_tensor(meta["w_norm"], device=self.device)
+                acc = {k: a + weighted_sum(stacked[k], w_norm) for k, a in acc.items()}
+                w = torch.as_tensor(meta["wn"], device=self.device)
+                losses = torch.stack([r.train_loss for r in results])
+                acc_w = acc_w + w.sum()
+                acc_loss = acc_loss + (losses * w).sum()
+                total += float(meta["wn"].sum())
+            compute_ms += (time.perf_counter() - t0) * 1e3
+        if packed:
+            denom = max(total, 1e-12)
+            new = {k: (a / denom).to(self.variables[k].dtype) for k, a in acc.items()}
+            train_loss = acc_loss / denom
+        else:
+            new = {k: a.to(self.variables[k].dtype) for k, a in acc.items()}
+            train_loss = acc_loss / torch.clamp(acc_w, min=1e-12)
+        if total > 0:
+            self.variables = new
+        self._stage_row(round_idx, {"materialize_ms": mat_ms, "h2d_ms": h2d_ms}, wait_ms,
+                        compute_ms)
+        # the server's round state: one f32 model-shaped accumulator and two
+        # scalars, whatever the cohort's size
+        self.stream_stats = {
+            "mode": c.stream_aggregate, "cohort": len(sampled), "chunks": n_chunks,
+            "chunk_clients": c.cohort_chunk if n_chunks > 1 else len(sampled),
+            "packed_lanes": c.pack_lanes if packed else 0,
+            "accumulator_bytes": int(sum(v.numel() * 4 for v in self.variables.values()) + 8)}
         return train_loss if c.async_rounds else float(train_loss)
+
+    def close(self) -> None:
+        """Drain and shut down the host round's prefetchers; idempotent. The
+        API stays usable: the next host round builds a new one."""
+        for name in ("_prefetcher", "_stream_pf"):
+            pf = getattr(self, name)
+            setattr(self, name, None)
+            if pf is not None:
+                pf.close()
 
     def evaluate_global(self) -> dict:
         if self._dev_test is None:
@@ -475,7 +836,8 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
     Failed and exited clients train with weight 0 (frozen lane spans on
     the packed mesh); a round whose total weight is 0 keeps the weights and
     the server state. The super-step (``rounds_per_step > 1``) is refused;
-    ``cohort_vmap_width`` is ignored (logged), as in the JAX package.
+    ``cohort_vmap_width`` and ``stream_aggregate`` are ignored (logged), as in
+    the JAX package.
     """
 
     def __init__(self, dataset: FedDataset, config: FedConfig,
@@ -497,6 +859,7 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
         if config.cohort_vmap_width > 0:
             log.warning("cohort_vmap_width=%d ignored: the cross-silo mesh round trains "
                         "each rank's client block whole", config.cohort_vmap_width)
+        self._stream_mode()     # logs that the mesh round does not stream
         self._round = make_crosssilo_round(self._local_train, self.mesh,
                                            **self._crosssilo_hooks_checked())
         self._dev_sharded = self._dev_groups = self._group_plan = self._packed_mesh = None
@@ -635,21 +998,6 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
             groups.append((rows, bucket) + self._place_rows(rows, bucket))
         return groups
 
-    def _round_bucket(self, sampled: np.ndarray, live: Optional[np.ndarray]) -> Optional[int]:
-        """The host-slice round's record axis: the live cohort's largest
-        count rounded up to the quantum, or None (the whole n_pad)."""
-        c = self.config
-        n_pad = int(self.dataset.train_x.shape[1])
-        q = c.bucket_quantum_batches * c.batch_size
-        if c.bucket_quantum_batches <= 0 or q >= n_pad:
-            return None
-        counts = np.asarray(self.dataset.train_counts, np.float64)[sampled]
-        if live is not None:
-            counts = counts * live
-        maxc = float(counts.max()) if counts.size else 0.0
-        bucket = int(np.ceil(max(maxc, 1.0) / q) * q)
-        return None if bucket >= n_pad else bucket
-
     def _work(self, round_idx: int, rows: np.ndarray, x, y, m, weights: np.ndarray,
               positions: Optional[np.ndarray] = None) -> list:
         """One SiloWork per row of a rank's placed block: ``weights`` and
@@ -661,7 +1009,7 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
         return [SiloWork(x[i], y[i], m[i], int(counts[r]), float(weights[p]), orders[i])
                 for i, (r, p) in enumerate(zip(rows, pos))]
 
-    def run_round(self, round_idx: int) -> "float | torch.Tensor":
+    def _run_round_inner(self, round_idx: int) -> "float | torch.Tensor":
         c, ds = self.config, self.dataset
         if self._packed_mesh is None and self._dev_groups is None and self._dev_sharded is None:
             return self._run_host_slice_round(round_idx)
@@ -690,8 +1038,8 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
 
     def _run_host_slice_round(self, round_idx: int) -> "float | torch.Tensor":
         """Partial participation: this rank's block of the sampled cohort,
-        shipped from the host, its record axis cut to the round's bucket;
-        orders by cohort position."""
+        shipped from the host, its record axis cut to the round's bucket
+        (``_round_bucket``); orders by cohort position."""
         c, ds = self.config, self.dataset
         sampled, live = self._round_plan(round_idx, record=True)
         w = np.asarray(ds.train_counts, np.float32)[sampled] * (1.0 if live is None else live)

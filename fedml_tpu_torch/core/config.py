@@ -1,11 +1,11 @@
 """Typed configuration (counterpart of ``fedml_tpu/core/config.py``).
 
 Only the fields the ported path reads, with the JAX package's names,
-defaults and checks. ``packed_conv`` values other than ``"off"``,
-``stream_aggregate`` and ``rounds_per_step > 1`` exist so that a launch
-line asking for an unported schedule fails loudly (``FedAvgAPI`` or
-``CrossSiloFedAvgAPI`` raises ``NotImplementedError``) instead of being
-ignored. Optimizer names are checked where they are built, as in
+defaults and checks. ``packed_conv`` values other than ``"off"`` and
+``rounds_per_step > 1`` exist so that a launch line asking for an unported
+schedule fails loudly (``FedAvgAPI`` or ``CrossSiloFedAvgAPI`` raises
+``NotImplementedError``) instead of being ignored. The JAX package's
+``donate`` (XLA's buffer donation) has no counterpart. Optimizer names are checked where they are built, as in
 the JAX package: ``parallel/local.make_optimizer`` and
 ``algorithms/fedopt.make_server_optimizer`` raise ``ValueError`` for an
 unknown name, so an API given one fails when it is constructed.
@@ -76,8 +76,20 @@ class FedConfig:
     # the simulation paradigm's chunked vmap; the mesh rounds ignore it (and
     # log so), and the port's plain round trains client by client anyway
     cohort_vmap_width: int = 0
-    # not ported yet (FedAvgAPI refuses anything but "off")
+    # streamed host rounds (device_data off): the cohort trains in
+    # sub-cohort chunks of cohort_chunk clients (0 = one chunk), each folded
+    # into one f32 model-shaped accumulator as it finishes; "deterministic"
+    # and "arrival" fold the same chunk order on this path
     stream_aggregate: str = "off"
+    cohort_chunk: int = 0
+    # the host round pipeline (data/pipeline.CohortPrefetcher): this many
+    # future rounds (streamed: chunks) materialized, cast and copied to the
+    # device on background threads (0 = serial); workers fan materialization
+    # out over a cohort's clients (0 = auto)
+    host_pipeline_depth: int = 0
+    host_pipeline_workers: int = 0
+    # cohort selection (data/sched.py): uniform | speed | fair
+    cohort_policy: str = "uniform"
 
     def __post_init__(self):
         if self.client_num_per_round > self.client_num_in_total:
@@ -98,6 +110,21 @@ class FedConfig:
         if self.stream_aggregate not in ("off", "deterministic", "arrival"):
             raise ValueError(f"stream_aggregate must be off|deterministic|arrival, got "
                              f"{self.stream_aggregate!r}")
+        if self.cohort_policy not in ("uniform", "speed", "fair"):
+            raise ValueError(f"cohort_policy must be uniform|speed|fair, got "
+                             f"{self.cohort_policy!r}")
+        if self.cohort_chunk < 0:
+            raise ValueError(f"cohort_chunk must be >= 0, got {self.cohort_chunk}")
+        if self.cohort_chunk > 0 and self.stream_aggregate == "off":
+            raise ValueError("cohort_chunk > 0 needs stream_aggregate: sub-cohort chunks only "
+                             "exist to be folded into the streaming accumulator; set "
+                             "stream_aggregate='deterministic' (or 'arrival')")
+        if self.host_pipeline_depth < 0:
+            raise ValueError(f"host_pipeline_depth must be >= 0, got "
+                             f"{self.host_pipeline_depth}")
+        if self.host_pipeline_workers < 0:
+            raise ValueError(f"host_pipeline_workers must be >= 0, got "
+                             f"{self.host_pipeline_workers}")
         if self.rounds_per_step < 1:
             raise ValueError(f"rounds_per_step must be >= 1, got {self.rounds_per_step}")
         if not 0.0 <= self.failure_prob < 1.0:

@@ -80,18 +80,21 @@ def tree_stack(trees: Sequence[StateDict]) -> StateDict:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
+def weighted_sum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``sum_i x[i] * w[i]`` over the leading axis, in f32: the one
+    arithmetic of :func:`tree_weighted_mean` and of the streamed rounds'
+    fold (whose weights arrive normalized), so a one-chunk streamed round
+    equals the batch round bit for bit."""
+    wb = w.to(device=x.device, dtype=torch.float32).reshape((-1,) + (1,) * (x.dim() - 1))
+    return (x.to(torch.float32) * wb).sum(0)
+
+
 def tree_weighted_mean(stacked: StateDict, weights: torch.Tensor) -> StateDict:
     """Weighted average along the leading (client) axis of every floating
     leaf, BatchNorm running stats included. Weights are normalised in f32;
-    each leaf is summed in f32 and cast back to its dtype. A non-floating
-    leaf keeps the first client's value."""
+    each leaf is summed in f32 (:func:`weighted_sum`) and cast back to its
+    dtype. A non-floating leaf keeps the first client's value."""
     w = weights.to(torch.float32)
     w = w / torch.clamp(w.sum(), min=1e-12)
-    out = {}
-    for k, x in stacked.items():
-        if not x.is_floating_point():
-            out[k] = x[0]
-            continue
-        wb = w.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
-        out[k] = (x.to(torch.float32) * wb).sum(0).to(x.dtype)
-    return out
+    return {k: weighted_sum(x, w).to(x.dtype) if x.is_floating_point() else x[0]
+            for k, x in stacked.items()}

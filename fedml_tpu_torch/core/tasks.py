@@ -1,6 +1,6 @@
 """Task families: mask-aware loss and metric sums (counterpart of
-``fedml_tpu/core/tasks.py``; classification and next-word prediction on
-the ported paths).
+``fedml_tpu/core/tasks.py``; classification, next-word prediction and
+multilabel tag prediction on the ported paths).
 
 Padded records carry mask 0 and contribute nothing to loss or metrics.
 """
@@ -69,7 +69,41 @@ def nwp_metrics(logits, targets, mask) -> dict:
 
 nwp = Task(nwp_loss, nwp_metrics)
 
-TASKS: dict[str, Task] = {"classification": classification, "nwp": nwp}
+
+
+# multilabel tag prediction: logits [B, T], float multi-hot targets [B, T]
+
+def binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise sigmoid BCE in f32, in the stable form
+    ``max(l, 0) - l*t + log1p(exp(-|l|))``."""
+    l = logits.to(torch.float32)
+    t = targets.to(torch.float32)
+    return torch.clamp(l, min=0.0) - l * t + torch.log1p(torch.exp(-l.abs()))
+
+
+def tag_loss(logits, targets, mask) -> torch.Tensor:
+    return _masked_mean(binary_cross_entropy(logits, targets).sum(-1), mask)
+
+
+def tag_metrics(logits, targets, mask) -> dict:
+    m = mask.to(torch.float32)
+    mc = m[:, None]
+    pred = (torch.sigmoid(logits.to(torch.float32)) > 0.5).to(torch.float32)
+    tgt = targets.to(torch.float32)
+    per = binary_cross_entropy(logits, targets).sum(-1)
+    return {
+        "true_pos": (pred * tgt * mc).sum(),
+        "false_pos": (pred * (1 - tgt) * mc).sum(),
+        "false_neg": ((1 - pred) * tgt * mc).sum(),
+        "loss_sum": (per * m).sum(),
+        "count": m.sum(),
+    }
+
+
+tag_prediction = Task(tag_loss, tag_metrics)
+
+TASKS: dict[str, Task] = {"classification": classification, "nwp": nwp,
+                          "tag_prediction": tag_prediction}
 
 
 def get_task(name: str, class_num=None) -> Task:

@@ -26,6 +26,15 @@ replay overwrites. A failed capture or replay raises: nothing falls back to
 the eager body. On CPU tensors, or built with ``capture=False``, every call
 runs the body eagerly; that is the path the CPU tests take.
 
+Background threads. A capture is in CUDA's global mode, in which another
+thread's potentially unsafe call (a device or pinned allocation, a
+synchronization) invalidates it, and ``torch.cuda.graph`` itself empties the
+allocators' caches first. So every capture window, from entering
+``torch.cuda.graph`` to leaving it, holds :data:`CAPTURE_LOCK`, and code that
+makes CUDA calls on another thread while steps may be captured (the host
+round pipeline's copies, ``data/pipeline.ship``) holds it around those
+calls. A capture never waits for such a thread's work, only for the lock.
+
 The body must read and write only tensors whose addresses stay fixed across
 steps (the static inputs, the module's parameters and buffers, a bound
 optimizer's state and gradients, other static buffers the caller owns), and
@@ -41,6 +50,7 @@ kernels that the steps launched. ``warmup_launches`` keeps the warm-up's.
 from __future__ import annotations
 
 import gc
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -50,6 +60,10 @@ from fedml_tpu_torch.ops import attention, batchnorm, conv_lanes, xent
 #: eager steps run before the capture (the count PyTorch's CUDA-graph
 #: documentation uses)
 WARMUP_STEPS = 3
+
+#: held by every capture window and by other threads' CUDA calls that may
+#: run while a step is captured (see the module note)
+CAPTURE_LOCK = threading.Lock()
 
 _COUNTERS = (batchnorm.LAUNCHES, conv_lanes.LAUNCHES, attention.LAUNCHES, xent.LAUNCHES)
 
@@ -127,7 +141,7 @@ class CapturedStep:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with CAPTURE_LOCK, torch.cuda.graph(graph, stream=stream):
                 output = self.body(*self.inputs)
         finally:
             if gc_on:

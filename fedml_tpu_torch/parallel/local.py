@@ -231,11 +231,16 @@ def make_eval_fn(bundle: ModelBundle, task: Task, eval_batch_size: int = 256):
 
 
 def finalize_metrics(sums: dict) -> dict:
-    """Metric sums -> acc and mean loss."""
+    """Metric sums -> acc, mean loss, and precision and recall (tag
+    prediction)."""
     out = {}
     count = float(sums.get("count", 1.0))
     if "correct" in sums:
         out["acc"] = float(sums["correct"]) / max(count, 1.0)
     if "loss_sum" in sums:
         out["loss"] = float(sums["loss_sum"]) / max(count, 1.0)
+    if "true_pos" in sums:
+        tp, fp, fn = (float(sums[k]) for k in ("true_pos", "false_pos", "false_neg"))
+        out["precision"] = tp / max(tp + fp, 1.0)
+        out["recall"] = tp / max(tp + fn, 1.0)
     return out

@@ -250,7 +250,8 @@ class _Lanes:
         """Lane ``lane`` starts a client: the global variables, the
         optimizer's initial state, step count 0."""
         torch._foreach_copy_(self.lane_state[lane], glob)
-        torch._foreach_copy_(self.opt_views[lane], self.opt_init_views[lane])
+        if self.opt_views[lane]:      # plain SGD keeps no state
+            torch._foreach_copy_(self.opt_views[lane], self.opt_init_views[lane])
         for c in self.counts:
             c[lane] = 0
 
@@ -280,11 +281,14 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
     The lane-stacked model for L lanes, ``bundle.module.lane_stacked(L)``, is
     built at the first plan with L lanes and kept (L varies from round to
     round with the cohort). ``tx/ty/tm`` are the whole stacked client dataset
-    [C_total, n_pad, ...] on the device; ``sampled_rows`` [cohort] maps a
-    cohort position to its stack row; ``weights_pos`` [cohort] the
-    aggregation weights by position; ``orders`` [cohort, epochs, n_pad] each
-    position's per-epoch permutations of n_pad (the plain path's draws, or
-    injected ones).
+    [C_total, n_pad, ...] on the device, or (a streamed chunk of a host
+    round) just the chunk's clients as shipped, with ``sampled_rows`` their
+    ``arange``; ``sampled_rows`` [cohort] maps a cohort position to its
+    stack row; ``weights_pos`` [cohort] the aggregation weights by position;
+    ``orders`` [cohort, epochs, n_pad] each position's per-epoch
+    permutations of n_pad (the plain path's draws, or injected ones; a
+    chunk's position j takes the order of its position in the whole
+    cohort).
 
     Every executed step runs the lane program's step program for its shape:
     on CUDA a replay of the captured step, unless ``capture=False`` asks for
@@ -296,7 +300,7 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
     lane_stacked = getattr(bundle.module, "lane_stacked", None)
     if lane_stacked is None:
         raise NotImplementedError(f"model {bundle.name!r} has no lane-stacked twin; the packed "
-                                  "schedule is ported for the CIFAR ResNets")
+                                  "schedule is ported for the CIFAR ResNets and lr")
     steps_full = n_pad // batch_size
     bs = batch_size
     opt_tx = make_optimizer(optimizer, lr, momentum, wd)

@@ -475,6 +475,38 @@ def test_elastic_packed_rounds_freeze_and_match_the_plain_rounds():
         assert masked.live.sum() < sim._packed_plan(sampled).live.sum()
 
 
+def test_elastic_packed_seed2_cohort_with_jax_orders():
+    """The seed-2 cohort of the case above, with the JAX package's orders
+    injected. The case above runs at seed 25 because at one torch thread,
+    with the port's own orders, the seed-2 plain mesh round parts from the
+    packed one by up to 37x the variables' tolerance (float order over a
+    different shuffle draw, not a replay fault; at 8 threads, or with JAX's
+    orders, the rounds agree). This case keeps the seed-2 cohort covered at
+    one thread (the module's fixture), so the move to seed 25 cannot hide a
+    replay fault: a failure in each round and an exit in round 1, the packed
+    mesh round held to the plain mesh round from the same variables."""
+    ds = make_synthetic_classification(**RES_DATA)
+    run = {**RES_RUN, "failure_prob": 0.25, "seed": 2}
+    hook = _hook(4, ds.train_x.shape[1], seed=2)
+    plain = CrossSiloFedAvgAPI(ds, FedConfig(**run), _res_bundles()[1], device="cpu",
+                               order_hook=hook)
+    pk = CrossSiloFedAvgAPI(ds, FedConfig(**run, pack_lanes=2), _res_bundles()[1],
+                            device="cpu", order_hook=hook)
+    assert torch.get_num_threads() == 1 and pk._packed_mesh is not None
+    live = [pk._sample_failures(r, 4, record=False) for r in range(2)]
+    assert all(0 < lv.sum() < 4 for lv in live), live
+    for r in range(2):
+        if r == 1:      # client 0 exits from round 1 on
+            for api in (plain, pk):
+                api.set_client_active(np.array([0, 1, 1, 1]))
+        pk.variables = {k: v.clone() for k, v in plain.variables.items()}
+        want = plain.run_round(r)
+        np.testing.assert_allclose(pk.run_round(r), want, rtol=1e-5)
+        for k, v in plain.variables.items():
+            np.testing.assert_allclose(pk.variables[k].numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-5, err_msg=f"round {r} {k}")
+
+
 def test_all_failed_round_keeps_weights_and_server_state():
     for cls, kw in ((CrossSiloFedOptAPI, dict(server_optimizer="adam", server_lr=0.01)),
                     (CrossSiloFedOptAPI, dict(server_optimizer="adam", server_lr=0.01,
