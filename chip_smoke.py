@@ -114,11 +114,31 @@ Phases (any failure raises and the script exits non-zero):
    fixed batch; 8 K6 and 1 K5 per step, the loss falls; tokens/s, ms/step
    and peak memory.
 
-Every live step of phases 4, 4b, 4c, 4d, 4e, 8 and 11 is a replay of the step
+13. The entry point and the training loop, after phase 4e, with no profile.
+   (a) The README quickstart through ``experiments.run.main`` on the card
+   (``lr`` on ``synthetic_1_1``, 30 clients, 10 a round, 50 rounds, batch 10,
+   lr 0.3): its final Test/Acc, rounds/s and phase times; then the same line
+   as FedOpt-adam (server lr 0.01) for 4 rounds with checkpoints every 2
+   rounds, straight, and stopped at round 2 and resumed from its
+   ``latest.ckpt``: the two final checkpoints (variables and server state)
+   equal bit for bit. (b) The launcher at the flagship's widths (ResNet-56,
+   32 clients, 8 a round, batch 64, lr 0.1, momentum 0.9, 3 rounds) on the
+   CIFAR-10 stand-in through the launcher's bundle (plain BN, f32: no K1/K2
+   launch): real images/s, Test/Acc per round, the checkpoint's bytes. (c)
+   The flagship's packed bf16 ``train()`` through K1/K2 (phase 4b's
+   federation and model, ``frequency_of_the_test=2``, checkpoints every 2
+   rounds): 4 rounds straight twice, then 2 rounds and 2 more from
+   ``resume_from``; the resumed variables equal the straight ones bit for
+   bit wherever the two straight runs agree (when they part, all four runs
+   again under cuDNN's deterministic algorithms, and then they must agree),
+   the eval rounds equal, 57 K1 + 57 K2 and one replay an executed packed
+   step; save and restore ms, the checkpoint's bytes, ``history["timing"]``.
+
+Every live step of phases 4, 4b, 4c, 4d, 4e, 8, 11 and 13 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4d and 4e (in 4c the FedOpt-adam packed run and the client-adam plain
+but 4d, 4e and 13 (in 4c the FedOpt-adam packed run and the client-adam plain
 run; 4d's arms take their steps from the same trainers; 4e's are neither
 re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
@@ -2506,6 +2526,270 @@ def phase_train_crossdevice(smi: str) -> dict:
     return out
 
 
+# -- phase 13: the entry point and the training loop ---------------------------
+
+# (a) the README quickstart, then FedOpt-adam on it with checkpoints, straight
+# and stopped at round 2 and resumed; (b) the launcher at the flagship's
+# widths (the CIFAR-10 stand-in: no files); (c) the flagship's packed bf16
+# train() through K1/K2, straight twice and resumed
+QUICKSTART = ("--algorithm fedavg --dataset synthetic_1_1 --model lr --client_num_in_total 30 "
+              "--client_num_per_round 10 --comm_round 50 --batch_size 10 --lr 0.3")
+QUICKSTART_FEDOPT = "--algorithm fedopt --server_optimizer adam --server_lr 0.01 --comm_round 4"
+LAUNCH_FLAGSHIP = ("--algorithm fedavg --dataset cifar10 --model resnet56 "
+                   "--client_num_in_total 32 --client_num_per_round 8 --batch_size 64 --lr 0.1 "
+                   "--momentum 0.9 --comm_round 3 --frequency_of_the_test 1")
+LOOP_ROUNDS, LOOP_HALF = 4, 2
+
+
+def _ckpt_differ(a: str, b: str) -> list:
+    """The leaves (variables, then server state) in which two checkpoint
+    files differ, or their round indices if those differ."""
+    import torch
+
+    from fedml_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ca, cb = load_checkpoint(a), load_checkpoint(b)
+    if ca["round_idx"] != cb["round_idx"]:
+        return [f"round_idx {ca['round_idx']} != {cb['round_idx']}"]
+
+    def leaves(tree, path=""):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in leaves(v, f"{path}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree) for x in leaves(v, f"{path}/{i}")]
+        return [] if tree is None else [(path, tree)]
+
+    la = leaves({"variables": ca["variables"], "server_state": ca["server_state"]})
+    lb = leaves({"variables": cb["variables"], "server_state": cb["server_state"]})
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["the trees differ"]
+    return [p for (p, x), (_, y) in zip(la, lb) if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def launcher_quickstart(smi: str, tmp: str) -> dict:
+    """(a): the README quickstart through ``experiments.run.main`` on the
+    card; then the same line as FedOpt-adam for 4 rounds with checkpoints
+    every 2 rounds, straight, and stopped at round 2 and resumed from its
+    ``latest.ckpt``: the two final checkpoints equal bit for bit."""
+    import os
+
+    from fedml_tpu_torch.experiments.run import main as launch
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    tag = "[loop a]"
+    bn.reset_launches()
+    t0 = time.perf_counter()
+    h = launch(QUICKSTART.split())
+    wall = time.perf_counter() - t0
+    rec = {"argv": QUICKSTART, "Test/Acc": h["Test/Acc"], "Test/Loss": h["Test/Loss"],
+           "rounds_per_sec": h["rounds_per_sec"], "timing": h["timing"], "call_s": wall}
+    log(f"{tag} quickstart: final Test/Acc {h['Test/Acc'][-1]:.4f}, Test/Loss "
+        f"{h['Test/Loss'][-1]:.4f} after {len(h['Test/Acc'])} evals; rounds_per_sec "
+        f"{h['rounds_per_sec']}; timing {h['timing']}; main() {wall:.2f} s; {smi}")
+    if not (np.isfinite(h["Test/Loss"]).all() and h["Test/Acc"][-1] > 0.5):
+        raise AssertionError(f"{tag} the quickstart did not learn: Test/Acc {h['Test/Acc']}")
+    base = QUICKSTART.split()[2:] + QUICKSTART_FEDOPT.split()
+    d_full, d_half, d_res = (os.path.join(tmp, n) for n in ("a-full", "a-half", "a-resumed"))
+    runs = {}
+    for name, extra in (
+            ("straight", ["--checkpoint_dir", d_full, "--checkpoint_frequency", "2"]),
+            ("first_half", ["--comm_round", "2", "--checkpoint_dir", d_half,
+                            "--checkpoint_frequency", "2"]),
+            ("resumed", ["--resume_from", os.path.join(d_half, "latest.ckpt"),
+                         "--checkpoint_dir", d_res, "--checkpoint_frequency", "2"])):
+        hh = launch(base + extra)
+        runs[name] = {"round": hh["round"], "Test/Acc": hh["Test/Acc"],
+                      "rounds_per_sec": hh["rounds_per_sec"], "timing": hh["timing"]}
+    differ = _ckpt_differ(os.path.join(d_full, "latest.ckpt"), os.path.join(d_res, "latest.ckpt"))
+    rec["fedopt"] = runs
+    rec["fedopt_resume_differ"] = differ
+    log(f"{tag} FedOpt-adam 4 rounds straight {runs['straight']['round']} / "
+        f"{runs['straight']['Test/Acc']}; resumed at 2: {runs['resumed']['round']} / "
+        f"{runs['resumed']['Test/Acc']}; final checkpoints differ in {differ or 'nothing'}")
+    if differ:
+        raise AssertionError(f"{tag} the resumed FedOpt run's final state differs from the "
+                             f"uninterrupted run's: {differ[:6]}")
+    if runs["resumed"]["Test/Acc"] != runs["straight"]["Test/Acc"][-len(runs["resumed"]["round"]):]:
+        raise AssertionError(f"{tag} the resumed eval rounds differ: {runs}")
+    if sum(bn.LAUNCHES.values()):
+        raise AssertionError(f"{tag} lr launched BN kernels: {bn.LAUNCHES}")
+    return rec
+
+
+def launcher_flagship(smi: str, tmp: str) -> dict:
+    """(b): the launcher at the flagship's widths on the CIFAR-10 stand-in
+    (160 records a client): the launcher's bundle (plain BatchNorm, f32, as
+    the JAX launcher's), so no K1/K2 launch; real images/s over the timed
+    train phase, Test/Acc per round, the checkpoint's bytes."""
+    import os
+
+    from fedml_tpu_torch.core.config import add_args, config_from_args
+    from fedml_tpu_torch.data.sched import CohortScheduler
+    from fedml_tpu_torch.experiments import _load
+    from fedml_tpu_torch.experiments.run import main as launch
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    tag = "[loop b]"
+    ckdir = os.path.join(tmp, "b")
+    argv = LAUNCH_FLAGSHIP.split() + ["--checkpoint_dir", ckdir, "--checkpoint_frequency", "3"]
+    bn.reset_launches()
+    h = launch(argv)
+    launches = dict(bn.LAUNCHES)
+    cfg = config_from_args(add_args().parse_args(LAUNCH_FLAGSHIP.split()[2:]))
+    ds = _load(cfg)
+    sched = CohortScheduler(cfg.cohort_policy, cfg.seed, cfg.client_num_in_total,
+                            cfg.client_num_per_round)
+    real = int(sum(ds.train_counts[sched.sample(r)].sum() for r in range(cfg.comm_round)))
+    t = h["timing"]
+    ck_bytes = os.path.getsize(os.path.join(ckdir, "latest.ckpt"))
+    rec = {"argv": LAUNCH_FLAGSHIP, "dataset": ds.name, "n_pad": int(ds.train_x.shape[1]),
+           "round": h["round"], "Test/Acc": h["Test/Acc"], "Test/Loss": h["Test/Loss"],
+           "timing": t, "real_images": real,
+           "real_images_per_s": real / t["time/train_s"], "checkpoint_bytes": ck_bytes,
+           "launches": launches}
+    log(f"{tag} {ds.name}, ResNet-56 f32 plain BN: Test/Acc per round {h['Test/Acc']}; "
+        f"{real} real images in {t['time/train_s']} s of train phase: "
+        f"{rec['real_images_per_s']:.1f} real images/s, {h['rounds_per_sec']} rounds/s; "
+        f"checkpoint {ck_bytes} bytes; K1/K2 {launches}; {smi}")
+    if h["round"] != [0, 1, 2] or not np.isfinite(h["Test/Loss"]).all():
+        raise AssertionError(f"{tag} history {h}")
+    if sum(launches.values()):
+        raise AssertionError(f"{tag} the launcher's ResNet-56 launched BN kernels: {launches}")
+    return rec
+
+
+def packed_steps(api, rounds) -> int:
+    """The executed packed steps (some lane live) of the API's rounds."""
+    from fedml_tpu_torch.parallel.packed import executed_steps
+
+    total = 0
+    for r in rounds:
+        plan = api._masked_packed_plan(*api._round_plan(r))
+        total += 0 if plan is None else len(executed_steps(plan.live))
+    return total
+
+
+def loop_run(tag: str, smi: str, tmp: str, name: str, **config) -> dict:
+    """One flagship ``train()`` (packed, bf16, K1/K2, checkpoints every 2
+    rounds): its history, final state, K1/K2 launches (exactly 57 a packed
+    step) and, straight, the save and restore times."""
+    import gc
+    import os
+
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    ckdir = os.path.join(tmp, name)
+    api = flagship_api(pack_lanes=PACK_LANES, async_rounds=False, frequency_of_the_test=2,
+                       checkpoint_frequency=2, checkpoint_dir=ckdir, **config)
+    start = 0 if not api.config.resume_from else LOOP_HALF
+    steps = packed_steps(api, range(start, api.config.comm_round))
+    bn.reset_launches()
+    r0 = sum(p.replays for p in trainer_programs(api._packed_train))
+    h = api.train()
+    launches = dict(bn.LAUNCHES)
+    replayed = sum(p.replays for p in trainer_programs(api._packed_train)) - r0
+    rec = {"run": name, "round": list(h["round"]), "Test/Acc": list(h["Test/Acc"]),
+           "Test/Loss": list(h["Test/Loss"]), "timing": h["timing"], "steps": steps,
+           "replays": replayed, "launches": launches,
+           "variables": {k: v.clone() for k, v in api.variables.items()},
+           "checkpoint_bytes": os.path.getsize(os.path.join(ckdir, "latest.ckpt"))}
+    for k in ("bn_fwd", "bn_bwd"):
+        if launches[k] != BNS_PER_STEP * steps:
+            raise AssertionError(f"{tag} {name}: {k} launched {launches[k]} times; expected "
+                                 f"{BNS_PER_STEP} x {steps} executed packed steps")
+    if replayed != steps:
+        raise AssertionError(f"{tag} {name}: {replayed} replays for {steps} packed steps")
+    if name == "straight":
+        path = os.path.join(tmp, "timed.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.save(path, LOOP_ROUNDS)
+        t1 = time.perf_counter()
+        api.restore(path)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rec.update(save_ms=(t1 - t0) * 1e3, restore_ms=(t2 - t1) * 1e3)
+    log(f"{tag} {name}: rounds {start}..{api.config.comm_round - 1}, eval rounds {h['round']}, "
+        f"Test/Acc {h['Test/Acc']}; {steps} packed steps, {replayed} replays, launches "
+        f"{launches}; timing {h['timing']}"
+        + (f"; save {rec['save_ms']:.2f} ms, restore {rec['restore_ms']:.2f} ms of a "
+           f"{rec['checkpoint_bytes']}-byte checkpoint" if "save_ms" in rec else "") + f"; {smi}")
+    del api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def flagship_loop(smi: str, tmp: str) -> dict:
+    """(c): the flagship's packed bf16 train() through K1/K2, 4 rounds
+    straight twice, then 2 rounds and 2 more from ``resume_from``. The
+    resumed variables must equal the straight ones bit for bit wherever the
+    two straight runs agree bit for bit, and the eval rounds must match;
+    when the straight runs part, the runs are made again under cuDNN's
+    deterministic algorithms."""
+    import os
+
+    import torch
+
+    tag = "[loop c]"
+    out = {}
+    for deterministic in (False, True):
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            sub = os.path.join(tmp, f"c-det{int(deterministic)}")
+            runs = [loop_run(tag, smi, sub, "straight", comm_round=LOOP_ROUNDS),
+                    loop_run(tag, smi, sub, "straight-again", comm_round=LOOP_ROUNDS),
+                    loop_run(tag, smi, sub, "first-half", comm_round=LOOP_HALF)]
+            runs.append(loop_run(tag, smi, sub, "resumed", comm_round=LOOP_ROUNDS,
+                                 resume_from=os.path.join(sub, "first-half", "latest.ckpt")))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        a, b, _, res = runs
+        agree = [k for k in a["variables"] if torch.equal(a["variables"][k], b["variables"][k])]
+        out = {"cudnn_deterministic": deterministic, "agree": len(agree),
+               "tensors": len(a["variables"])}
+        if len(agree) == len(a["variables"]) or deterministic:
+            break
+        log(f"{tag} the two straight runs agree bit for bit in {len(agree)} of "
+            f"{len(a['variables'])} tensors; again under cuDNN's deterministic algorithms")
+    differ = [k for k in agree if not torch.equal(res["variables"][k], a["variables"][k])]
+    n = len(res["round"])
+    evals_equal = (res["round"] == a["round"][-n:] and res["Test/Acc"] == a["Test/Acc"][-n:]
+                   and res["Test/Loss"] == a["Test/Loss"][-n:])
+    out.update(runs=[{k: v for k, v in r.items() if k != "variables"} for r in runs],
+               resumed_differ=differ, evals_equal=evals_equal,
+               launches={k: sum(r["launches"][k] for r in runs) for k in ("bn_fwd", "bn_bwd")})
+    log(f"{tag} straight runs agree in {len(agree)} of {len(a['variables'])} tensors (cuDNN "
+        f"deterministic: {out['cudnn_deterministic']}); the resumed run differs from the "
+        f"straight one in {differ or 'none'} of those; eval rounds {res['round']} equal: "
+        f"{evals_equal}; {smi}")
+    if differ or not evals_equal:
+        raise AssertionError(f"{tag} the resumed run is not the uninterrupted one: tensors "
+                             f"{differ[:6]}, evals {res['round']} {res['Test/Acc']} vs "
+                             f"{a['round']} {a['Test/Acc']}")
+    if len(agree) != len(a["variables"]):
+        raise AssertionError(f"{tag} two straight runs part even under cuDNN's deterministic "
+                             f"algorithms ({len(agree)} of {len(a['variables'])} tensors agree)")
+    return out
+
+
+def phase_train_loop(smi: str) -> dict:
+    """Phase 13: the command-line entry point and train() with checkpoints
+    and resume: (a) the README quickstart and FedOpt-adam resumed, (b) the
+    launcher at the flagship's widths, (c) the flagship's packed train()
+    through K1/K2 resumed bit for bit."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+        out = {"quickstart": launcher_quickstart(smi, tmp),
+               "launcher_flagship": launcher_flagship(smi, tmp),
+               "flagship_loop": flagship_loop(smi, tmp)}
+    out["launches"] = out["flagship_loop"]["launches"]
+    return out
+
+
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
                     ) -> tuple[float, float, int]:
     """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
@@ -2947,6 +3231,7 @@ def main() -> int:
     # (more than the sentinels absorb; short runs of the same rounds did
     # not), and phase 4e profiles nothing
     crossdevice = timed("train_crossdevice", phase_train_crossdevice, smi)
+    loop = timed("train_loop", phase_train_loop, smi)
     err.update(conv_err)
     err.update(lm_err)
 
@@ -2974,12 +3259,14 @@ def main() -> int:
             source = "batchnorm.cu"
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
             # cross-silo arms' and the cross-device flagship arms' timed
-            # rounds, each counted from 0 just before it
+            # rounds, and phase 13's train() runs, each counted from 0 just
+            # before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
                        "crosssilo": crosssilo["launches"][name],
-                       "crossdevice": crossdevice["launches"][name]}
+                       "crossdevice": crossdevice["launches"][name],
+                       "train_loop": loop["launches"][name]}
             launches = sum(by_path.values())
             prows, pb_ms, pb_by = bn_step(timing_packed, name)
             extra = {"launches_by_path": by_path, "packed": {
@@ -3060,6 +3347,7 @@ def main() -> int:
         "check_cases": cases, "small_model_rel_err": model_err, "timing": timing,
         "timing_packed": timing_packed, "train": train, "train_packed": train_packed,
         "train_zoo": zoo, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
+        "train_loop": loop,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

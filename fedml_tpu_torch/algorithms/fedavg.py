@@ -69,9 +69,14 @@ is live.
 ranks of a ``torch.distributed`` process group (``parallel/mesh.py``), the
 aggregate one all-reduce (``parallel/crosssilo.py``).
 
-Not ported yet, and refused with ``NotImplementedError``: the joint packed
-lowerings (``packed_conv`` other than ``"off"``) and the cross-silo
-super-step (``rounds_per_step > 1``). On data placed on the device the
+``train()`` runs the rounds with the periodic eval, checkpoints
+(``save``/``restore``, ``checkpoint_dir``, ``resume_from``) and the
+``RoundTimer`` record, as the JAX package's does.
+
+Not ported yet, and refused with ``NotImplementedError`` at construction
+(``core/config.check_ported``): every field whose feature the port lacks,
+among them the joint packed lowerings (``packed_conv`` other than ``"off"``)
+and the cross-silo super-step (``rounds_per_step > 1``). On data placed on the device the
 simulation paradigm's bucket cut and grouped schedule are not needed:
 running only each client's live steps (parallel/local.py) already skips
 the padding they trim (the orders there permute the whole n_pad).
@@ -80,6 +85,7 @@ the padding they trim (the orders there permute the whole n_pad).
 from __future__ import annotations
 
 import logging
+import os
 import time
 from collections import deque
 from typing import Callable, Optional, Sequence, Union
@@ -89,7 +95,7 @@ import torch
 
 from fedml_tpu_torch import default_device
 from fedml_tpu_torch.core.aggregation import fedavg_aggregate
-from fedml_tpu_torch.core.config import FedConfig
+from fedml_tpu_torch.core.config import FedConfig, check_ported
 from fedml_tpu_torch.core.pytree import tree_stack, weighted_sum
 from fedml_tpu_torch.core.rng import client_generator
 from fedml_tpu_torch.core.tasks import get_task
@@ -139,6 +145,15 @@ def _chunk_buckets(sorted_maxes, G: int, q: int, n_pad: int) -> list:
     return merged
 
 
+def _tree_to(tree, device: torch.device):
+    """A tree of dicts, lists and tuples over tensors, moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 def _live_slots(counts: np.ndarray, bs: int) -> int:
     """Batch slots of the clients' live steps: ``ceil(count / bs) * bs``
     each, the padding of each client's last batch included."""
@@ -150,9 +165,7 @@ class FedAvgAPI:
                  bundle: Optional[ModelBundle] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  order_hook: Optional[OrderHook] = None):
-        if config.packed_conv != "off":
-            raise NotImplementedError(f"packed_conv={config.packed_conv!r}: the joint packed "
-                                      "lowerings are not ported yet (packed_conv='off' is)")
+        check_ported(config)
         self.device = default_device(device)
         self.dataset = dataset
         self.config = config
@@ -786,22 +799,91 @@ class FedAvgAPI:
         sums = self._eval(self.variables, x, y, m)
         return finalize_metrics({k: v.item() for k, v in sums.items()})
 
+    def save(self, path: str, round_idx: int = 0, orbax: bool = False) -> None:
+        """Checkpoint the variables and the server state with the round to
+        resume from (``utils/checkpoint.py``)."""
+        from fedml_tpu_torch.utils import checkpoint as ckpt
+
+        if orbax:
+            raise NotImplementedError(ckpt.ORBAX_UNPORTED)
+        ckpt.save_checkpoint(path, self.variables, self.server_state, round_idx)
+
+    def restore(self, path: str, orbax: bool = False) -> int:
+        """Load a checkpoint into this API (on its device); returns the round
+        to resume from. Training on from there is the uninterrupted run: every
+        round's sampling, failures and orders are pure in (seed, round)."""
+        from fedml_tpu_torch.utils import checkpoint as ckpt
+
+        if orbax:
+            raise NotImplementedError(ckpt.ORBAX_UNPORTED)
+        state = ckpt.load_checkpoint(path)
+        saved = state["variables"]
+        if set(saved) != set(self.variables):
+            raise ValueError(f"{path}: the checkpoint's variables do not match this model's "
+                             f"({sorted(set(saved) ^ set(self.variables))[:6]} differ)")
+        self.variables = {k: saved[k].to(self.device) for k in self.variables}
+        self.server_state = _tree_to(state["server_state"], self.device)
+        return int(state["round_idx"])
+
     def train(self) -> dict:
+        """``comm_round`` rounds from round 0, or from ``resume_from``'s
+        round, with the periodic eval, ``latest.ckpt`` in ``checkpoint_dir``
+        every ``checkpoint_frequency`` rounds and after the last, and an
+        optional profiler trace. The history gains ``rounds_per_sec`` (the
+        rounds this call ran over its wall time) and ``timing``
+        (``RoundTimer.summary``, and ``host_pipeline`` when host rounds ran)."""
+        from fedml_tpu_torch.utils.metrics import (MetricsLogger, RoundTimer, profile_trace,
+                                                   round_stats)
+
         c = self.config
-        t0 = time.perf_counter()
-        for r in range(c.comm_round):
-            loss = self.run_round(r)
-            if r % c.frequency_of_the_test == 0 or r == c.comm_round - 1:
-                m = self.evaluate_global()
+        timer = RoundTimer(sync=(lambda: torch.cuda.synchronize(self.device))
+                           if self.device.type == "cuda" else None)
+        logger = MetricsLogger(c.run_name, c.enable_wandb, config=c.to_dict())
+        start_round = 0
+        if c.resume_from:
+            start_round = self.restore(c.resume_from)
+            log.info("resumed from %s at round %d", c.resume_from, start_round)
+        try:
+            with profile_trace(c.profile_dir):
+                self._train_rounds(start_round, timer, logger)
+        finally:
+            # no prefetcher thread outlives the run
+            self.close()
+            logger.close()
+        timing = timer.summary()
+        if self._stage_rows:
+            timing["host_pipeline"] = round_stats(self._stage_rows, c.host_pipeline_depth)
+        if c.async_rounds:
+            # the rounds returned device scalars unsynced, so 'train' timed
+            # their dispatch; eval phases and the wall clock end on a sync
+            timing["time/train_is_dispatch_only"] = True
+        self.history["rounds_per_sec"] = timing["rounds_per_sec"]
+        self.history["timing"] = timing
+        self.metrics_logger = logger
+        return self.history
+
+    def _eval_at(self, r: int) -> bool:
+        """Whether the periodic eval runs after round ``r``."""
+        c = self.config
+        return r % c.frequency_of_the_test == 0 or r == c.comm_round - 1
+
+    def _train_rounds(self, start_round: int, timer, logger) -> None:
+        c = self.config
+        for r in range(start_round, c.comm_round):
+            with timer.phase("train", sync=not c.async_rounds):
+                loss = self.run_round(r)
+            timer.tick_round()
+            if self._eval_at(r):
+                with timer.phase("eval"):
+                    m = self.evaluate_global()
                 self.history["round"].append(r)
                 self.history["Test/Acc"].append(m.get("acc"))
                 self.history["Test/Loss"].append(m.get("loss"))
-                log.info("round %d: train loss %.4f, test acc %.4f",
-                         r, float(loss), m.get("acc", float("nan")))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.history["rounds_per_sec"] = c.comm_round / max(time.perf_counter() - t0, 1e-12)
-        return self.history
+                logger.log({"Train/Loss": float(loss), "Test/Acc": m.get("acc"),
+                            "Test/Loss": m.get("loss")}, r)
+            if c.checkpoint_dir and ((r + 1) % c.checkpoint_frequency == 0
+                                     or r == c.comm_round - 1):
+                self.save(os.path.join(c.checkpoint_dir, "latest.ckpt"), r + 1)
 
 
 class CrossSiloFedAvgAPI(FedAvgAPI):
@@ -845,9 +927,6 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
                  device: Optional[Union[str, torch.device]] = None,
                  order_hook: Optional[OrderHook] = None,
                  mesh: Optional[ClientMesh] = None):
-        if config.rounds_per_step > 1:
-            raise NotImplementedError(f"rounds_per_step={config.rounds_per_step}: the cross-silo "
-                                      "super-step is not ported yet")
         self.mesh = mesh or client_mesh(device=device)
         super().__init__(dataset, config, bundle, device=self.mesh.device,
                          order_hook=order_hook)

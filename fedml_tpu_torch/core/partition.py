@@ -90,7 +90,11 @@ def hetero_partition(labels: np.ndarray, client_num: int, classes: int,
 
 def partition(method: str, labels: np.ndarray, client_num: int, classes: int,
               alpha: Optional[float] = None, seed: int = 0) -> dict[int, np.ndarray]:
-    """Dispatch on --partition_method (homo | hetero)."""
+    """Dispatch on --partition_method (homo | hetero). The JAX package's
+    hetero-fix (a precomputed map file) is not ported and raises."""
+    if method == "hetero-fix":
+        raise ValueError("partition_method='hetero-fix' (a precomputed map file) is not "
+                         "ported yet (ROADMAP §1 item 6)")
     if method == "homo":
         return homo_partition(len(labels), client_num, seed=seed)
     if method == "hetero":

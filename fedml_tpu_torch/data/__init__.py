@@ -3,13 +3,38 @@
 :class:`FedDataset` keeps every client's records padded to one shape and
 stacked along a leading client axis, with a mask marking real records.
 Arrays are host numpy; ``FedAvgAPI`` moves them to the device.
+
+Loaders register under the reference's ``--dataset`` names
+(:func:`register_dataset`) and :func:`load_dataset` dispatches on them. A
+name the JAX package knows but the port does not load yet raises
+``NotImplementedError`` with its ROADMAP item.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
+
+_LOADERS: dict[str, Callable[..., "FedDataset"]] = {}
+
+#: the JAX package's dataset names whose loaders are not ported yet
+UNPORTED_DATASETS = {
+    **{n: "ROADMAP §1 item 10 (loaders: stackoverflow)"
+       for n in ("stackoverflow_lr", "stackoverflow_nwp")},
+    **{n: "ROADMAP §1 item 10 (loaders: segmentation)" for n in ("pascal_voc", "coco_seg")},
+    **{n: "ROADMAP §1 item 10 (loaders: imagenet)"
+       for n in ("ILSVRC2012", "imagenet", "gld23k", "gld160k")},
+}
+
+
+def register_dataset(*names: str):
+    def deco(fn):
+        for n in names:
+            _LOADERS[n] = fn
+        return fn
+    return deco
 
 
 @dataclass
@@ -29,7 +54,38 @@ class FedDataset:
     def num_clients(self) -> int:
         return int(self.train_x.shape[0])
 
+    @property
+    def train_data_num(self) -> int:
+        return int(self.train_counts.sum())
+
+    @property
+    def test_data_num(self) -> int:
+        return int(self.test_mask.sum())
+
     def client_slice(self, idx: np.ndarray):
         """The sampled clients' stacked (x, y, mask, counts)."""
         return (self.train_x[idx], self.train_y[idx], self.train_mask[idx],
                 self.train_counts[idx])
+
+
+def _register_all() -> None:
+    from fedml_tpu_torch.data import (cifar, crossdevice, femnist, mnist,  # noqa: F401
+                                      shakespeare, synthetic)
+
+
+def load_dataset(name: str, **kw) -> FedDataset:
+    """Dispatch on the reference's ``--dataset`` values (synthetic_1_1,
+    mnist, femnist, fed_cifar100, cifar10, cifar100, cinic10, shakespeare,
+    fed_shakespeare, stackoverflow_lr_full, ...). Loaders ignore keyword
+    arguments they do not take."""
+    _register_all()
+    if name in UNPORTED_DATASETS:
+        raise NotImplementedError(f"dataset {name!r} is not ported yet ({UNPORTED_DATASETS[name]})")
+    if name not in _LOADERS:
+        raise KeyError(f"unknown dataset {name!r}; known: {sorted(_LOADERS)}")
+    return _LOADERS[name](**kw)
+
+
+def known_datasets() -> list[str]:
+    _register_all()
+    return sorted(_LOADERS)

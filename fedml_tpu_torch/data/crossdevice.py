@@ -21,7 +21,7 @@ from typing import Callable
 
 import numpy as np
 
-from fedml_tpu_torch.data import FedDataset
+from fedml_tpu_torch.data import FedDataset, register_dataset
 from fedml_tpu_torch.data.batching import pad_eval_pool
 
 #: the stackoverflow LR task's widths (``fedml_tpu/data/stackoverflow.py``):
@@ -187,6 +187,7 @@ def make_synthetic_crossdevice(name: str, input_dim: int, classes: int, num_clie
         task="tag_prediction" if multilabel else "classification", name=name)
 
 
+@register_dataset("stackoverflow_lr_full")
 def load_stackoverflow_lr_full(client_num_in_total: int = 342_477, batch_size: int = 10,
                                seed: int = 0, **_) -> CrossDeviceDataset:
     """The stackoverflow LR task at its real scale, 342,477 clients, with

@@ -19,7 +19,7 @@ from glob import glob
 
 import numpy as np
 
-from fedml_tpu_torch.data import FedDataset
+from fedml_tpu_torch.data import FedDataset, register_dataset
 from fedml_tpu_torch.data.batching import pad_and_stack_clients, pad_eval_pool
 
 SEQ_LEN = 80
@@ -66,6 +66,7 @@ def _synthetic_nwp(name: str, num_clients: int, vocab: int, seq_len: int, batch_
     )
 
 
+@register_dataset("shakespeare")
 def load_shakespeare(data_dir: str = "./data/shakespeare", client_num_in_total: int = 715,
                      batch_size: int = 4, seed: int = 0, **_) -> FedDataset:
     train_dir = os.path.join(data_dir, "train")
@@ -95,6 +96,7 @@ def load_shakespeare(data_dir: str = "./data/shakespeare", client_num_in_total: 
     )
 
 
+@register_dataset("fed_shakespeare")
 def load_fed_shakespeare(data_dir: str = "./data/fed_shakespeare/datasets",
                          client_num_in_total: int = 715, batch_size: int = 4, seed: int = 0,
                          **_) -> FedDataset:

@@ -1,0 +1,128 @@
+"""Experiment entry points (counterpart of ``fedml_tpu/experiments``).
+
+One dispatcher, :func:`run_experiment`, serves every algorithm; the
+per-algorithm ``main_*`` modules are thin aliases of ``run.main``, so
+``python -m fedml_tpu_torch.experiments.main_fedavg --dataset mnist --model
+lr`` has the reference's invocation shape and ``python -m
+fedml_tpu_torch.experiments.run --algorithm X`` is the fed_launch form.
+:data:`ALGORITHMS` is the JAX package's tuple, so ``--algorithm`` takes the
+same names; a name whose algorithm is not ported yet raises
+``NotImplementedError`` with its ROADMAP item. Runs go to the GPU unless the
+caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from typing import Optional, Union
+
+import torch
+
+from fedml_tpu_torch.core.config import FedConfig, check_ported
+
+log = logging.getLogger(__name__)
+
+ALGORITHMS = (
+    "fedavg", "crosssilo_fedavg", "fedopt", "fedprox", "fednova", "fedagc",
+    "fedavg_robust", "hierarchical", "decentralized", "turboaggregate",
+    "fedgkt", "fednas", "fedseg", "splitnn", "vfl", "centralized",
+    "silo_fedavg", "silo_fedopt", "silo_fednova", "silo_fedagc",
+    "crosssilo_fedopt", "crosssilo_fednova", "crosssilo_fedagc",
+    "crosssilo_fedavg_robust", "crosssilo_fedprox", "crosssilo_decentralized",
+    "crosssilo_fedseg", "crosssilo_hierarchical", "crosssilo_fednas",
+    "streaming_fedavg", "fedavg_edge",
+)
+
+#: the ported algorithms (the crosssilo_* ones on the mesh of the initialised
+#: process group, or one rank without one)
+PORTED = ("fedavg", "fedopt", "fedprox", "fednova", "fedagc", "centralized",
+          "crosssilo_fedavg", "crosssilo_fedopt", "crosssilo_fedprox", "crosssilo_fednova",
+          "crosssilo_fedagc")
+
+_ITEM9 = "ROADMAP §1 item 9 (the algorithm zoo)"
+#: algorithm -> the ROADMAP item that ports it
+UNPORTED = {
+    **{a: _ITEM9 for a in ALGORITHMS if a not in PORTED},
+    "fedavg_robust": "ROADMAP §1 item 9 (robust)",
+    "crosssilo_fedavg_robust": "ROADMAP §1 items 4c and 9 (robust)",
+    "hierarchical": "ROADMAP §1 item 9 (hierarchical)",
+    "crosssilo_hierarchical": "ROADMAP §1 items 4b and 9 (hierarchical)",
+    "silo_fedavg": "ROADMAP §1 item 9 (silo)",
+    "silo_fedopt": "ROADMAP §1 item 9 (silo)",
+    "silo_fednova": "ROADMAP §1 item 9 (silo)",
+    "silo_fedagc": "ROADMAP §1 item 9 (silo)",
+    "streaming_fedavg": "ROADMAP §1 item 9 (streaming_fedavg)",
+    "vfl": "ROADMAP §1 items 9 and 10 (vfl, vertical loaders)",
+    "fedavg_edge": "ROADMAP §1 item 11 (edge runtimes)",
+}
+
+
+def _bundle_for(config: FedConfig, ds):
+    """The model of ``config.model`` for ``ds`` (no ``bn_impl`` or dtype: a
+    launched ResNet takes the plain BatchNorm, as the JAX launcher's does)."""
+    from fedml_tpu_torch.models import create_model
+
+    if config.class_num is not None and config.class_num != ds.class_num:
+        raise ValueError(f"class_num={config.class_num}, but {config.dataset!r} has "
+                         f"{ds.class_num} classes")
+    return create_model(config.model, ds.class_num, input_shape=ds.train_x.shape[2:] or None)
+
+
+def _load(config: FedConfig):
+    from fedml_tpu_torch.data import load_dataset
+
+    # loader parameter names vary (client_num_in_total vs num_clients);
+    # every loader ignores unknown kwargs, so pass both spellings
+    return load_dataset(
+        config.dataset, data_dir=config.data_dir,
+        client_num_in_total=config.client_num_in_total,
+        num_clients=config.client_num_in_total,
+        partition_method=config.partition_method, partition_alpha=config.partition_alpha,
+        batch_size=config.batch_size, seed=config.seed)
+
+
+def run_experiment(config: FedConfig, algorithm: str,
+                   device: Optional[Union[str, torch.device]] = None) -> dict:
+    """Build data, model and API for ``algorithm``, train, and return the
+    history (also JSON-logged). On success, signals a sweep orchestrator
+    listening on ``FEDML_SWEEP_PIPE``, once per experiment."""
+    from fedml_tpu_torch.utils.metrics import notify_sweep_complete
+
+    result = _run_experiment(config, algorithm, device)
+    notify_sweep_complete()
+    return result
+
+
+def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
+    algorithm = algorithm.lower()
+    if algorithm not in ALGORITHMS:
+        raise KeyError(f"unknown algorithm {algorithm!r}; known: {ALGORITHMS}")
+    if config.rank is not None and algorithm != "fedavg_edge":
+        raise ValueError(
+            "--rank/--world_size start one process of a multi-process deployment, which only "
+            f"the fedavg_edge algorithm supports (got --algorithm {algorithm})")
+    if algorithm in UNPORTED:
+        raise NotImplementedError(f"--algorithm {algorithm} is not ported yet "
+                                  f"({UNPORTED[algorithm]})")
+    check_ported(config)
+
+    from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+    from fedml_tpu_torch.algorithms.fedagc import CrossSiloFedAGCAPI, FedAGCAPI
+    from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
+    from fedml_tpu_torch.algorithms.fednova import CrossSiloFedNovaAPI, FedNovaAPI
+    from fedml_tpu_torch.algorithms.fedopt import CrossSiloFedOptAPI, FedOptAPI
+    from fedml_tpu_torch.algorithms.fedprox import CrossSiloFedProxAPI, FedProxAPI
+
+    apis = {
+        "fedavg": FedAvgAPI, "fedopt": FedOptAPI, "fedprox": FedProxAPI,
+        "fednova": FedNovaAPI, "fedagc": FedAGCAPI, "centralized": CentralizedTrainer,
+        "crosssilo_fedavg": CrossSiloFedAvgAPI, "crosssilo_fedopt": CrossSiloFedOptAPI,
+        "crosssilo_fedprox": CrossSiloFedProxAPI, "crosssilo_fednova": CrossSiloFedNovaAPI,
+        "crosssilo_fedagc": CrossSiloFedAGCAPI,
+    }
+    ds = _load(config)
+    result = apis[algorithm](ds, config, _bundle_for(config, ds), device=device).train()
+    log.info("result %s", json.dumps({k: v for k, v in dict(result).items()
+                                      if isinstance(v, (int, float, str))}))
+    return result

@@ -76,7 +76,7 @@ def create_model(model_name: str, output_dim: int,
                  input_shape: Optional[Sequence[int]] = None, **kw) -> ModelBundle:
     """Factory keyed by the reference's --model flag values. Every factory
     takes ``input_shape`` (None: its default); ``lr`` sizes its layer by it."""
-    from fedml_tpu_torch.models import linear, resnet, transformer  # noqa: F401
+    from fedml_tpu_torch.models import cnn, linear, resnet, transformer  # noqa: F401
 
     if model_name not in _REGISTRY:
         raise KeyError(f"unknown or unported model {model_name!r}; known: {sorted(_REGISTRY)}")

@@ -2,10 +2,14 @@
 ``chip_smoke.py``, the port's tools (``tools/torch_*.py``) or the rank
 that ``tests/test_torch_crosssilo.py`` spawns, imports JAX, flax, optax or
 the JAX package, and the package's modules import without a GPU, nvcc or
-triton."""
+triton. The launcher, the dataset registry with every loader, the
+checkpoint and metrics modules load no JAX module at run time either."""
 
 import ast
 import importlib
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -41,3 +45,30 @@ def test_every_module_imports_on_a_cpu_only_host():
         rel = path.relative_to(ROOT).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         importlib.import_module(".".join(parts))
+
+
+def test_new_modules_are_covered():
+    rels = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("experiments/__init__.py", "experiments/run.py", "experiments/main_fedavg.py",
+                "core/serialization.py", "utils/checkpoint.py", "data/cifar.py",
+                "data/mnist.py", "data/femnist.py", "models/cnn.py",
+                "algorithms/centralized.py"):
+        assert f"fedml_tpu_torch/{mod}" in rels, mod
+
+
+def test_the_launcher_loads_no_jax_at_run_time():
+    code = (
+        "import sys\n"
+        "from fedml_tpu_torch.experiments import run\n"
+        "from fedml_tpu_torch.data import known_datasets, load_dataset\n"
+        "import fedml_tpu_torch.utils.checkpoint, fedml_tpu_torch.algorithms.centralized\n"
+        "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    out = subprocess.run([sys.executable, "-m", "fedml_tpu_torch.experiments.run", "--help"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "--resume_from" in out.stdout, out.stderr[-2000:]

@@ -1,0 +1,249 @@
+"""The command-line entry point and ``train()`` against the JAX package's.
+
+- ``run.main(argv, device="cpu")`` runs every ported algorithm with
+  ``--ci 1`` and prints the last-line JSON; ``--result_json`` writes the
+  full dict; an unported algorithm raises ``NotImplementedError`` naming its
+  ROADMAP item, an unknown one ``KeyError``, ``--rank`` ``ValueError`` (as
+  the JAX launcher does); each ported algorithm has its ``main_*`` alias,
+  which runs on the GPU by default and raises without one.
+- ``train()``'s history (eval rounds, Test/Acc, Test/Loss) matches the JAX
+  package's ``train()`` on ``lr``, with JAX's per-epoch orders injected
+  through ``order_hook``: losses rtol 1e-5 (tests/test_torch_fedavg.py's).
+- Full participation with one full-batch step a client equals centralized
+  training on ``lr`` and ``cnn`` within relative 1e-4 (the gate of
+  tests/test_fedavg.py:26 and :49).
+- ``merge_clients`` gives arrays bit-equal to the JAX package's on a
+  hetero dataset with padding, and ``CentralizedTrainer`` with full-batch
+  steps (one batch of every record, so no shuffle order enters) matches the
+  JAX package's from its initial weights on ``lr`` and ``cnn``: Test/Loss and
+  Test/Acc history rtol 1e-5, variables rtol 1e-5 / atol 1e-6. A field that
+  only the federated loop reads raises at its construction.
+"""
+
+import json
+import runpy
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fedml_tpu.algorithms.centralized import CentralizedTrainer as JaxCentralizedTrainer
+from fedml_tpu.algorithms.centralized import merge_clients as jax_merge_clients
+from fedml_tpu.algorithms.fedavg import FedAvgAPI as JaxFedAvgAPI
+from fedml_tpu.core.config import FedConfig as JaxFedConfig
+from fedml_tpu.data.synthetic import make_synthetic_classification as jax_synthetic
+from fedml_tpu.data.synthetic import make_synthetic_lr as jax_make_synthetic_lr
+from fedml_tpu.experiments import ALGORITHMS as JAX_ALGORITHMS
+from fedml_tpu.models import create_model as jax_create_model
+from fedml_tpu_torch.algorithms.centralized import (FEDERATED_ONLY_FIELDS, CentralizedTrainer,
+                                                    merge_clients)
+from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.core.config import FedConfig
+from fedml_tpu_torch.data.synthetic import make_synthetic_classification, make_synthetic_lr
+from fedml_tpu_torch.experiments import ALGORITHMS, PORTED, UNPORTED, run_experiment
+from fedml_tpu_torch.experiments.run import main
+from fedml_tpu_torch.models import create_model
+from fedml_tpu_torch.models.convert import flax_to_torch
+
+SMALL = ("--dataset synthetic_1_1 --model lr --client_num_in_total 6 --client_num_per_round 3 "
+         "--batch_size 10 --lr 0.3 --ci 1").split()
+
+
+def test_algorithm_names_are_jax_s():
+    assert ALGORITHMS == JAX_ALGORITHMS
+    assert set(PORTED) | set(UNPORTED) == set(ALGORITHMS) and not set(PORTED) & set(UNPORTED)
+
+
+@pytest.mark.parametrize("algorithm", PORTED)
+def test_main_runs_each_ported_algorithm(algorithm, capsys):
+    result = main(SMALL + ["--algorithm", algorithm], device="cpu")
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["algorithm"] == algorithm
+    assert result["round"] == [0, 1] and last["round"] == 1       # --ci: 2 rounds
+    assert np.isfinite(last["Test/Loss"]) and 0.0 <= last["Test/Acc"] <= 1.0
+    if algorithm != "centralized":
+        assert last["rounds_per_sec"] == result["timing"]["rounds_per_sec"] > 0
+
+
+def test_result_json_holds_the_full_history(tmp_path, capsys):
+    path = tmp_path / "r.json"
+    main(SMALL + ["--comm_round", "3", "--ci", "0", "--frequency_of_the_test", "1",
+                  "--result_json", str(path)], device="cpu")
+    full = json.loads(path.read_text())
+    assert full["algorithm"] == "fedavg" and full["round"] == [0, 1, 2]
+    assert len(full["Test/Acc"]) == 3 and "time/wall_s" in full["timing"]
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["Test/Acc"] == full["Test/Acc"][-1]
+
+
+@pytest.mark.parametrize("algorithm", sorted(UNPORTED))
+def test_unported_algorithm_raises(algorithm):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_experiment(FedConfig(dataset="synthetic_1_1"), algorithm, device="cpu")
+
+
+def test_unknown_algorithm_rank_and_class_num():
+    with pytest.raises(KeyError):
+        run_experiment(FedConfig(), "fedsgd", device="cpu")
+    with pytest.raises(SystemExit):
+        main(SMALL + ["--algorithm", "fedsgd"], device="cpu")
+    with pytest.raises(ValueError, match="--rank"):
+        run_experiment(FedConfig(rank=1, world_size=3), "fedavg", device="cpu")
+    with pytest.raises(ValueError, match="class_num"):
+        run_experiment(FedConfig(dataset="synthetic_1_1", class_num=3), "fedavg", device="cpu")
+    with pytest.raises(NotImplementedError, match="norm_bound"):
+        main(SMALL + ["--norm_bound", "1.0"], device="cpu")
+
+
+@pytest.mark.parametrize("algorithm", PORTED)
+def test_main_alias_defaults_to_its_algorithm_on_the_gpu(algorithm, monkeypatch):
+    seen = {}
+    import fedml_tpu_torch.experiments.run as run
+
+    def fake_run(config, alg, device=None):
+        seen.update(algorithm=alg, device=device)
+        return run_experiment(config, alg, device=device)
+
+    monkeypatch.setattr(run, "run_experiment", fake_run)
+    monkeypatch.setattr(sys, "argv", [f"main_{algorithm}.py"] + SMALL)
+    module = f"fedml_tpu_torch.experiments.main_{algorithm}"
+    monkeypatch.delitem(sys.modules, module, raising=False)   # run it fresh, as -m does
+    if torch.cuda.is_available():
+        runpy.run_module(module, run_name="__main__")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            runpy.run_module(module, run_name="__main__")
+    assert seen == {"algorithm": algorithm, "device": None}
+
+
+def _jax_orders(seed: int, epochs: int, round_idx: int, cohort: int, n_pad: int):
+    rk = jax.random.fold_in(jax.random.key(seed), round_idx)
+    return [[torch.from_numpy(np.asarray(jax.random.permutation(ek, n_pad)).astype(np.int64))
+             for ek in jax.random.split(ck, epochs)]
+            for ck in jax.random.split(rk, cohort)]
+
+
+def test_train_history_matches_jax():
+    run = dict(model="lr", dataset="synthetic_1_1", client_num_in_total=8,
+               client_num_per_round=3, comm_round=5, batch_size=10, epochs=2, lr=0.3,
+               frequency_of_the_test=2, seed=4)
+    jds = jax_make_synthetic_lr(num_clients=8, batch_size=10, seed=4)
+    japi = JaxFedAvgAPI(jds, JaxFedConfig(**run, device_data="off", bucket_quantum_batches=0),
+                        jax_create_model("lr", jds.class_num, input_shape=jds.train_x.shape[2:]))
+    init = flax_to_torch(jax.tree.map(np.asarray, japi.variables))
+    want = japi.train()
+    ds = make_synthetic_lr(num_clients=8, batch_size=10, seed=4)
+    n_pad = ds.train_x.shape[1]
+    api = FedAvgAPI(ds, FedConfig(**run, device_data="on"), device="cpu",
+                    order_hook=lambda r, i: _jax_orders(4, 2, r, 3, n_pad)[i])
+    api.variables = init
+    got = api.train()
+    assert got["round"] == want["round"] == [0, 2, 4]
+    np.testing.assert_allclose(got["Test/Loss"], want["Test/Loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["Test/Acc"], want["Test/Acc"], rtol=1e-5)
+    assert set(got["timing"]) >= {"time/train_s", "time/eval_s", "time/wall_s", "rounds_per_sec"}
+
+
+def _rel_diff(a: dict, b: dict) -> float:
+    diff = torch.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
+    return float(diff / torch.sqrt(sum((b[k] ** 2).sum() for k in b)).clamp(min=1e-9))
+
+
+@pytest.mark.parametrize("model", ["lr", "cnn"])
+def test_full_participation_equals_centralized(model):
+    """One full-batch step a client, every client a round: the weighted mean
+    of the clients' steps is one full-batch step of the merged data."""
+    if model == "lr":
+        ds = make_synthetic_classification("tiny", (12,), 3, 4, records_per_client=10,
+                                           partition_method="homo", batch_size=8, seed=0)
+        extra = dict(comm_round=3, lr=0.5, seed=7, frequency_of_the_test=1)
+    else:
+        ds = make_synthetic_classification("convq", (12, 12, 1), 3, 4, records_per_client=8,
+                                           partition_method="homo", batch_size=8, seed=2)
+        extra = dict(comm_round=2, lr=0.2, seed=5, frequency_of_the_test=10)
+    n_pad = ds.train_x.shape[1]
+    cfg = FedConfig(model=model, dataset=ds.name, client_num_in_total=4, client_num_per_round=4,
+                    epochs=1, batch_size=n_pad, client_optimizer="sgd", **extra)
+    fed = FedAvgAPI(ds, cfg, create_model(model, ds.class_num, input_shape=ds.train_x.shape[2:]),
+                    device="cpu")
+    fed.train()
+    cen = CentralizedTrainer(ds, cfg.replace(batch_size=int(ds.train_counts.sum())),
+                             create_model(model, ds.class_num, input_shape=ds.train_x.shape[2:]),
+                             device="cpu")
+    h = cen.train()
+    assert h["round"][-1] == cfg.comm_round - 1
+    assert _rel_diff(fed.variables, cen.variables) < 1e-4
+
+
+def test_merge_clients_is_bit_equal_to_jax():
+    data = dict(name="merge", input_shape=(5,), classes=3, num_clients=5, records_per_client=13,
+                test_records=8, partition_method="hetero", batch_size=8, seed=3)
+    ds, jds = make_synthetic_classification(**data), jax_synthetic(**data)
+    assert (ds.train_mask == 0).any()                 # the clients are padded
+    for got, want in zip(merge_clients(ds, 7), jax_merge_clients(jds, 7)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert merge_clients(ds, 7)[2].min() == 0         # and so is the pool
+
+
+_CENTRALIZED = {
+    "lr": (dict(input_shape=(12,), records_per_client=10, seed=0),
+           dict(comm_round=3, lr=0.5, momentum=0.5, epochs=2, seed=7, frequency_of_the_test=1)),
+    "cnn": (dict(input_shape=(12, 12, 1), records_per_client=8, seed=2),
+            dict(comm_round=2, lr=0.05, momentum=0.5, epochs=2, seed=5,
+                 frequency_of_the_test=1)),
+}
+
+
+@pytest.mark.parametrize("model", sorted(_CENTRALIZED))
+def test_centralized_trainer_matches_jax(model):
+    data, run = _CENTRALIZED[model]
+    data = dict(name="centralized", classes=3, num_clients=4, test_records=24,
+                partition_method="hetero", batch_size=8, **data)
+    ds, jds = make_synthetic_classification(**data), jax_synthetic(**data)
+    run = dict(model=model, dataset="centralized", client_num_in_total=4, client_num_per_round=4,
+               batch_size=int(ds.train_counts.sum()), client_optimizer="sgd", **run)
+    shape = ds.train_x.shape[2:]
+    jtr = JaxCentralizedTrainer(jds, JaxFedConfig(**run),
+                                jax_create_model(model, jds.class_num, input_shape=shape))
+    init = flax_to_torch(jax.tree.map(np.asarray, jtr.variables))
+    want = jtr.train()
+    tr = CentralizedTrainer(ds, FedConfig(**run), create_model(model, ds.class_num,
+                                                                input_shape=shape), device="cpu")
+    tr.variables = init
+    got = tr.train()
+    assert got["round"] == want["round"] == list(range(run["comm_round"]))
+    np.testing.assert_allclose(got["Test/Loss"], want["Test/Loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["Test/Acc"], want["Test/Acc"], rtol=1e-5)
+    final = flax_to_torch(jax.tree.map(np.asarray, jtr.variables))
+    assert sorted(final) == sorted(tr.variables)
+    for k, v in final.items():
+        np.testing.assert_allclose(tr.variables[k].numpy(), v.numpy(), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+_FEDERATED_ONLY = {
+    "checkpoint_dir": "ckpt", "resume_from": "ckpt/latest.ckpt", "profile_dir": "prof",
+    "enable_wandb": True, "pack_lanes": 2, "async_rounds": True,
+    "stream_aggregate": "deterministic",
+    "cohort_chunk": {"cohort_chunk": 2, "stream_aggregate": "deterministic"},
+    "cohort_policy": "speed",
+    "failure_prob": 0.25, "host_pipeline_depth": 2, "host_pipeline_workers": 2,
+    "device_data": "off",
+}
+
+
+def test_federated_only_fields_are_the_listed_ones():
+    assert set(_FEDERATED_ONLY) == set(FEDERATED_ONLY_FIELDS) | {"device_data"}
+
+
+@pytest.mark.parametrize("field", sorted(_FEDERATED_ONLY))
+def test_centralized_refuses_a_field_it_does_not_read(field):
+    value = _FEDERATED_ONLY[field]
+    ds = make_synthetic_lr(num_clients=4, batch_size=10, seed=0)
+    fields = value if isinstance(value, dict) else {field: value}
+    cfg = FedConfig(model="lr", dataset="synthetic_1_1", client_num_in_total=4,
+                    client_num_per_round=4, **fields)
+    with pytest.raises(NotImplementedError, match=field):
+        CentralizedTrainer(ds, cfg, device="cpu")
