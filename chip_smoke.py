@@ -32,7 +32,10 @@ Phases (any failure raises and the script exits non-zero):
    the two lanes' plain bf16 and f32 steps (logits, gradients, BN statistics);
    a control (round 0 unpacked and packed with the plain BN, a change of
    summation order only); the grouped conv timed against two ungrouped
-   convs and one lane's; and a profile of 5 packed steps.
+   convs and one lane's, and one 3x3 conv a stage of L = 2, 4, 8 lanes
+   under the grouped and the blockdiag lowering (and blockdiag's patch
+   gather and scatter alone) beside their useful and streamed bounds; and
+   a profile of 5 packed steps.
 4c. The zoo on the same federation and widths: 2 packed rounds of FedOpt
    with server adam (server_lr 0.01; bench.py's adaptive arm), one packed
    round each of FedProx (mu 0.01), FedNova (momentum 0.9) and FedAGC
@@ -41,6 +44,20 @@ Phases (any failure raises and the script exits non-zero):
    FedOpt's server state on the card and nonzero, small f32 FedOpt-adam and
    client-adam rounds packed against unpacked, the server step's time, a
    profile of 5 packed FedOpt steps and one of 5 client-adam steps.
+4f. The joint packed lowerings (``packed_conv``), the counterpart of
+   ``bench.py``'s packed-conv A/B (``_bench_packed_conv_ab``), on phase 4b's
+   federation and model: off, grouped and blockdiag at 2 lanes, FedOpt-adam
+   (server lr 0.01) under off and blockdiag, off and blockdiag at 4 and 8
+   lanes. Each arm: 2 warm rounds, then the same 2 rounds timed, ending in a
+   sync: real images/s, rounds/s, the speed-up over off, executed packed
+   steps a round, 57 K1 + 57 K2 and one replay an executed step, a 5-step
+   profile (device ms a step, busy share, the conv/GEMM, im2col and copy
+   families), useful and streamed conv FLOPs a step, peak memory. Gates:
+   round 0 under grouped equal to off bit for bit (cuDNN's deterministic
+   algorithms); an f32 blockdiag round of a small CifarResNet within the
+   end-to-end bound of its off round; the f32 blockdiag packed mesh round
+   within 1e-5 (relative norm) of the blockdiag simulation round. It runs
+   after phase 4c, before 4d and 4e.
 4d. The cross-silo paradigm (``CrossSiloFedAvgAPI``, one rank) in
    ``bench.py``'s cross-silo configuration: the 32 flagship silos, every
    one every round, data resident; arms (a) the packed mesh (2 lanes), (b)
@@ -134,12 +151,12 @@ Phases (any failure raises and the script exits non-zero):
    the eval rounds equal, 57 K1 + 57 K2 and one replay an executed packed
    step; save and restore ms, the checkpoint's bytes, ``history["timing"]``.
 
-Every live step of phases 4, 4b, 4c, 4d, 4e, 8, 11 and 13 is a replay of the step
+Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11 and 13 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4d, 4e and 13 (in 4c the FedOpt-adam packed run and the client-adam plain
-run; 4d's arms take their steps from the same trainers; 4e's are neither
+but 4f, 4d, 4e and 13 (in 4c the FedOpt-adam packed run and the client-adam plain
+run; 4d's and 4f's arms take their steps from the same trainers; 4e's are neither
 re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
 step (``capture=False``) twice and captured once: when the eager runs
@@ -197,10 +214,14 @@ MAIN_PATH_BNS = {
 }
 BNS_PER_STEP = sum(MAIN_PATH_BNS.values())      # 57
 # the packed flagship (pack_lanes=2): the same BNs, each over both lanes'
-# channels, [rows, 2*C]
+# channels, [rows, 2*C]; phase 4f also packs 4 and 8 lanes, [rows, L*C]
 PACK_LANES = 2
-PACKED_BNS = {(n, PACK_LANES * C, relu): k for (n, C, relu), k in MAIN_PATH_BNS.items()}
-FOLDED_SHAPES = sorted({(n, C) for n, C, _ in PACKED_BNS}, reverse=True)
+PACKED_CONV_LANES = (2, 4, 8)
+PACKED_BNS_BY_LANES = {L: {(n, L * C, relu): k for (n, C, relu), k in MAIN_PATH_BNS.items()}
+                       for L in PACKED_CONV_LANES}
+PACKED_BNS = PACKED_BNS_BY_LANES[PACK_LANES]
+FOLDED_SHAPES = sorted({(n, C) for bns in PACKED_BNS_BY_LANES.values() for n, C, _ in bns},
+                       reverse=True)
 # K1 and K2 checks: the path's shapes and a ragged row count; C = 7 and C =
 # 300 (scalar loads; two columns a thread at 300 in bf16); shapes past the
 # on-chip capacity, whose second pass reads rows again from device memory.
@@ -336,7 +357,10 @@ def cuda_time_ms(fn, iters: int = 40, repeats: int = 5, warmup: int = 5) -> floa
 # count includes the sentinels, and a window whose work still lost records
 # is profiled again, at most ``PROFILE_ATTEMPTS`` times
 # (tools/torch_profile_window.py counts lost windows, plain and as here).
-SENTINELS = 16
+# Late windows have lost their first 17 records every time (after phase 4e,
+# and with phase 4f's windows before phase 4d's NCCL window), so 32, and a
+# window profiled again doubles them.
+SENTINELS = 32
 SENTINEL_CYCLES = 2_000
 PROFILE_PAD_S = 0.01
 PROFILE_ATTEMPTS = 5
@@ -401,11 +425,14 @@ def profile_window(fn, sentinels: int = SENTINELS, pad_s: float = PROFILE_PAD_S)
 
 def profiled(fn, what: str) -> tuple:
     """``fn()`` in a ``profile_window``. A window whose work lost device
-    records (``lost_device_records``) is profiled again; after
+    records (``lost_device_records``) is profiled again, behind twice the
+    sentinels; after
     ``PROFILE_ATTEMPTS`` such windows this raises. Returns ``(profile,
     events)`` as ``profile_window`` does."""
-    for _ in range(PROFILE_ATTEMPTS):
-        prof, events, sentinel_lost = profile_window(fn)
+    for attempt in range(PROFILE_ATTEMPTS):
+        # each window again opens behind twice the sentinels of the last
+        sentinels = SENTINELS * 2 ** attempt
+        prof, events, sentinel_lost = profile_window(fn, sentinels)
         PROFILE_TALLY["windows"] += 1
         PROFILE_TALLY["sentinel_records_lost"] += sentinel_lost
         PROFILE_TALLY["most_sentinel_records_lost"] = max(
@@ -420,7 +447,7 @@ def profiled(fn, what: str) -> tuple:
         t0 = launches[0].time_range.start
         detail = [(i, e.name, e.time_range.start - t0) for i, e in enumerate(launches)
                   if e.id not in recorded][:8]
-        log(f"[profile] {what}: {sentinel_lost} of {SENTINELS} sentinel records lost, and "
+        log(f"[profile] {what}: {sentinel_lost} of {sentinels} sentinel records lost, and "
             f"{lost} launches' device records of the work (index, call, us after its first "
             f"launch): {detail} of {len(launches)} launches; profiling again")
     raise AssertionError(f"{what}: the profiler lost device records in {PROFILE_ATTEMPTS} "
@@ -938,12 +965,17 @@ def kernel_family(name: str) -> str:
     if any(f"::{k}" in name or name.startswith(k) for k in
            ("bn_fwd_onepass", "bn_bwd_onepass")):
         return "bn kernels (K1/K2)"
+    # the blockdiag lowering's patch scatter (the backward of its strided
+    # windows); its forward gather is a direct copy (copies)
+    if any(k in low for k in ("unfold", "im2col", "col2im")):
+        return "im2col / col2im"
+    # cuBLAS's Hopper GEMMs are named nvjet_* (the blockdiag GEMMs)
     if any(k in low for k in ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "gemm",
-                              "nchw", "nhwc")):
+                              "nchw", "nhwc", "nvjet", "cutlass")):
         return "library convolution / gemm"
     if "multi_tensor" in low or "foreach" in low:
         return "optimizer (foreach)"
-    if "memcpy" in low or "memset" in low:
+    if any(k in low for k in ("memcpy", "memset", "direct_copy")):
         return "copies"
     return "other elementwise / reductions"
 
@@ -1175,7 +1207,8 @@ def eager_trainer(api):
     hooks = api._packing_hooks()
     return make_packed_cohort_train(api.bundle, api.task, int(api.dataset.train_x.shape[1]),
                                     client_transform=hooks.get("client_transform"),
-                                    reduce_extras=hooks.get("reduce_extras"), **kw)
+                                    reduce_extras=hooks.get("reduce_extras"),
+                                    packed_conv=api.config.packed_conv, **kw)
 
 
 def _outcome(res) -> dict:
@@ -1617,6 +1650,11 @@ PACKED_BF16_RATIO = 2.0
 # ResNet-56's 3x3 convs at batch 64, one per stage, (C, H = W): the packed
 # path's grouped conv over two lanes against two ungrouped convs and one
 PACKED_CONV_SHAPES = ((16, 32), (32, 16), (64, 8))
+# every conv of the flagship's twin, (Ci, Co, k, stride, H = W of the
+# input): the stem, each stage's 3x3, the stride-2 3x3 (SAME pads (0, 1))
+# and 1x1 projection of stages 2 and 3
+TWIN_CONVS = ((3, 16, 3, 1, 32), (16, 16, 3, 1, 32), (16, 32, 3, 2, 32), (16, 32, 1, 2, 32),
+              (32, 32, 3, 1, 16), (32, 64, 3, 2, 16), (32, 64, 1, 2, 16), (64, 64, 3, 1, 8))
 
 
 def _rel(a, b) -> float:
@@ -1761,6 +1799,66 @@ def packed_conv_timing() -> list:
             f"{rec['grouped_device_ms']} ({rec['grouped_ms']:.4f}), split x2 "
             f"{rec['split_device_ms']} ({rec['split_ms']:.4f}), one lane "
             f"{rec['one_lane_device_ms']} ({rec['one_lane_ms']:.4f})")
+    return {"l2_grouped_split_one": rows, "lowerings": lowering_timing(t)}
+
+
+def lowering_bound(impl: str, L: int, n: int, C: int, hw: int, elt: int = 2) -> dict:
+    """Bounds of one 3x3 SAME conv of L lanes, forward and backward (input
+    and weight gradients), bf16 on the tensor cores. Useful basis: each
+    lane's conv, x, dy and w read once, y, dx and dw written once, 3 x 2 *
+    n*hw^2*9*C^2 FLOPs a lane. Streamed basis (blockdiag): its GEMMs stream
+    L x those FLOPs, and its patch matrix [n*hw^2, L*9*C] is written and
+    read forward, read again by the weight gradient, and its gradient
+    written and read: 5 x its bytes more; the grouped conv's streamed
+    basis is its useful one."""
+    act = n * hw * hw * L * C
+    nbytes = elt * (4 * act + 2 * 9 * L * C * C)
+    flops = 3 * 2 * act * 9 * C
+    s_bytes, s_flops = ((nbytes + 5 * elt * 9 * act, L * flops) if impl == "blockdiag"
+                        else (nbytes, flops))
+    (ub, uby), (sb, sby) = (bound_ms(nbytes, flops, PEAK_BF16_FLOPS),
+                            bound_ms(s_bytes, s_flops, PEAK_BF16_FLOPS))
+    return {"useful_bytes": nbytes, "useful_flops": flops, "bound_ms": ub, "bound_by": uby,
+            "streamed_bytes": s_bytes, "streamed_flops": s_flops, "streamed_bound_ms": sb,
+            "streamed_bound_by": sby}
+
+
+def lowering_timing(t) -> list:
+    """Forward and backward (input and weight gradients) of one 3x3 conv a
+    stage of L = 2, 4, 8 lanes on the folded NHWC layout, bf16, batch 64,
+    under the grouped and the blockdiag lowering (``ops/packed_conv.py``),
+    and the blockdiag's patch gather alone with its backward (the scatter):
+    CUDA events and device ms per call beside the bounds
+    (``lowering_bound``). ``t(*shape)`` makes a bf16 tensor on the card."""
+    import torch
+
+    from fedml_tpu_torch.ops.packed_conv import conv_blockdiag, conv_grouped, patches
+
+    rows = []
+    for L in PACKED_CONV_LANES:
+        for C, hw in PACKED_CONV_SHAPES:
+            n = 64
+            x, w = t(n, hw, hw, L * C).requires_grad_(), t(L * C, C, 3, 3).requires_grad_()
+            gy, gp = t(n, hw, hw, L * C), t(n, hw, hw, L * C * 9)
+
+            def fwd_bwd(conv, x=x, w=w, gy=gy, L=L):
+                return torch.autograd.grad(conv(x, w, L), (x, w), gy)
+
+            rec = {"lanes": L, "C": C, "hw": hw, "n": n, **_time_fns({
+                "grouped_": lambda f=fwd_bwd: f(conv_grouped),
+                "blockdiag_": lambda f=fwd_bwd: f(conv_blockdiag),
+                "im2col_": lambda x=x, gp=gp: torch.autograd.grad(patches(x, 3, 3), x, gp)}),
+                   **{f"{impl}_bound": lowering_bound(impl, L, n, C, hw)
+                      for impl in ("grouped", "blockdiag")}}
+            rows.append(rec)
+            g, bd = rec["grouped_bound"], rec["blockdiag_bound"]
+            log(f"[time] lowering fwd+bwd L={L} {n}x{C}@{hw}x{hw} bf16, device ms (events): "
+                f"grouped {rec['grouped_device_ms']} ({rec['grouped_ms']:.4f}, bound "
+                f"{g['bound_ms']:.4f} {g['bound_by']}), blockdiag {rec['blockdiag_device_ms']} "
+                f"({rec['blockdiag_ms']:.4f}, bound {bd['bound_ms']:.4f} useful / "
+                f"{bd['streamed_bound_ms']:.4f} streamed {bd['streamed_bound_by']}), of it "
+                f"im2col gather + scatter {rec['im2col_device_ms']} ({rec['im2col_ms']:.4f})")
+    torch.cuda.synchronize()
     return rows
 
 
@@ -1888,6 +1986,279 @@ def phase_train_zoo(smi: str):
     return out
 
 
+# -- phase 4f: the joint packed lowerings ---------------------------------------
+
+# bench.py's packed-conv A/B (_bench_packed_conv_ab, bench.py:168): the
+# flagship's packed round under each lowering, its adaptive arm (FedOpt
+# with server adam at phase 4c's server lr), and packing at L = 4 and 8:
+# (label, lanes, packed_conv, FedOpt-adam)
+PACKED_CONV_ARMS = (
+    ("off-L2", 2, "off", False), ("grouped-L2", 2, "grouped", False),
+    ("blockdiag-L2", 2, "blockdiag", False),
+    ("fedopt-off-L2", 2, "off", True), ("fedopt-blockdiag-L2", 2, "blockdiag", True),
+    ("off-L4", 4, "off", False), ("blockdiag-L4", 4, "blockdiag", False),
+    ("off-L8", 8, "off", False), ("blockdiag-L8", 8, "blockdiag", False))
+# warm rounds, then the same rounds timed (bench.py's discipline: the timed
+# rounds' cohorts and steps are the warm ones')
+AB_WARM, AB_TIMED = 2, 2
+# the end-to-end bound of a joint lowering against off
+# (tests/test_packed_conv.py:177-192): weights 2 x W_RTOL / 4 x W_ATOL,
+# losses rtol 1e-2
+E2E_RTOL, E2E_ATOL, E2E_LOSS_RTOL = 2e-2, 6e-3, 1e-2
+PROFILE_FAMILIES = ("library convolution / gemm", "im2col / col2im", "copies",
+                    "bn kernels (K1/K2)")
+
+
+def step_conv_flops(api) -> dict:
+    """Conv FLOPs of one executed packed step (L lanes x the batch) of the
+    API's model: useful (each lane's convs forward, their input gradients
+    but the stem's, their weight gradients) and streamed (the blockdiag
+    GEMMs stream L x the useful FLOPs; the grouped conv the useful ones)."""
+    import torch
+
+    from fedml_tpu_torch.models.resnet import Conv
+
+    model, fwd = api.bundle.module, []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: fwd.append(2 * o.shape[1] * o.shape[2] * m.weight.numel()))
+        for m in model.modules() if isinstance(m, Conv)]
+    try:
+        model.eval()
+        with torch.no_grad():
+            model(torch.zeros(1, *api.bundle.input_shape, device=api.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    c = api.config
+    useful = c.pack_lanes * c.batch_size * (3 * sum(fwd) - fwd[0])    # the stem: no dgrad
+    return {"convs": len(fwd), "useful": useful,
+            "streamed": useful * (c.pack_lanes if c.packed_conv == "blockdiag" else 1)}
+
+
+def packed_conv_arm(label: str, lanes: int, impl: str, fedopt: bool, ds, smi: str) -> dict:
+    """One arm of the A/B: the flagship's packed round at ``lanes`` lanes
+    under ``impl``; AB_WARM rounds, then the same rounds timed, ending in a
+    sync: real images/s, rounds/s, executed packed steps, 57 K1 + 57 K2 and
+    one replay a step; a 5-step profile (device ms a step, busy share, the
+    conv/GEMM, im2col and copy families); conv FLOPs a step; peak memory
+    over the arm."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedopt import FedOptAPI
+    from fedml_tpu_torch.ops import batchnorm as bn
+    from fedml_tpu_torch.parallel.packed import executed_steps
+
+    tag = f"[packed_conv {label}]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    extra = dict(server_optimizer="adam", server_lr=ZOO_SERVER_LR) if fedopt else {}
+    api = flagship_api(api_cls=FedOptAPI if fedopt else None, ds=ds, pack_lanes=lanes,
+                       packed_conv=impl, **extra)
+    status = api.packed_status()
+    want = {"scheduled": True, "packed_conv_active": impl != "off",
+            "reason": "packed_conv=off" if impl == "off" else None}
+    if status != want or api._packed_train.packed_conv != impl:
+        raise AssertionError(f"{tag} packed_status {status}, lowering "
+                             f"{api._packed_train.packed_conv}; expected {want}")
+    warm, warm_s = _rounds(api, 0, AB_WARM)
+    plans = [api._packed_plan(api.sample(r)) for r in range(AB_TIMED)]
+    if any(p.n_lanes != lanes for p in plans):
+        raise AssertionError(f"{tag} plans of {[p.n_lanes for p in plans]} lanes")
+    steps = [len(executed_steps(p.live)) for p in plans]
+    bn.reset_launches()
+    r0 = replays(api)
+    losses, dt = _rounds(api, 0, AB_TIMED)
+    launches, replayed = dict(bn.LAUNCHES), replays(api) - r0
+    peak = {"allocated_bytes": torch.cuda.max_memory_allocated(),
+            "reserved_bytes": torch.cuda.max_memory_reserved()}
+    real = sum(api.round_counts(r)[0] for r in range(AB_TIMED))
+    if not all(np.isfinite(warm + losses)):
+        raise AssertionError(f"{tag} a loss is not finite: {warm + losses}")
+    for k in ("bn_fwd", "bn_bwd"):
+        if launches[k] != BNS_PER_STEP * sum(steps):
+            raise AssertionError(f"{tag} {k} launched {launches[k]} times; expected "
+                                 f"{BNS_PER_STEP} x {sum(steps)} executed packed steps")
+    if replayed != sum(steps):
+        raise AssertionError(f"{tag} {replayed} replays for {sum(steps)} steps")
+    prof = packed_step_profile(api)
+    for k, v in prof["kernels_by_name"].items():
+        if v != BNS_PER_STEP * prof["live_steps"]:
+            raise AssertionError(f"{tag} the profile counts {v} {k} over {prof['live_steps']} "
+                                 f"steps; expected {BNS_PER_STEP} a step")
+    fam = prof["device_ms_per_step_by_family"]
+    rec = {"lanes": lanes, "packed_conv": impl, "algorithm": type(api).__name__,
+           "setup_and_warm_s": time.perf_counter() - t0 - dt, "warm_round_s": warm_s / AB_WARM,
+           "losses": losses, "seconds": dt, "rounds_per_s": AB_TIMED / dt,
+           "real_images": real, "real_images_per_s": real / dt,
+           "executed_steps_per_round": steps, "launches": launches, "replays": replayed,
+           "step_profile": prof, "families_ms": {f: fam.get(f, 0.0) for f in PROFILE_FAMILIES},
+           "conv_flops_per_step": step_conv_flops(api), "peak_memory": peak}
+    f = rec["conv_flops_per_step"]
+    log(f"{tag} {AB_TIMED} rounds in {dt:.3f} s: {rec['rounds_per_s']:.4f} rounds/s, "
+        f"{rec['real_images_per_s']:.1f} real images/s; executed packed steps a round {steps}; "
+        f"5-step profile: device {prof['device_ms_per_step']:.3f} ms a step (busy "
+        f"{prof['device_busy_share']:.3f}, wall {prof['wall_ms_per_step']:.2f} ms), families "
+        f"{ {k: round(v, 4) for k, v in rec['families_ms'].items()} }; conv FLOPs a step "
+        f"useful {f['useful'] / 1e9:.2f} G, streamed {f['streamed'] / 1e9:.2f} G; peak "
+        f"{peak['allocated_bytes'] / 2**30:.2f} GiB allocated, "
+        f"{peak['reserved_bytes'] / 2**30:.2f} GiB reserved; {smi}")
+    del api
+    return rec
+
+
+def grouped_equals_off(ds) -> dict:
+    """Round 0 of the packed flagship (2 lanes, bf16, K1/K2) under grouped
+    and under off from the same weights, under cuDNN's deterministic
+    algorithms (its default ones may part two identical rounds): bit for
+    bit, since both run one grouped conv call."""
+    import torch
+
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        off, grouped = (flagship_api(ds=ds, pack_lanes=PACK_LANES, packed_conv=impl)
+                        for impl in ("off", "grouped"))
+        grouped.variables = {k: v.clone() for k, v in off.variables.items()}
+        losses = (float(off.run_round(0)), float(grouped.run_round(0)))
+        differ = [k for k, v in off.variables.items() if not torch.equal(grouped.variables[k], v)]
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    if differ or losses[0] != losses[1]:
+        raise AssertionError(f"[packed_conv] the grouped round differs from the off round: "
+                             f"losses {losses}, tensors {differ[:6]}")
+    log(f"[packed_conv] grouped round 0 equals the off round bit for bit (loss {losses[0]}), "
+        f"{len(off.variables)} tensors")
+    return {"loss": losses[0], "tensors": len(off.variables), "bit_identical": True}
+
+
+def blockdiag_e2e_check() -> dict:
+    """One f32 packed round of the small CifarResNet through K1/K2 (widths
+    8/16/16, 8x8 images, 4 clients, 3 a round, 2 lanes, 2 epochs;
+    ``packed_replay_check``'s round, TF32 off for F.conv2d and
+    torch.matmul) under blockdiag against the same round under off from the
+    same weights and orders, within the replay check's rtol 1e-4 / atol
+    1e-5 (loss rtol 1e-5); the distance printed as max |diff| and as its
+    share of that tolerance and of the end-to-end bound."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import ModelBundle
+    from fedml_tpu_torch.models.resnet import CifarResNet
+
+    ds = make_synthetic_classification(
+        "packed-check", (8, 8, 3), 10, 4, records_per_client=16, test_records=40,
+        partition_method="hetero", partition_alpha=0.5, batch_size=8, seed=SEED)
+    run = dict(model="cifar-small", client_num_in_total=4, client_num_per_round=3, comm_round=1,
+               batch_size=8, epochs=2, lr=0.05, momentum=0.9, seed=SEED, device_data="on",
+               pack_lanes=PACK_LANES)
+    off, bd = (FedAvgAPI(ds, FedConfig(**run, packed_conv=impl), ModelBundle(
+        "cifar-small", CifarResNet(1, 10, widths=(8, 16, 16), bn_impl="pallas"), (8, 8, 3)))
+        for impl in ("off", "blockdiag"))
+    bd.variables = {k: v.clone() for k, v in off.variables.items()}
+    loss_off, loss_bd = float(off.run_round(0)), float(bd.run_round(0))
+    worst, share, tight = 0.0, 0.0, 0.0
+    for k, v in off.variables.items():
+        d, ref = (bd.variables[k].float() - v.float()).abs(), v.float().abs()
+        worst = max(worst, float(d.max()))
+        share = max(share, float((d / (E2E_ATOL + E2E_RTOL * ref)).max()))
+        tight = max(tight, float((d / (1e-5 + 1e-4 * ref)).max()))
+    rec = {"loss_off": loss_off, "loss_blockdiag": loss_bd, "max_abs_diff": worst,
+           "share_of_bound": share, "share_of_replay_tolerance": tight,
+           "bound": {"rtol": E2E_RTOL, "atol": E2E_ATOL, "loss_rtol": E2E_LOSS_RTOL},
+           "gate": {"rtol": 1e-4, "atol": 1e-5, "loss_rtol": 1e-5}}
+    log(f"[packed_conv] f32 blockdiag round against off on the card: loss {loss_bd:.7f} vs "
+        f"{loss_off:.7f}, variables max |diff| {worst:.3g}: {share:.3g} of the bound rtol "
+        f"{E2E_RTOL} / atol {E2E_ATOL}, {tight:.3g} of rtol 1e-4 / atol 1e-5")
+    # held at the replay check's tolerance, which holds the round's update
+    # and not only its weights; the end-to-end bound above is looser in
+    # both terms
+    if (not share <= 1.0 or not tight <= 1.0
+            or not abs(loss_bd - loss_off) <= 1e-5 * abs(loss_off)):
+        raise AssertionError(f"[packed_conv] the f32 blockdiag round is outside rtol 1e-4 / "
+                             f"atol 1e-5 (loss rtol 1e-5) of the off round: {rec}")
+    return rec
+
+
+def lowering_check() -> dict:
+    """Each conv of the flagship's twin (``TWIN_CONVS``) at L = 2, 4, 8
+    lanes, batch 64, f32 (TF32 off), under blockdiag and grouped against
+    the per-lane convs (``conv_vmap``) on the same card tensors: the
+    forward and both gradients, each within 1e-4 (forward) or 1e-3
+    (gradients) relative to the reference and to its largest entry."""
+    import torch
+
+    from fedml_tpu_torch.ops.packed_conv import conv_blockdiag, conv_grouped, conv_vmap
+
+    rng = np.random.default_rng(SEED + 4)
+    dev = torch.device("cuda")
+
+    def t(*shape, scale=1.0):
+        return torch.tensor((rng.normal(size=shape) * scale).astype(np.float32), device=dev)
+
+    worst = {"y": 0.0, "dx": 0.0, "dw": 0.0}
+    for L in PACKED_CONV_LANES:
+        for ci, co, k, s, hw in TWIN_CONVS:
+            ho = -(-hw // s)
+            x = t(64, hw, hw, L * ci).requires_grad_()
+            w = t(L * co, ci, k, k, scale=(ci * k * k) ** -0.5).requires_grad_()
+            gy = t(64, ho, ho, L * co)
+            want = (conv_vmap(x, w, L, s),)
+            want += torch.autograd.grad(want[0], (x, w), gy)
+            for name, conv in (("blockdiag", conv_blockdiag), ("grouped", conv_grouped)):
+                y = conv(x, w, L, s)
+                if tuple(y.shape) != (64, ho, ho, L * co) or not y.is_contiguous():
+                    raise AssertionError(f"[packed_conv] {name} L={L} {ci}->{co} k{k} s{s}: "
+                                         f"output {tuple(y.shape)}, contiguous "
+                                         f"{y.is_contiguous()}")
+                got = (y,) + torch.autograd.grad(y, (x, w), gy)
+                for q, a, b, tol in zip(("y", "dx", "dw"), got, want, (1e-4, 1e-3, 1e-3)):
+                    a, b = a.detach(), b.detach()
+                    scale = float(b.abs().max())
+                    e = assert_close(f"[packed_conv] {name} {q} L={L} {ci}->{co} k{k} s{s}",
+                                     a, b, tol, tol * scale)
+                    worst[q] = max(worst[q], e / scale)
+    torch.cuda.synchronize()
+    log(f"[packed_conv] blockdiag and grouped against the per-lane convs, every twin conv at "
+        f"L = {PACKED_CONV_LANES}, batch 64, f32: largest |err| / max|ref| y {worst['y']:.3g}, "
+        f"dx {worst['dx']:.3g}, dw {worst['dw']:.3g} (bounds 1e-4, 1e-3, 1e-3)")
+    return {"convs": len(TWIN_CONVS) * len(PACKED_CONV_LANES), "worst_rel_to_max": worst}
+
+
+def phase_train_packed_conv(smi: str) -> dict:
+    """Phase 4f: bench.py's packed-conv A/B on the flagship (ResNet-56,
+    bn_impl="pallas", bf16, 8 of 32 clients, batch 64): off, grouped and
+    blockdiag at 2 lanes, FedOpt-adam under off and blockdiag, off and
+    blockdiag at 4 and 8 lanes (``packed_conv_arm``); the speed-up over off;
+    the gates: every twin conv under both lowerings against the per-lane
+    convs (``lowering_check``), grouped = off bit for bit, the f32 blockdiag
+    round within rtol 1e-4 / atol 1e-5 of off, the f32 blockdiag mesh round
+    within 1e-5 of the blockdiag simulation round."""
+    import gc
+
+    import torch
+
+    ds = flagship_data()
+    out, launches = {"arms": {}, "lowering_check": lowering_check()}, {"bn_fwd": 0, "bn_bwd": 0}
+    for label, lanes, impl, fedopt in PACKED_CONV_ARMS:
+        rec = out["arms"][label] = packed_conv_arm(label, lanes, impl, fedopt, ds, smi)
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label, rec in out["arms"].items():
+        base = out["arms"][label.replace(rec["packed_conv"], "off")]
+        rec["speedup_over_off"] = rec["real_images_per_s"] / base["real_images_per_s"]
+    log("[packed_conv] real images/s (speed-up over off), device ms a packed step: " + "; ".join(
+        f"{label} {r['real_images_per_s']:.1f} ({r['speedup_over_off']:.3f}x), "
+        f"{r['step_profile']['device_ms_per_step']:.3f}" for label, r in out["arms"].items())
+        + f"; {smi}")
+    out["grouped_equals_off"] = grouped_equals_off(ds)
+    out["f32_blockdiag_vs_off"] = blockdiag_e2e_check()
+    out["f32_mesh"] = small_crosssilo_check("blockdiag")
+    out["launches"] = launches
+    return out
+
+
 # -- phase 4d: the cross-silo paradigm ------------------------------------------
 
 # bench.py's cross-silo configuration (bench.py:101-131): full
@@ -1994,12 +2365,14 @@ def crosssilo_arm(api, tag: str, smi: str, timed: int = 2) -> dict:
     return rec
 
 
-def small_crosssilo_check() -> dict:
+def small_crosssilo_check(packed_conv: str = "off") -> dict:
     """The small CifarResNet (widths 8/16/16, 8x8 images, 4 silos, 2
     epochs) in f32 on the card: one packed mesh round and one resident
     mesh round against the simulation round from the same weights and
     orders, by the relative global norm of the parameters' difference
-    (bound 1e-5, tests/test_crosssilo.py:40)."""
+    (bound 1e-5, tests/test_crosssilo.py:40). Under a joint lowering
+    (``packed_conv`` not "off"), the packed mesh round alone, against the
+    simulation's packed round under the same lowering."""
     from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
     from fedml_tpu_torch.core.config import FedConfig
     from fedml_tpu_torch.core.pytree import split_params, tree_global_norm, tree_sub
@@ -2012,19 +2385,24 @@ def small_crosssilo_check() -> dict:
         partition_method="hetero", partition_alpha=0.5, batch_size=8, seed=SEED)
     base = dict(model="cifar-small", client_num_in_total=4, client_num_per_round=4,
                 comm_round=1, batch_size=8, epochs=2, lr=0.05, momentum=0.9, seed=SEED,
-                device_data="on")
+                device_data="on", packed_conv=packed_conv)
+    joint = packed_conv != "off"
 
     def bundle():
         return ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16),
                                                       bn_impl="pallas"), (8, 8, 3))
 
-    sim = FedAvgAPI(ds, FedConfig(**base), bundle())
+    sim = FedAvgAPI(ds, FedConfig(**base, pack_lanes=PACK_LANES if joint else 0), bundle())
     init = {k: v.clone() for k, v in sim.variables.items()}
     loss_sim = float(sim.run_round(0))
     want = split_params(sim.variables)[0]
-    out = {"loss_simulation": loss_sim}
-    for label, kw in (("packed", dict(pack_lanes=PACK_LANES)), ("resident", {})):
+    out = {"packed_conv": packed_conv, "loss_simulation": loss_sim}
+    arms = (("packed", dict(pack_lanes=PACK_LANES)),) + (() if joint else (("resident", {}),))
+    for label, kw in arms:
         cs = CrossSiloFedAvgAPI(ds, FedConfig(**base, **kw), bundle())
+        if cs._packed_mesh is not None and \
+                cs._packed_mesh["round_fn"].lanes.packed_conv != packed_conv:
+            raise AssertionError(f"[crosssilo] the packed mesh does not run {packed_conv}")
         cs.variables = {k: v.clone() for k, v in init.items()}
         loss = float(cs.run_round(0))
         rel = float(tree_global_norm(tree_sub(split_params(cs.variables)[0], want))
@@ -2033,7 +2411,8 @@ def small_crosssilo_check() -> dict:
         if not rel < 1e-5 or not abs(loss - loss_sim) <= 1e-5 * abs(loss_sim):
             raise AssertionError(f"[crosssilo] f32 {label} mesh round {rel:.3g} (relative norm) "
                                  f"from the simulation round, loss {loss} vs {loss_sim}")
-    log(f"[crosssilo] f32 mesh rounds on the card against the simulation round: {out}")
+    log(f"[crosssilo] f32 mesh rounds ({packed_conv}) on the card against the simulation "
+        f"round: {out}")
     return out
 
 
@@ -3213,10 +3592,15 @@ def main() -> int:
     build_info = timed("build", phase_build)
     err, cases, model_err = timed("check", phase_check)
     timing = timed("time", phase_time)
-    timing_packed = timed("time_packed", phase_time, PACKED_BNS, "packed")
+    timing_packed_by_lanes = {L: timed(f"time_packed_L{L}", phase_time, bns, f"{L}-lane packed")
+                              for L, bns in PACKED_BNS_BY_LANES.items()}
+    timing_packed = timing_packed_by_lanes[PACK_LANES]
     train = timed("train", phase_train, smi)
     train_packed = timed("train_packed", phase_train_packed, smi)
     zoo = timed("train_zoo", phase_train_zoo, smi)
+    # phase 4f before 4d and 4e: profile windows after 4e lose their first
+    # device records
+    packed_conv = timed("train_packed_conv", phase_train_packed_conv, smi)
     crosssilo = timed("train_crosssilo", phase_train_crosssilo, smi)
     conv_err, conv_cases, lanes_model_err = timed("check_conv", phase_check_conv)
     conv_timing = timed("time_conv", phase_time_conv)
@@ -3258,25 +3642,30 @@ def main() -> int:
             rows, b_ms, b_by = bn_step(timing, name)
             source = "batchnorm.cu"
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
-            # cross-silo arms' and the cross-device flagship arms' timed
-            # rounds, and phase 13's train() runs, each counted from 0 just
-            # before it
+            # lowering A/B's, the cross-silo arms' and the cross-device
+            # flagship arms' timed rounds, and phase 13's train() runs, each
+            # counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
+                       "packed_conv": packed_conv["launches"][name],
                        "crosssilo": crosssilo["launches"][name],
                        "crossdevice": crossdevice["launches"][name],
                        "train_loop": loop["launches"][name]}
             launches = sum(by_path.values())
-            prows, pb_ms, pb_by = bn_step(timing_packed, name)
-            extra = {"launches_by_path": by_path, "packed": {
-                # one packed step's 57 calls at the folded shapes [rows, 2*C]
-                "ms": per_step(prows, "ms"), "device_ms": per_step(prows, "device_ms"),
-                "plain_ms": per_step(prows, "plain_ms"),
-                "library_ms": per_step(prows, "library_ms"),
-                "library_device_ms": per_step(prows, "library_device_ms"),
-                "bound_ms": pb_ms, "bound_by": pb_by,
-                "per_call": [{k: v for k, v in r.items() if k != "kernel"} for r in prows]}}
+            packed = {}
+            for L, t_rows in timing_packed_by_lanes.items():
+                prows, pb_ms, pb_by = bn_step(t_rows, name)
+                # one L-lane packed step's 57 calls at the folded shapes [rows, L*C]
+                packed[L] = {
+                    "ms": per_step(prows, "ms"), "device_ms": per_step(prows, "device_ms"),
+                    "plain_ms": per_step(prows, "plain_ms"),
+                    "library_ms": per_step(prows, "library_ms"),
+                    "library_device_ms": per_step(prows, "library_device_ms"),
+                    "bound_ms": pb_ms, "bound_by": pb_by,
+                    "per_call": [{k: v for k, v in r.items() if k != "kernel"} for r in prows]}
+            extra = {"launches_by_path": by_path, "packed": packed[PACK_LANES],
+                     "packed_by_lanes": packed}
         else:
             rows = [r for r in conv_timing if r["kernel"] == name]
             bounds = [conv_bound(name, r["n"], r["ci"], r["co"], r["h"] * r["w"]) for r in rows]
@@ -3345,8 +3734,9 @@ def main() -> int:
         "build": build_info,
         "phase_seconds": seconds,
         "check_cases": cases, "small_model_rel_err": model_err, "timing": timing,
-        "timing_packed": timing_packed, "train": train, "train_packed": train_packed,
-        "train_zoo": zoo, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
+        "timing_packed": timing_packed, "timing_packed_by_lanes": timing_packed_by_lanes,
+        "train": train, "train_packed": train_packed,
+        "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "train_loop": loop,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,

@@ -59,7 +59,7 @@ def merge_clients(dataset: FedDataset, batch_size: int):
 #: each raises at construction
 FEDERATED_ONLY_FIELDS = (
     "checkpoint_dir", "resume_from", "profile_dir", "enable_wandb", "pack_lanes",
-    "async_rounds", "stream_aggregate", "cohort_chunk", "cohort_policy", "failure_prob",
+    "packed_conv", "async_rounds", "stream_aggregate", "cohort_chunk", "cohort_policy", "failure_prob",
     "host_pipeline_depth", "host_pipeline_workers")
 
 

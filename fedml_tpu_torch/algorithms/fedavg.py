@@ -73,10 +73,14 @@ aggregate one all-reduce (``parallel/crosssilo.py``).
 (``save``/``restore``, ``checkpoint_dir``, ``resume_from``) and the
 ``RoundTimer`` record, as the JAX package's does.
 
-Not ported yet, and refused with ``NotImplementedError`` at construction
-(``core/config.check_ported``): every field whose feature the port lacks,
-among them the joint packed lowerings (``packed_conv`` other than ``"off"``)
-and the cross-silo super-step (``rounds_per_step > 1``). On data placed on the device the
+The joint packed lowerings (``packed_conv`` ``"grouped"`` or
+``"blockdiag"``, ``ops/packed_conv.py``) reach every packed round: the
+simulation's, the streamed packed chunks and the cross-silo packed mesh;
+``packed_status()`` says whether one is active. Not ported yet, and refused
+with ``NotImplementedError`` at construction (``core/config.check_ported``,
+``FedConfig``): every field whose feature the port lacks, among them
+``packed_conv="auto"`` and the cross-silo super-step (``rounds_per_step >
+1``). On data placed on the device the
 simulation paradigm's bucket cut and grouped schedule are not needed:
 running only each client's live steps (parallel/local.py) already skips
 the padding they trim (the orders there permute the whole n_pad).
@@ -111,8 +115,8 @@ from fedml_tpu_torch.parallel.mesh import ClientMesh, client_mesh, shard_client_
 from fedml_tpu_torch.parallel.packed import (PackedResult, PackPlan, executed_steps,
                                              make_crosssilo_packed_round,
                                              make_packed_cohort_train, mask_plan,
-                                             mesh_member_active, plan_packing,
-                                             plan_packing_mesh, rank_plan)
+                                             mesh_member_active, packed_fallback_reason,
+                                             plan_packing, plan_packing_mesh, rank_plan)
 from fedml_tpu_torch.utils.dtypes import host_bf16_cast
 
 log = logging.getLogger(__name__)
@@ -311,11 +315,18 @@ class FedAvgAPI:
         return make_packed_cohort_train(
             self.bundle, self.task, int(self.dataset.train_x.shape[1]),
             client_transform=hooks.get("client_transform"),
-            reduce_extras=hooks.get("reduce_extras"), **self._local_train_kwargs())
+            reduce_extras=hooks.get("reduce_extras"), packed_conv=c.packed_conv,
+            **self._local_train_kwargs())
+
+    def _packed_conv_status(self) -> dict:
+        """The packed schedule applies: whether its joint lowering is active,
+        and if not, the JAX package's reason (``packed_fallback_reason``)."""
+        reason = packed_fallback_reason(self.bundle, self.config.packed_conv)
+        return {"scheduled": True, "packed_conv_active": reason is None, "reason": reason}
 
     def packed_status(self) -> dict:
         """Whether the packed schedule applies, and whether a joint
-        lowering is active (never: only ``packed_conv="off"`` is ported)."""
+        lowering is active (the JAX package's dict)."""
         if self.config.pack_lanes <= 0:
             return {"scheduled": False, "packed_conv_active": False, "reason": "pack_lanes=0"}
         if self._packing_hooks() is None:
@@ -324,7 +335,7 @@ class FedAvgAPI:
         if self._packed_train is None and not (self._dev_train is None
                                                and self._stream_packed_active()):
             return {"scheduled": False, "packed_conv_active": False, "reason": "device_data=off"}
-        return {"scheduled": True, "packed_conv_active": False, "reason": "packed_conv=off"}
+        return self._packed_conv_status()
 
     def _packed_plan(self, sampled: np.ndarray) -> Optional[PackPlan]:
         key = tuple(int(s) for s in sampled)
@@ -712,7 +723,7 @@ class FedAvgAPI:
         if self._stream_packed is None:
             self._stream_packed = make_packed_cohort_train(
                 self.bundle, self.task, int(self.dataset.train_x.shape[1]),
-                **self._local_train_kwargs())
+                packed_conv=self.config.packed_conv, **self._local_train_kwargs())
         return self._stream_packed
 
     def _run_streaming_round(self, round_idx: int) -> "float | torch.Tensor":
@@ -979,7 +990,7 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
         if self._packed_mesh is None:
             return {"scheduled": False, "packed_conv_active": False,
                     "reason": "partial participation, or the data is not resident"}
-        return {"scheduled": True, "packed_conv_active": False, "reason": "packed_conv=off"}
+        return self._packed_conv_status()
 
     def _place_rows(self, rows: np.ndarray, n: Optional[int] = None) -> tuple:
         """The stacked train arrays of ``rows`` (their record axis cut to
@@ -1013,7 +1024,7 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
         rows = perm[self.mesh.block(len(perm))]
         round_fn = make_crosssilo_packed_round(
             self.bundle, self.task, int(ds.train_x.shape[1]), self.mesh, **hooks,
-            **self._local_train_kwargs())
+            packed_conv=c.packed_conv, **self._local_train_kwargs())
         return dict(perm=perm, plan=plan, rows=rows, data=self._place_rows(rows),
                     round_fn=round_fn)
 

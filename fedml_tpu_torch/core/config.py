@@ -124,8 +124,9 @@ class FedConfig:
     bucket_quantum_batches: int = 8
     bucket_groups: int = 1
     # client packing (parallel/packed.py): the cohort runs in up to
-    # pack_lanes lanes, each lane's clients back to back. Only
-    # packed_conv="off" (the per-lane form) is ported.
+    # pack_lanes lanes, each lane's clients back to back; packed_conv is the
+    # lane-stacked twin's conv lowering (off | grouped | blockdiag,
+    # ops/packed_conv.py); "auto" (fedplan) is not ported
     pack_lanes: int = 0
     packed_conv: str = "off"
     # the cross-silo super-step (rounds folded into one program): not ported
@@ -209,6 +210,9 @@ class FedConfig:
         if self.packed_conv not in ("off", "blockdiag", "grouped", "auto"):
             raise ValueError(f"packed_conv must be off|blockdiag|grouped|auto, got "
                              f"{self.packed_conv!r}")
+        if self.packed_conv == "auto":
+            raise NotImplementedError("packed_conv='auto' is not ported: fedplan scores XLA "
+                                      "HLO, which has no CUDA counterpart (ROADMAP §1 item 12)")
         if self.cohort_policy not in ("uniform", "speed", "fair"):
             raise ValueError(f"cohort_policy must be uniform|speed|fair, got "
                              f"{self.cohort_policy!r}")
@@ -370,7 +374,6 @@ UNPORTED_FIELDS = {
         "gateway_max_tenants", "gateway_tenant_workers", "chaos_seed", "chaos_drop",
         "chaos_dup", "chaos_delay_ms", "chaos_reorder", "chaos_crash_rank",
         "chaos_crash_after", "chaos_crash_restart_s", "is_mobile", "straggler_deadline_sec")},
-    "packed_conv": "ROADMAP §1 item 2 (the joint packed lowerings; 'off' is ported)",
     "rounds_per_step": "ROADMAP §1 item 4a (the cross-silo super-step)",
     "buffer_k": "ROADMAP §1 items 9 and 11 (fedbuff)",
     "buffer_staleness_alpha": "ROADMAP §1 items 9 and 11 (fedbuff)",

@@ -36,6 +36,14 @@ class ModelBundle:
     module: nn.Module
     input_shape: tuple            # single-example shape, no batch dim
 
+    @property
+    def packed_twin(self) -> bool:
+        """Whether the module's lane-stacked twin takes the joint packed
+        lowerings, ``module.lane_stacked(L, packed_impl=...)`` (the JAX
+        bundle's ``packed_variant`` is not None): the NHWC CIFAR ResNets and
+        ``cnn``."""
+        return bool(getattr(self.module, "packed_twin", False))
+
     def init(self, seed: Union[int, torch.Generator] = 0,
              device: Optional[Union[str, torch.device]] = None) -> dict:
         """Draw fresh weights from ``seed`` into the module, move it to

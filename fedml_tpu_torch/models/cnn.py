@@ -11,8 +11,11 @@ promoted type of input and weights (f32 for bf16 inputs), as flax's
 ``promote_dtype`` does.
 
 ``n_lanes=L > 0`` is the lane-stacked twin the packed schedule trains
-(``parallel/packed.py``): the lanes folded into the channel axis, each conv
-one ``groups=L`` conv (weight ``[L*Co, Ci, 5, 5]``, bias ``[L*Co]``), the
+(``parallel/packed.py``; the JAX package's ``conv_impl="packed"`` body):
+the lanes folded into the channel axis, each conv L lanes' convs in one
+call (weight ``[L*Co, Ci, 5, 5]``, bias ``[L*Co]``) lowered as
+``packed_impl`` says (``ops/packed_conv.py``: ``"off"`` and ``"grouped"``
+one ``groups=L`` conv, ``"blockdiag"`` one block-diagonal GEMM), the
 pooling per channel, each lane's features flattened in NHWC order and the
 Dense layers lane-batched (``Dense(n_lanes=L)``). It takes ``[L, N, ...]``
 and gives ``[L, N, out]``; its state dict folds each leaf as
@@ -33,17 +36,23 @@ from torch import nn
 from fedml_tpu_torch.models import ModelBundle, register_model
 from fedml_tpu_torch.models.initializers import lecun_normal_
 from fedml_tpu_torch.models.layers import Dense
+from fedml_tpu_torch.ops.packed_conv import conv_blockdiag
 
 
 class _Conv(nn.Module):
     """flax ``nn.Conv(features, (k, k), padding="SAME")`` at stride 1 on
     NCHW input (an odd k pads (k - 1) / 2 each side): ``weight`` OIHW,
     ``bias``; ``n_lanes=L > 0``: L convs on the folded channels, one
-    ``groups=L`` conv."""
+    ``groups=L`` conv, or with ``packed_impl="blockdiag"`` one
+    block-diagonal GEMM on the NHWC view."""
 
-    def __init__(self, in_features: int, features: int, kernel_size: int, n_lanes: int = 0):
+    def __init__(self, in_features: int, features: int, kernel_size: int, n_lanes: int = 0,
+                 packed_impl: str = "off"):
         super().__init__()
+        if packed_impl not in ("off", "grouped", "blockdiag"):
+            raise ValueError(f"packed_impl must be off|grouped|blockdiag, got {packed_impl!r}")
         self.groups = max(n_lanes, 1)
+        self.blockdiag = packed_impl == "blockdiag"
         self.weight = nn.Parameter(torch.empty(self.groups * features, in_features,
                                                kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(self.groups * features))
@@ -56,6 +65,9 @@ class _Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.weight.dtype)
+        if self.blockdiag:
+            y = conv_blockdiag(x.to(dt).permute(0, 2, 3, 1), self.weight.to(dt), self.groups)
+            return (y + self.bias.to(dt)).permute(0, 3, 1, 2)
         return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
                         padding=self.weight.shape[-1] // 2, groups=self.groups)
 
@@ -67,14 +79,17 @@ def _image_shape(input_shape: Optional[Sequence[int]]) -> tuple:
 
 
 class CNNOriginalFedAvg(nn.Module):
+    #: the lane-stacked twin takes the joint lowerings (ModelBundle.packed_twin)
+    packed_twin = True
+
     def __init__(self, output_dim: int = 62, input_shape: Optional[Sequence[int]] = None,
-                 n_lanes: int = 0):
+                 n_lanes: int = 0, packed_impl: str = "off"):
         super().__init__()
         h, w, c = _image_shape(input_shape)
         self._config = dict(output_dim=output_dim, input_shape=(h, w, c))
         self.n_lanes = n_lanes
-        self.Conv_0 = _Conv(c, 32, 5, n_lanes)
-        self.Conv_1 = _Conv(32, 64, 5, n_lanes)
+        self.Conv_0 = _Conv(c, 32, 5, n_lanes, packed_impl)
+        self.Conv_1 = _Conv(32, 64, 5, n_lanes, packed_impl)
         self.Dense_0 = Dense((h // 4) * (w // 4) * 64, 512, n_lanes=n_lanes)
         self.Dense_1 = Dense(512, output_dim, n_lanes=n_lanes)
 
@@ -82,12 +97,14 @@ class CNNOriginalFedAvg(nn.Module):
         for m in (self.Conv_0, self.Conv_1, self.Dense_0, self.Dense_1):
             m.reset_parameters(generator)
 
-    def lane_stacked(self, n_lanes: int) -> "CNNOriginalFedAvg":
-        """A new lane-stacked twin for ``n_lanes`` lanes, on this model's
-        device (its weights are the caller's to set)."""
+    def lane_stacked(self, n_lanes: int, packed_impl: str = "off") -> "CNNOriginalFedAvg":
+        """A new lane-stacked twin for ``n_lanes`` lanes whose convs take the
+        lowering ``packed_impl``, on this model's device (its weights are
+        the caller's to set)."""
         if n_lanes < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
-        return CNNOriginalFedAvg(**self._config, n_lanes=n_lanes).to(self.Conv_0.weight.device)
+        return CNNOriginalFedAvg(**self._config, n_lanes=n_lanes,
+                                 packed_impl=packed_impl).to(self.Conv_0.weight.device)
 
     def _features(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW [N, L*C, H, W] -> the pooled conv stack, NCHW."""

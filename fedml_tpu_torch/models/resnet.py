@@ -17,18 +17,22 @@ paths (``Conv_0``, ``PallasBatchNorm_0`` or ``BatchNorm_0``,
 hand-written kernels K3/K4 and their BatchNorms are the plain
 ``BatchNorm(axis=1)``; the stem and wider stages stay NHWC. The lanes modules
 keep the NHWC names, so both bodies share one state dict. ``"packed"``
-raises ``NotImplementedError``.
+(the JAX package's lane-major packed body) is the lane-stacked twin below.
 
 ``n_lanes=L > 0`` builds the lane-stacked twin that the packed schedule
 trains (``parallel/packed.py``), the counterpart of ``vmap`` of the model
-over L lanes: the lanes are folded into the channel axis, so activations are
-NHWC ``[N, H, W, L*C]`` with lane l's channel c at ``l*C + c``. Each conv is
-one grouped ``F.conv2d(groups=L)`` (weight ``[L*Co, Ci, k, k]``), each
-train-mode BatchNorm one call over ``[N*H*W, L*C]`` (with ``bn_impl="pallas"``
-one K1 and one K2 launch for all lanes; the statistics are per channel, so
-per lane), and the head a per-lane Dense. It takes ``[L, N, H, W, 3]`` and
-gives ``[L, N, out]``; its state dict has the plain model's keys, each leaf
-folded as ``ops/packed_conv.stack_variables`` folds it. Only the NHWC body
+over L lanes (the JAX package's ``conv_impl="packed"`` body): the lanes are
+folded into the channel axis, so activations are NHWC ``[N, H, W, L*C]`` with
+lane l's channel c at ``l*C + c``. Each conv is L lanes' convs in one call
+(weight ``[L*Co, Ci, k, k]``), lowered as ``packed_impl`` says
+(``ops/packed_conv.py``): ``"off"`` (the default) and ``"grouped"`` one
+``F.conv2d(groups=L)``, ``"blockdiag"`` one block-diagonal im2col GEMM. Each
+train-mode BatchNorm is one call over ``[N*H*W, L*C]`` (with
+``bn_impl="pallas"`` one K1 and one K2 launch for all lanes, under every
+lowering; the statistics are per channel, so per lane), and the head a
+per-lane Dense. It takes ``[L, N, H, W, 3]`` and gives ``[L, N, out]``; its
+state dict has the plain model's keys, each leaf folded as
+``ops/packed_conv.stack_variables`` folds it. Only the NHWC body
 (``conv_impl="xla"``) has a lane-stacked twin.
 """
 
@@ -38,7 +42,6 @@ import functools
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.models import ModelBundle, register_model
@@ -46,28 +49,22 @@ from fedml_tpu_torch.models.initializers import lecun_normal_
 from fedml_tpu_torch.models.layers import Dense
 from fedml_tpu_torch.models.norm import PallasBatchNorm
 from fedml_tpu_torch.ops import conv_lanes
-
-
-def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
-    """flax padding='SAME': (low, high) pads of one spatial dim. At k=3,
-    s=2 on an even size this is (0, 1), not PyTorch's symmetric (1, 1)."""
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
+from fedml_tpu_torch.ops.packed_conv import resolve_impl
 
 
 class Conv(nn.Module):
     """flax ``nn.Conv(use_bias=False, padding='SAME')`` on NHWC input;
     ``weight`` is OIHW. Computes in the input's dtype. ``n_lanes=L > 0``:
     L independent convs on the lane-folded channels, weight
-    ``[L*features, in_features, k, k]``, one ``groups=L`` conv."""
+    ``[L*features, in_features, k, k]``, lowered as ``packed_impl`` says."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int, stride: int = 1,
-                 n_lanes: int = 0):
+                 n_lanes: int = 0, packed_impl: str = "off"):
         super().__init__()
         self.stride = stride
-        self.groups = max(n_lanes, 1)
-        self.weight = nn.Parameter(torch.empty(self.groups * features, in_features,
+        self.n_lanes = n_lanes
+        self.conv = resolve_impl(packed_impl)
+        self.weight = nn.Parameter(torch.empty(max(n_lanes, 1) * features, in_features,
                                                kernel_size, kernel_size))
 
     def reset_parameters(self, generator=None) -> None:
@@ -75,18 +72,7 @@ class Conv(nn.Module):
         lecun_normal_(self.weight, i * kh * kw, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k = self.weight.shape[-1]
-        (ht, hb), (wl, wr) = (_same_pads(x.shape[1], k, self.stride),
-                              _same_pads(x.shape[2], k, self.stride))
-        xc = x.permute(0, 3, 1, 2)           # channels_last memory
-        if (ht, wl) == (hb, wr):
-            pad = (ht, wl)
-        else:
-            xc = F.pad(xc, (wl, wr, ht, hb))
-            pad = 0
-        y = F.conv2d(xc, self.weight.to(x.dtype), stride=self.stride, padding=pad,
-                     groups=self.groups)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return self.conv(x, self.weight, self.n_lanes, self.stride)
 
 
 def _norm(features: int, bn_impl: str, fuse_relu: bool = False,
@@ -103,10 +89,11 @@ class BasicBlock(nn.Module):
     takes the input's (H, W)."""
 
     def __init__(self, in_features: int, filters: int, strides: int = 1, bn_impl: str = "xla",
-                 conv_impl: str = "xla", n_lanes: int = 0):
+                 conv_impl: str = "xla", n_lanes: int = 0, packed_impl: str = "off"):
         super().__init__()
         lanes = conv_impl == "lanes"
-        conv = conv_lanes.Conv if lanes else functools.partial(Conv, n_lanes=n_lanes)
+        conv = conv_lanes.Conv if lanes else functools.partial(Conv, n_lanes=n_lanes,
+                                                               packed_impl=packed_impl)
         axis = 1 if lanes else -1
         width = max(n_lanes, 1) * filters     # the lane-folded channels
         bn, n0 = _norm(width, bn_impl, fuse_relu=True, axis=axis)
@@ -147,10 +134,13 @@ class CifarResNet(nn.Module):
 
     def __init__(self, blocks_per_stage: int, output_dim: int = 10,
                  dtype: torch.dtype = torch.float32, widths: tuple = (16, 32, 64),
-                 bn_impl: str = "xla", conv_impl: str = "xla", n_lanes: int = 0):
+                 bn_impl: str = "xla", conv_impl: str = "xla", n_lanes: int = 0,
+                 packed_impl: str = "off"):
         super().__init__()
         if conv_impl == "packed":
-            raise NotImplementedError("conv_impl='packed' is not ported yet")
+            raise NotImplementedError("conv_impl='packed' (the JAX package's lane-major body) "
+                                      "is the lane-stacked twin in the port: "
+                                      "module.lane_stacked(L, packed_impl=...)")
         if conv_impl not in ("xla", "lanes"):
             raise ValueError(f"conv_impl must be 'xla', 'lanes' or 'packed', got {conv_impl!r}")
         if bn_impl not in ("xla", "pallas"):
@@ -166,7 +156,9 @@ class CifarResNet(nn.Module):
                             conv_impl=conv_impl)
         self.dtype = dtype
         self.n_lanes = n_lanes
-        self.Conv_0 = Conv(3, widths[0], 3, n_lanes=n_lanes)         # RGB input
+        #: the lane-stacked twin takes the joint lowerings (ModelBundle.packed_twin)
+        self.packed_twin = conv_impl == "xla"
+        self.Conv_0 = Conv(3, widths[0], 3, n_lanes=n_lanes, packed_impl=packed_impl)  # RGB
         bn, stem_norm = _norm(max(n_lanes, 1) * widths[0], bn_impl, fuse_relu=True)
         self.add_module(f"{bn}_0", stem_norm)
         self._stem_norm = f"{bn}_0"
@@ -177,18 +169,21 @@ class CifarResNet(nn.Module):
             for block in range(blocks_per_stage):
                 strides = 2 if stage > 0 and block == 0 else 1
                 self.add_module(f"BasicBlock_{i}", BasicBlock(
-                    cin, filters, strides, bn_impl, "lanes" if lanes else "xla", n_lanes))
+                    cin, filters, strides, bn_impl, "lanes" if lanes else "xla", n_lanes,
+                    packed_impl))
                 blocks.append(f"BasicBlock_{i}")
                 cin, i = filters, i + 1
         self._blocks = blocks
         self.Dense_0 = Dense(cin, output_dim, n_lanes=n_lanes)
 
-    def lane_stacked(self, n_lanes: int) -> "CifarResNet":
-        """A new lane-stacked twin of this model for ``n_lanes`` lanes, on
-        this model's device (its weights are the caller's to set)."""
+    def lane_stacked(self, n_lanes: int, packed_impl: str = "off") -> "CifarResNet":
+        """A new lane-stacked twin of this model for ``n_lanes`` lanes whose
+        convs take the lowering ``packed_impl`` ("off" | "grouped" |
+        "blockdiag"), on this model's device (its weights are the caller's
+        to set)."""
         if n_lanes < 1:
             raise ValueError(f"n_lanes must be >= 1, got {n_lanes}")
-        twin = CifarResNet(**self._config, n_lanes=n_lanes)
+        twin = CifarResNet(**self._config, n_lanes=n_lanes, packed_impl=packed_impl)
         return twin.to(self.Conv_0.weight.device)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

@@ -1,5 +1,4 @@
-"""Client-packing schedule (counterpart of ``fedml_tpu/parallel/packed.py``,
-the per-lane form that ``packed_conv="off"`` selects).
+"""Client-packing schedule (counterpart of ``fedml_tpu/parallel/packed.py``).
 
 The cohort is packed into a few lanes (LPT balancing); each lane runs its
 clients back to back, resetting parameters, optimizer state and BatchNorm
@@ -7,7 +6,14 @@ statistics to the global model at a client's first step and adding
 ``w * variables`` into an accumulator at its last. All lanes run together:
 one step of the lane-stacked model (``CifarResNet(n_lanes=L)``, the lanes
 folded into the channel axis) trains every lane on its own member's batch,
-in place of the JAX package's ``vmap`` of the lane program over lanes.
+in place of the JAX package's ``vmap`` of the lane program over lanes. That
+step is the JAX package's joint form (``make_packed_lanes_train``) whatever
+``packed_conv`` says: the flag picks only how the twin lowers its convs
+(``ops/packed_conv.py``: ``"off"`` and ``"grouped"`` one grouped conv,
+``"blockdiag"`` one block-diagonal GEMM). A model without a twin that takes
+the lowerings (``lr``) runs ``"off"``, and a flag set for it is a fallback,
+warned once and counted (``packed_fallback_reason``, ``FALLBACKS``), as in
+the JAX package.
 
 Exactness: each client replays the plain port path (``parallel/local.py``)
 on the same per-epoch orders: the same real-first stable sort, the same
@@ -39,11 +45,11 @@ the resets, the dead-lane save and restore and the emits stay eager.
 The cross-silo mesh form (``plan_packing_mesh``, ``pad_plan``,
 ``mesh_member_active``, ``make_crosssilo_packed_round``) runs each rank's
 lanes over its block of the clients and all-reduces the emitted sums once.
-The joint lowerings of ``packed_conv != "off"`` are not ported.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -57,6 +63,8 @@ from fedml_tpu_torch.ops.packed_conv import stack_variables
 from fedml_tpu_torch.parallel.capture import CapturedStep
 from fedml_tpu_torch.parallel.crosssilo import mesh_finish
 from fedml_tpu_torch.parallel.local import LocalResult, make_optimizer, module_state, prox_term
+
+log = logging.getLogger(__name__)
 
 
 class PackPlan(NamedTuple):
@@ -206,6 +214,59 @@ def live_loss(lane_loss: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
     return (lane_loss * live).sum()
 
 
+# -- the joint lowerings (packed_conv) -----------------------------------------
+
+#: fallbacks counted by ``"fallback:<model>:<lowering>"`` (the JAX package
+#: counts them in its registry's "packed" group), and the (model, lowering,
+#: reason) keys already warned; ``reset_fallback_warnings`` clears both
+FALLBACKS: dict = {}
+_FALLBACK_SEEN: set = set()
+
+
+def reset_fallback_warnings() -> None:
+    """Forget the warned keys and the counts (a new federation in one
+    process warns and counts from zero)."""
+    FALLBACKS.clear()
+    _FALLBACK_SEEN.clear()
+
+
+def packed_fallback_reason(bundle: ModelBundle, packed_conv: str) -> Optional[str]:
+    """Why the joint lowering does NOT apply (None = it does), the JAX
+    package's reasons word for word: the flag is off; the model has no twin
+    that takes the lowerings (``ModelBundle.packed_twin``: ``lr``,
+    ``transformer``, the lanes body). No client optimizer disqualifies (its
+    state is folded per lane). JAX's third reason, dropout without an
+    explicit per-lane key stream, cannot arise: no ported model has dropout
+    (ROADMAP §1 item 8)."""
+    if packed_conv in (None, "", "off"):
+        return "packed_conv=off"
+    if not bundle.packed_twin:
+        return f"model {bundle.name!r} has no packed conv variant"
+    return None
+
+
+def packed_conv_active(bundle: ModelBundle, packed_conv: str) -> bool:
+    """Whether the packed trainer runs the joint lowering ``packed_conv``."""
+    return packed_fallback_reason(bundle, packed_conv) is None
+
+
+def _packed_impl(bundle: ModelBundle, packed_conv: str) -> str:
+    """The lowering the twin takes: ``packed_conv``, or ``"off"`` where it
+    does not apply; a real fallback (the flag on, the joint lowering
+    inapplicable) is warned once per (model, lowering, reason) and counted."""
+    reason = packed_fallback_reason(bundle, packed_conv)
+    if reason is None:
+        return packed_conv
+    if packed_conv not in (None, "", "off"):
+        ck = f"fallback:{bundle.name}:{packed_conv}"
+        FALLBACKS[ck] = FALLBACKS.get(ck, 0) + 1
+        key = (bundle.name, packed_conv, reason)
+        if key not in _FALLBACK_SEEN:
+            _FALLBACK_SEEN.add(key)
+            log.warning("packed_conv=%r falls back to packed_conv='off': %s", packed_conv, reason)
+    return "off"
+
+
 class _Lanes:
     """The lane-stacked model for one lane count, its optimizer and its
     per-lane state: each lane's view of every state-dict leaf, in the plain
@@ -272,15 +333,19 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
                              compute_dtype=None,
                              client_transform: Optional[Callable] = None,
                              reduce_extras: Optional[Callable] = None,
-                             capture: bool = True):
+                             packed_conv: str = "off", capture: bool = True):
     """Build ``packed_train(variables, tx, ty, tm, sampled_rows, weights_pos,
     orders, plan) -> PackedResult``; the trainer arguments are
     ``make_local_train_fn``'s (``local.local_train_kwargs``), the hooks the
-    JAX lane program's.
+    JAX lane program's, ``packed_conv`` the twin's conv lowering ("off",
+    "grouped", "blockdiag"; a model whose twin does not take it runs "off",
+    see ``packed_fallback_reason``).
 
-    The lane-stacked model for L lanes, ``bundle.module.lane_stacked(L)``, is
-    built at the first plan with L lanes and kept (L varies from round to
-    round with the cohort). ``tx/ty/tm`` are the whole stacked client dataset
+    The lane-stacked model for L lanes, ``bundle.module.lane_stacked(L,
+    packed_impl=...)``, is built at the first plan with L lanes and kept (L
+    varies from round to round with the cohort); a trainer has one
+    lowering, so its twins and their step programs are keyed by (L,
+    lowering). ``packed_train.packed_conv`` is the lowering it runs. ``tx/ty/tm`` are the whole stacked client dataset
     [C_total, n_pad, ...] on the device, or (a streamed chunk of a host
     round) just the chunk's clients as shipped, with ``sampled_rows`` their
     ``arange``; ``sampled_rows`` [cohort] maps a cohort position to its
@@ -301,6 +366,11 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
     if lane_stacked is None:
         raise NotImplementedError(f"model {bundle.name!r} has no lane-stacked twin; the packed "
                                   "schedule is ported for the CIFAR ResNets and lr")
+    impl = _packed_impl(bundle, packed_conv)
+
+    def twin(L: int) -> torch.nn.Module:
+        return lane_stacked(L) if impl == "off" else lane_stacked(L, packed_impl=impl)
+
     steps_full = n_pad // batch_size
     bs = batch_size
     opt_tx = make_optimizer(optimizer, lr, momentum, wd)
@@ -385,7 +455,7 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         L = plan.n_lanes
         lanes = cache.get(L)
         if lanes is None:
-            lanes = cache[L] = _Lanes(lane_stacked(L), L, variables, opt_tx, prox_mu)
+            lanes = cache[L] = _Lanes(twin(L), L, variables, opt_tx, prox_mu)
         dev = tx.device
         glob = [variables[k] for k in lanes.names]
         if prox_mu:
@@ -457,6 +527,7 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
 
     packed_train.sums = packed_sums
     packed_train.lanes = cache      # L -> its lane-stacked model and per-lane state
+    packed_train.packed_conv = impl
     return packed_train
 
 

@@ -52,7 +52,7 @@ NON_DEFAULT = {
     "chaos_crash_restart_s": {"chaos_crash_rank": 1, "chaos_crash_after": 3,
                               "chaos_crash_restart_s": 1.0},
     "is_mobile": {"is_mobile": 1}, "straggler_deadline_sec": {"straggler_deadline_sec": 5.0},
-    "packed_conv": {"packed_conv": "blockdiag"}, "rounds_per_step": {"rounds_per_step": 2},
+    "rounds_per_step": {"rounds_per_step": 2},
     "buffer_k": {"buffer_k": 2}, "buffer_staleness_alpha": {"buffer_staleness_alpha": 1.0},
     "buffer_mode": {"buffer_mode": "deterministic"}, "trace_dir": {"trace_dir": "traces"},
     "trace_buffer_events": {"trace_buffer_events": 10},

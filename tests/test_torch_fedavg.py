@@ -164,26 +164,27 @@ def test_async_rounds_return_a_device_scalar_and_train_runs():
 @pytest.mark.parametrize("field,value", [("packed_conv", "grouped"), ("failure_prob", 0.1),
                                          ("stream_aggregate", "deterministic")])
 def test_unported_schedules_raise(field, value):
-    """The unported schedules raise. ``failure_prob`` and
-    ``stream_aggregate`` are ported now: the first case trains a round in
-    which failed clients aggregate with weight 0
+    """These schedules are ported now, and each case trains a round:
+    ``packed_conv`` a packed round under the grouped lowering
+    (tests/test_torch_packed_conv.py holds it to the JAX package's),
+    ``failure_prob`` one in which failed clients aggregate with weight 0
     (tests/test_torch_crosssilo.py holds the rounds to the JAX package's),
-    the second a streamed host round (tests/test_torch_streaming.py holds
-    those to the JAX package's)."""
+    ``stream_aggregate`` a streamed host round (tests/test_torch_streaming.py
+    holds those to the JAX package's)."""
     ds = make_synthetic_classification(**DATA)
-    cfg = FedConfig(**{**RUN, field: value})
-    if field not in ("failure_prob", "stream_aggregate"):
-        with pytest.raises(NotImplementedError):
-            FedAvgAPI(ds, cfg, device="cpu")
-        return
+    packed = {"pack_lanes": 2, "device_data": "on"} if field == "packed_conv" else {}
+    cfg = FedConfig(**{**RUN, field: value, **packed})
     bundle = ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16), bn_impl="pallas"),
                          (8, 8, 3))
     api = FedAvgAPI(ds, cfg, bundle, device="cpu")
     assert np.isfinite(api.run_round(0))
     if field == "failure_prob":
         assert len(api.history["failed_clients"]) == 1
-    else:
+    elif field == "stream_aggregate":
         assert api.stream_stats["mode"] == "deterministic" and api.stream_stats["chunks"] == 1
+    else:
+        assert api.packed_status() == {"scheduled": True, "packed_conv_active": True,
+                                       "reason": None}
 
 
 def test_entry_points_default_to_cuda():

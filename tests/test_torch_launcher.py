@@ -225,7 +225,7 @@ def test_centralized_trainer_matches_jax(model):
 
 _FEDERATED_ONLY = {
     "checkpoint_dir": "ckpt", "resume_from": "ckpt/latest.ckpt", "profile_dir": "prof",
-    "enable_wandb": True, "pack_lanes": 2, "async_rounds": True,
+    "enable_wandb": True, "pack_lanes": 2, "packed_conv": "blockdiag", "async_rounds": True,
     "stream_aggregate": "deterministic",
     "cohort_chunk": {"cohort_chunk": 2, "stream_aggregate": "deterministic"},
     "cohort_policy": "speed",

@@ -273,8 +273,17 @@ def test_device_data_off_runs_the_plain_round(caplog):
 @pytest.mark.parametrize("field,value", [("packed_conv", "blockdiag"),
                                          ("packed_conv", "auto")])
 def test_joint_lowerings_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        _port(**{field: value})
+    """``"auto"`` (fedplan) raises, naming its ROADMAP item; ``"blockdiag"``
+    is ported and its packed round runs (tests/test_torch_packed_conv.py
+    holds it to the JAX package's)."""
+    if value == "auto":
+        with pytest.raises(NotImplementedError, match="item 12"):
+            _port(**{field: value})
+        return
+    api = _port(**{field: value})
+    assert api.packed_status() == {"scheduled": True, "packed_conv_active": True, "reason": None}
+    assert np.isfinite(float(api.run_round(0)))
+    assert api._packed_train.packed_conv == value
 
 
 def test_lanes_conv_has_no_lane_stacked_twin():
