@@ -150,12 +150,32 @@ Phases (any failure raises and the script exits non-zero):
    again under cuDNN's deterministic algorithms, and then they must agree),
    the eval rounds equal, 57 K1 + 57 K2 and one replay an executed packed
    step; save and restore ms, the checkpoint's bytes, ``history["timing"]``.
+14. Robust aggregation, hierarchical FL and the silo harness, after phase
+   13, with no profile, on the flagship (ResNet-56, ``bn_impl="pallas"``,
+   bf16, batch 64, 2 rounds an arm): FedAvg packed in 2 lanes (the
+   yardstick); FedAvg-robust (attacker 0 poisons half its records, the
+   clip at ``ROBUST_NORM_BOUND``, DP noise 1e-3) plain and packed, each
+   client's update norm before the clip and each aggregate's noise
+   recorded; hierarchical FL at G = 2 with 2 group rounds (the host round)
+   and the one-rank mesh at G = 1; SiloFedAvg on 8 silos (packed, 3
+   rounds, patience 2, per-client exit, checkpoints). Gates: 57 K1 + 57 K2
+   and one replay an executed step (every group round's), none in any
+   evaluation; finite losses; the bound binds on at least half of round
+   0's clients; each round's noise over the ~0.86 M weight floats within
+   5 sigma/sqrt(n) of mean 0 and 2% of its standard deviation, the BN
+   statistics bit-equal to the noise-free aggregate; the restored
+   ``model_best.ckpt`` bit-equal to the variables it saved; and in f32 on a
+   small CifarResNet through K1/K2, sharing the server generator, the
+   packed robust round within rtol 1e-4 / atol 1e-5 of the plain one, the
+   one-rank robust and hierarchical meshes within 1e-5 (relative norm) of
+   their simulations, and one group round within the end-to-end bound of
+   FedAvg. Real images/s of each arm.
 
-Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11 and 13 is a replay of the step
+Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13 and 14 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4f, 4d, 4e and 13 (in 4c the FedOpt-adam packed run and the client-adam plain
+but 4f, 4d, 4e, 13 and 14 (in 4c the FedOpt-adam packed run and the client-adam plain
 run; 4d's and 4f's arms take their steps from the same trainers; 4e's are neither
 re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
@@ -181,6 +201,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -3169,6 +3190,390 @@ def phase_train_loop(smi: str) -> dict:
     return out
 
 
+# -- phase 14: robust aggregation, hierarchical FL, the silo harness -------------
+
+# the DP noise's standard deviation and the clip bound of the robust arms: the
+# bound lies below most of round 0's client update norms on the flagship, so
+# it binds on at least half of the clients (on an H100 they read 29.8-43.6
+# plain and 27.7-44.6 packed; each arm prints them)
+ROBUST_STDDEV = 1e-3
+ROBUST_NORM_BOUND = 32.0
+ROBUST_POISON_FRAC = 0.5
+HIER_GROUPS, HIER_GROUP_ROUNDS = 2, 2
+SILO_SILOS, SILO_ROUNDS = 8, 3
+
+
+def update_norms(gvars: dict, stacked: dict) -> list:
+    """Each stacked client's update norm over the weight leaves (the norm
+    ``clip_update_by_norm`` bounds), as device scalars."""
+    from fedml_tpu_torch.core.aggregation import is_weight_path
+
+    names = [k for k in gvars if is_weight_path(k) and gvars[k].is_floating_point()]
+    sq = sum((stacked[k].float() - gvars[k].float()).reshape(stacked[k].shape[0], -1)
+             .square().sum(1) for k in names)
+    return list(sq.sqrt())
+
+
+def noise_stats(noisy: dict, clean: dict, stddev: float) -> dict:
+    """The noise the server added, ``noisy - clean`` over the float weight
+    leaves: its count, mean and standard deviation; and whether every other
+    leaf (the BN statistics) is bit-equal to the noise-free aggregate."""
+    import torch
+
+    from fedml_tpu_torch.core.aggregation import is_weight_path
+
+    names = [k for k in clean if is_weight_path(k) and clean[k].is_floating_point()]
+    d = torch.cat([(noisy[k].float() - clean[k].float()).reshape(-1) for k in names])
+    others = [k for k in clean if k not in names]
+    return {"n": d.numel(), "mean": float(d.mean()), "std": float(d.std()),
+            "stats_leaves": len(others),
+            "stats_bit_equal": all(torch.equal(noisy[k], clean[k]) for k in others)}
+
+
+def robust_probe_cls():
+    """``FedAvgRobustAPI`` that records, without changing what it computes,
+    each client's update norm before the clip and the noise of each
+    aggregate: in ``aggregate`` on the plain round, in the hooks on the
+    packed one."""
+    from fedml_tpu_torch.algorithms.robust import FedAvgRobustAPI
+    from fedml_tpu_torch.core.aggregation import robust_aggregate
+
+    class RobustProbe(FedAvgRobustAPI):
+        def __init__(self, *a, **kw):
+            self.norms, self.noise = [], []
+            super().__init__(*a, **kw)
+
+        def aggregate(self, variables, stacked, counts, infos, rng, server_state):
+            c = self.config
+            self.norms.append(update_norms(variables, stacked))
+            clean = robust_aggregate(variables, stacked, counts, norm_bound=c.norm_bound)
+            noisy, state = super().aggregate(variables, stacked, counts, infos, rng,
+                                             server_state)
+            self.noise.append(noise_stats(noisy, clean, c.stddev))
+            return noisy, state
+
+        def crosssilo_hooks(self):
+            hooks = super().crosssilo_hooks()
+            transform, update = hooks["client_transform"], hooks["server_update"]
+            member_norms = []
+
+            def client_transform(gvars, stacked):
+                member_norms.extend(update_norms(gvars, stacked))
+                return transform(gvars, stacked)
+
+            def server_update(vars0, agg, extras, total, server_state, rng):
+                noisy, state = update(vars0, agg, extras, total, server_state, rng)
+                self.norms.append(list(member_norms))
+                member_norms.clear()
+                self.noise.append(noise_stats(noisy, agg, self.config.stddev))
+                return noisy, state
+
+            return dict(client_transform=client_transform, server_update=server_update)
+
+    return RobustProbe
+
+
+def robust_arm(label: str, smi: str, packed: bool) -> dict:
+    """FedAvg-robust on the flagship (attacker 0 poisons half its records,
+    the clip at ``ROBUST_NORM_BOUND``, noise ``ROBUST_STDDEV``), 2 rounds,
+    plain or packed in 2 lanes: finite losses, 57 K1 + 57 K2 and one replay
+    an executed step, none in the evaluation; the bound binds on at least
+    half of round 0's clients; each round's noise over the ~0.86 M weight
+    floats within 5 sigma/sqrt(n) of mean 0 and 2% of the standard
+    deviation, the BN statistics bit-equal to the noise-free aggregate;
+    the backdoor's success on the triggered test set."""
+    from fedml_tpu_torch.parallel.packed import executed_steps
+
+    tag = f"[robust {label}]"
+    cfg = dict(norm_bound=ROBUST_NORM_BOUND, stddev=ROBUST_STDDEV,
+               poison_frac=ROBUST_POISON_FRAC)
+    if packed:
+        cfg.update(pack_lanes=PACK_LANES, packed_conv="off")
+    api = flagship_api(api_cls=robust_probe_cls(), ds=flagship_data(), **cfg)
+    if api.packed_status()["scheduled"] != packed:
+        raise AssertionError(f"{tag} packed_status {api.packed_status()}")
+    rounds = range(api.config.comm_round)
+    if packed:
+        steps = sum(len(executed_steps(api._packed_plan(api.sample(r)).live)) for r in rounds)
+    else:
+        steps = sum(api.round_counts(r)[1] // api.config.batch_size for r in rounds)
+    rounds_rec, metrics, eval_s, trained, after_eval = run_rounds(api, tag, smi, replayed=steps)
+    check_bn_launches(tag, trained, after_eval, steps)
+    norms = [[float(x) for x in r] for r in api.norms]
+    clipped = [sum(x > ROBUST_NORM_BOUND for x in r) for r in norms]
+    if len(norms) != len(rounds) or 2 * clipped[0] < len(norms[0]):
+        raise AssertionError(f"{tag} norm_bound {ROBUST_NORM_BOUND} binds on {clipped} of the "
+                             f"clients; update norms {norms}")
+    for r, st in enumerate(api.noise):
+        bound = 5 * ROBUST_STDDEV / st["n"] ** 0.5
+        if (not abs(st["mean"]) <= bound or not abs(st["std"] - ROBUST_STDDEV)
+                <= 0.02 * ROBUST_STDDEV or not st["stats_bit_equal"]):
+            raise AssertionError(f"{tag} round {r} noise {st}: mean within {bound:.3g} of 0, "
+                                 f"std within 2% of {ROBUST_STDDEV}, statistics untouched")
+    backdoor = api.evaluate_backdoor()
+    train_s = sum(r["seconds"] for r in rounds_rec)
+    rec = {"packed": packed, "steps": steps, "rounds": rounds_rec, "eval": metrics,
+           "update_norms": norms, "clipped": clipped, "norm_bound": ROBUST_NORM_BOUND,
+           "noise": api.noise, "backdoor": backdoor, "launches": after_eval,
+           "real_images_per_s": sum(r["real_images"] for r in rounds_rec) / train_s}
+    log(f"{tag} update norms {[[round(x, 4) for x in r] for r in norms]}; the bound "
+        f"{ROBUST_NORM_BOUND} clips {clipped}; noise {api.noise}; backdoor {backdoor}; "
+        f"{rec['real_images_per_s']:.1f} real images/s; {smi}")
+    return rec
+
+
+def check_bn_launches(tag: str, trained: dict, after_eval: dict, steps: int) -> None:
+    for k in ("bn_fwd", "bn_bwd"):
+        if trained[k] != BNS_PER_STEP * steps or after_eval[k] != trained[k]:
+            raise AssertionError(f"{tag} {k} launched {trained[k]} times over the rounds and "
+                                 f"{after_eval[k] - trained[k]} in the evaluation; expected "
+                                 f"{BNS_PER_STEP} x {steps} steps and 0")
+    if any(trained[k] for k in ("conv_fwd", "conv_wgrad")):
+        raise AssertionError(f"{tag} launched a lanes conv kernel: {trained}")
+
+
+def hierarchical_arm(label: str, smi: str, groups: int, mesh: bool) -> dict:
+    """Hierarchical FL on the flagship's federation (8 clients a round, the
+    host round), ``HIER_GROUP_ROUNDS`` group rounds a round, 2 rounds: the
+    simulator at ``groups`` groups, or the one-rank mesh (``groups`` 1):
+    finite losses, 57 K1 + 57 K2 and one replay a step (every group round's
+    live steps), none in the evaluation."""
+    from fedml_tpu_torch.algorithms.hierarchical import (CrossSiloHierarchicalFedAvgAPI,
+                                                         HierarchicalFedAvgAPI)
+
+    tag = f"[hierarchical {label}]"
+    cls = CrossSiloHierarchicalFedAvgAPI if mesh else HierarchicalFedAvgAPI
+    api = flagship_api(api_cls=cls, ds=flagship_data(), group_num=groups,
+                       group_comm_round=HIER_GROUP_ROUNDS)
+    rounds = range(api.config.comm_round)
+    steps = HIER_GROUP_ROUNDS * sum(api.round_counts(r)[1] // api.config.batch_size
+                                    for r in rounds)
+    rounds_rec, metrics, eval_s, trained, after_eval = run_rounds(api, tag, smi, replayed=steps)
+    check_bn_launches(tag, trained, after_eval, steps)
+    train_s = sum(r["seconds"] for r in rounds_rec)
+    return {"groups": groups, "group_rounds": HIER_GROUP_ROUNDS, "mesh": mesh,
+            "mesh_shape": api.mesh.shape if mesh else None, "steps": steps,
+            "rounds": rounds_rec, "eval": metrics, "launches": after_eval,
+            "real_images_per_s": sum(r["real_images"] for r in rounds_rec) / train_s}
+
+
+def silo_arm(smi: str, tmp: str) -> dict:
+    """SiloFedAvg on the 8-silo federation (flagship widths, bf16, packed in
+    2 lanes), ``SILO_ROUNDS`` rounds with the global patience 2 and the
+    per-client exit (patience 1): finite losses, 57 K1 + 57 K2 and one
+    replay an executed packed step (exited clients' spans frozen), none in
+    the global or the per-client evaluations; ``model_best.ckpt`` restored
+    bit-equal to the variables it saved."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.silo import SiloRunner
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import batchnorm as bn
+    from fedml_tpu_torch.ops import conv_lanes as cl
+    from fedml_tpu_torch.parallel.packed import executed_steps
+    from fedml_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tag = "[silo fedavg]"
+
+    class Counted(FedAvgAPI):
+        steps = 0
+
+        def run_round(self, round_idx):
+            plan = self._masked_packed_plan(*self._round_plan(round_idx))
+            self.steps += len(executed_steps(plan.live))
+            return super().run_round(round_idx)
+
+    class Runner(SiloRunner):
+        saved = {}
+
+        def _save(self, name, round_idx, extra=None):
+            super()._save(name, round_idx, extra)
+            self.saved[name] = {k: v.detach().clone() for k, v in self.api.variables.items()}
+
+    ds = silo_data(SILO_SILOS)
+    cfg = FedConfig(model="resnet56", dataset="cifar10", client_num_in_total=SILO_SILOS,
+                    client_num_per_round=SILO_SILOS, comm_round=SILO_ROUNDS, batch_size=64,
+                    epochs=1, lr=0.1, momentum=0.9, dtype="bfloat16", frequency_of_the_test=1,
+                    seed=SEED, pack_lanes=PACK_LANES, device_data="on")
+    bundle = create_model("resnet56", 10, input_shape=ds.train_x.shape[2:], dtype=torch.bfloat16,
+                          bn_impl="pallas")
+    runner = Runner(ds, cfg, api_cls=Counted, bundle=bundle, patience=2, model_dir=tmp,
+                    client_patience=1)
+    bn.reset_launches()
+    cl.reset_launches()
+    r0 = replays(runner.api)
+    t = time.perf_counter()
+    hist = runner.train()
+    dt = time.perf_counter() - t
+    launches = {**bn.LAUNCHES, **cl.LAUNCHES}
+    steps, replayed = runner.api.steps, replays(runner.api) - r0
+    exits = {k: v for k, v in hist.items() if k.endswith("stopped_round")}
+    log(f"{tag} {len(hist['round'])} rounds in {dt:.2f} s (evaluations included): losses "
+        f"{hist['GLOBAL/Train/Loss']}, Test/Acc {hist['GLOBAL/Test/Acc']}, best round "
+        f"{hist['best_round']}, exits {exits}; {steps} steps, {replayed} replays, launches "
+        f"{launches}; {smi}")
+    if not np.all(np.isfinite(hist["GLOBAL/Train/Loss"])):
+        raise AssertionError(f"{tag} a loss is not finite: {hist['GLOBAL/Train/Loss']}")
+    if replayed != steps:
+        raise AssertionError(f"{tag} {replayed} replays for {steps} steps")
+    check_bn_launches(tag, launches, launches, steps)
+    best = load_checkpoint(os.path.join(tmp, "model_best.ckpt"))
+    if best["round_idx"] != hist["best_round"]:
+        raise AssertionError(f"{tag} model_best.ckpt holds round {best['round_idx']}, the best "
+                             f"round is {hist['best_round']}")
+    runner.api.restore(os.path.join(tmp, "model_best.ckpt"))
+    saved = runner.saved["model_best.ckpt"]
+    differ = [k for k, v in saved.items() if not (torch.equal(runner.api.variables[k], v)
+                                                   and torch.equal(best["variables"][k], v.cpu()))]
+    if differ:
+        raise AssertionError(f"{tag} the restored model_best.ckpt differs from the variables it "
+                             f"saved: {differ[:6]}")
+    real = sum(int(ds.train_counts.sum()) for _ in hist["round"])
+    return {"silos": SILO_SILOS, "rounds": hist["round"], "history": {
+        k: v for k, v in hist.items() if k.startswith("GLOBAL") or k.endswith("stopped_round")
+        or k.startswith("best")}, "steps": steps, "launches": launches, "seconds": dt,
+        "best_restored_bit_equal": True,
+        # the rounds' wall time with the global and per-client evaluations
+        "real_images_per_s": real / dt}
+
+
+def robust_hier_f32_checks() -> dict:
+    """The f32 gates on a small CifarResNet through K1/K2 (widths 8/16/16,
+    8x8 images, 4 clients, 2 epochs, TF32 off), each pair from the same
+    weights, sharing the server generator: (a) the packed robust round
+    (clip, noise, poison) against the plain one at the zoo phase's packed
+    bound (variables rtol 1e-4 / atol 1e-5, loss rtol 1e-5); (b) the
+    one-rank robust mesh, packed and resident, and (c) the one-rank
+    hierarchical mesh (G = 1, 2 group rounds) against their simulations
+    within 1e-5 (relative norm, tests/test_crosssilo.py:40); (d)
+    hierarchical FL with one group round (G = 2) against FedAvg's host
+    round within the end-to-end bound."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.hierarchical import (CrossSiloHierarchicalFedAvgAPI,
+                                                         HierarchicalFedAvgAPI)
+    from fedml_tpu_torch.algorithms.robust import CrossSiloFedAvgRobustAPI, FedAvgRobustAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.core.pytree import split_params, tree_global_norm, tree_sub
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import ModelBundle
+    from fedml_tpu_torch.models.resnet import CifarResNet
+
+    ds = make_synthetic_classification(
+        "robust-check", (8, 8, 3), 10, 4, records_per_client=16, test_records=40,
+        partition_method="hetero", partition_alpha=0.5, batch_size=8, seed=SEED)
+    base = dict(model="cifar-small", client_num_in_total=4, client_num_per_round=3,
+                comm_round=1, batch_size=8, epochs=2, lr=0.05, momentum=0.9, seed=SEED)
+    robust = dict(norm_bound=0.5, stddev=ROBUST_STDDEV, poison_frac=ROBUST_POISON_FRAC,
+                  device_data="on")
+
+    def make(cls, **kw):
+        return cls(ds, FedConfig(**{**base, **kw}), ModelBundle(
+            "cifar-small", CifarResNet(1, 10, widths=(8, 16, 16), bn_impl="pallas"), (8, 8, 3)))
+
+    def rel(a, b):
+        pa, pb = split_params(a.variables)[0], split_params(b.variables)[0]
+        return float(tree_global_norm(tree_sub(pa, pb)) / tree_global_norm(pb))
+
+    def pair(ref, other):
+        other.variables = {k: v.clone() for k, v in ref.variables.items()}
+        return float(ref.run_round(0)), float(other.run_round(0))
+
+    out = {}
+    plain, packed = make(FedAvgRobustAPI, **robust), make(FedAvgRobustAPI, **robust, pack_lanes=2)
+    loss_u, loss_p = pair(plain, packed)
+    worst = 0.0
+    for k, v in plain.variables.items():
+        worst = max(worst, assert_close(f"robust packed {k}", packed.variables[k], v, 1e-4, 1e-5))
+    if not abs(loss_p - loss_u) <= 1e-5 * abs(loss_u):
+        raise AssertionError(f"[robust] f32 packed loss {loss_p} vs plain {loss_u}")
+    out["packed_vs_plain"] = {"loss_plain": loss_u, "loss_packed": loss_p, "max_abs_err": worst}
+    full = dict(robust, client_num_per_round=4)
+    for label, kw in (("packed", dict(pack_lanes=2)), ("resident", {})):
+        sim, mesh = make(FedAvgRobustAPI, **full), make(CrossSiloFedAvgRobustAPI, **full, **kw)
+        loss_s, loss_m = pair(sim, mesh)
+        out[f"robust_mesh_{label}"] = {"loss_sim": loss_s, "loss_mesh": loss_m,
+                                       "rel_norm": rel(mesh, sim)}
+    hier = dict(client_num_per_round=4, group_num=1, group_comm_round=2)
+    sim, mesh = make(HierarchicalFedAvgAPI, **hier), make(CrossSiloHierarchicalFedAvgAPI, **hier)
+    loss_s, loss_m = pair(sim, mesh)
+    out["hierarchical_mesh"] = {"loss_sim": loss_s, "loss_mesh": loss_m, "rel_norm": rel(mesh, sim)}
+    for label in ("robust_mesh_packed", "robust_mesh_resident", "hierarchical_mesh"):
+        r = out[label]
+        if not r["rel_norm"] < 1e-5 or not abs(r["loss_mesh"] - r["loss_sim"]) <= \
+                1e-5 * abs(r["loss_sim"]):
+            raise AssertionError(f"[robust/hierarchical] f32 {label} one-rank mesh round {r}")
+    one = dict(client_num_per_round=4, device_data="off")
+    flat, hier1 = make(FedAvgAPI, **one), make(HierarchicalFedAvgAPI, **one, group_num=2)
+    loss_f, loss_h = pair(flat, hier1)
+    share = 0.0
+    for k, v in flat.variables.items():
+        d, ref = (hier1.variables[k].float() - v.float()).abs(), v.float().abs()
+        share = max(share, float((d / (E2E_ATOL + E2E_RTOL * ref)).max()))
+    out["hierarchical_gr1_vs_fedavg"] = {"loss_fedavg": loss_f, "loss_hierarchical": loss_h,
+                                         "share_of_bound": share, "rel_norm": rel(hier1, flat)}
+    if not share <= 1.0 or not abs(loss_h - loss_f) <= E2E_LOSS_RTOL * abs(loss_f):
+        raise AssertionError(f"[hierarchical] one group round outside the end-to-end bound of "
+                             f"FedAvg: {out['hierarchical_gr1_vs_fedavg']}")
+    log(f"[robust/hierarchical] f32 gates on the card: {out}")
+    return out
+
+
+def phase_train_robust(smi: str) -> dict:
+    """Phase 14: robust aggregation, hierarchical FL and the silo harness on
+    the flagship (ResNet-56, ``bn_impl="pallas"``, bf16, batch 64), through
+    K1/K2, profiled nowhere: FedAvg-robust plain and packed, hierarchical
+    at G = 2 and the one-rank mesh at G = 1, SiloFedAvg on 8 silos, FedAvg
+    packed on the same federation for its images/s; the f32 gates."""
+    import gc
+    import tempfile
+
+    import torch
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out, launches = {"arms": {}}, {"bn_fwd": 0, "bn_bwd": 0}
+
+    def add(label, rec):
+        out["arms"][label] = rec
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        free()
+
+    add("fedavg-packed", fedavg_packed_arm(smi))
+    add("robust-plain", robust_arm("plain", smi, packed=False))
+    add("robust-packed", robust_arm("packed", smi, packed=True))
+    add("hierarchical-g2", hierarchical_arm("G=2", smi, HIER_GROUPS, mesh=False))
+    add("hierarchical-mesh-g1", hierarchical_arm("one-rank mesh G=1", smi, 1, mesh=True))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_silo_") as tmp:
+        add("silo-fedavg", silo_arm(smi, tmp))
+    out["f32_checks"] = robust_hier_f32_checks()
+    free()
+    out["launches"] = launches
+    log("[robust] real images/s (silo's with its evaluations): " + ", ".join(
+        f"{k} {v['real_images_per_s']:.1f}" for k, v in out["arms"].items()) + f"; {smi}")
+    return out
+
+
+def fedavg_packed_arm(smi: str) -> dict:
+    """FedAvg packed in 2 lanes on the flagship, 2 rounds: the yardstick
+    beside the robust arms' images/s."""
+    from fedml_tpu_torch.parallel.packed import executed_steps
+
+    tag = "[robust fedavg-packed]"
+    api = flagship_api(ds=flagship_data(), pack_lanes=PACK_LANES, packed_conv="off")
+    steps = sum(len(executed_steps(api._packed_plan(api.sample(r)).live))
+                for r in range(api.config.comm_round))
+    rounds_rec, metrics, eval_s, trained, after_eval = run_rounds(api, tag, smi, replayed=steps)
+    check_bn_launches(tag, trained, after_eval, steps)
+    train_s = sum(r["seconds"] for r in rounds_rec)
+    return {"steps": steps, "rounds": rounds_rec, "eval": metrics, "launches": after_eval,
+            "real_images_per_s": sum(r["real_images"] for r in rounds_rec) / train_s}
+
+
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
                     ) -> tuple[float, float, int]:
     """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
@@ -3616,6 +4021,7 @@ def main() -> int:
     # not), and phase 4e profiles nothing
     crossdevice = timed("train_crossdevice", phase_train_crossdevice, smi)
     loop = timed("train_loop", phase_train_loop, smi)
+    robust = timed("train_robust", phase_train_robust, smi)
     err.update(conv_err)
     err.update(lm_err)
 
@@ -3651,7 +4057,8 @@ def main() -> int:
                        "packed_conv": packed_conv["launches"][name],
                        "crosssilo": crosssilo["launches"][name],
                        "crossdevice": crossdevice["launches"][name],
-                       "train_loop": loop["launches"][name]}
+                       "train_loop": loop["launches"][name],
+                       "robust_hier_silo": robust["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -3737,7 +4144,7 @@ def main() -> int:
         "timing_packed": timing_packed, "timing_packed_by_lanes": timing_packed_by_lanes,
         "train": train, "train_packed": train_packed,
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
-        "train_loop": loop,
+        "train_loop": loop, "train_robust": robust,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

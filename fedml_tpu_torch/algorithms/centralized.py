@@ -60,7 +60,8 @@ def merge_clients(dataset: FedDataset, batch_size: int):
 FEDERATED_ONLY_FIELDS = (
     "checkpoint_dir", "resume_from", "profile_dir", "enable_wandb", "pack_lanes",
     "packed_conv", "async_rounds", "stream_aggregate", "cohort_chunk", "cohort_policy", "failure_prob",
-    "host_pipeline_depth", "host_pipeline_workers")
+    "host_pipeline_depth", "host_pipeline_workers", "norm_bound", "stddev", "attack_type",
+    "poison_frac", "group_num", "group_comm_round")
 
 
 def check_centralized(config: FedConfig) -> None:

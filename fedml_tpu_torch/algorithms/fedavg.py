@@ -56,7 +56,10 @@ The algorithm contract is the JAX package's: a subclass changes
 ``server_update``) for the packed round, which ends in
 ``parallel/crosssilo.apply_server_and_rollback``. ``self.server_state``
 threads across rounds; a round whose total weight is 0 keeps the weights and
-the server state. ``rng`` is None: no ported algorithm draws on the server.
+the server state, and draws nothing. ``rng`` is the round's server
+randomness, ``core/rng.server_generator(seed, round, device)`` on every
+paradigm (the JAX package's ``server_key(round_key)``), or, with the API's
+``noise_hook``, that hook's draws for the round (``_server_rng``).
 
 Elastic rounds: with ``failure_prob > 0`` each sampled client fails a
 round (numpy, bit-equal to the JAX package's draw) and, like a client that
@@ -88,6 +91,7 @@ the padding they trim (the orders there permute the whole n_pad).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -101,7 +105,7 @@ from fedml_tpu_torch import default_device
 from fedml_tpu_torch.core.aggregation import fedavg_aggregate
 from fedml_tpu_torch.core.config import FedConfig, check_ported
 from fedml_tpu_torch.core.pytree import tree_stack, weighted_sum
-from fedml_tpu_torch.core.rng import client_generator
+from fedml_tpu_torch.core.rng import client_generator, server_generator
 from fedml_tpu_torch.core.tasks import get_task
 from fedml_tpu_torch.data import FedDataset
 from fedml_tpu_torch.data.pipeline import CohortPrefetcher, materialize_cohort, receive, ship
@@ -126,6 +130,11 @@ log = logging.getLogger(__name__)
 #: host-slice rounds train on a record axis cut to ``n < n_pad`` and call
 #: ``order_hook(round_idx, cohort_pos, n)`` for permutations of n.
 OrderHook = Callable[..., Sequence[torch.Tensor]]
+#: ``noise_hook(round_idx, i, name, shape) -> tensor``: the server's normal
+#: draw of leaf ``name`` (index ``i`` in the JAX package's flattened tree)
+#: in round ``round_idx``, replacing the server generator's
+#: (``core/aggregation.add_dp_noise``)
+NoiseHook = Callable[[int, int, str, tuple], torch.Tensor]
 
 
 def _chunk_buckets(sorted_maxes, G: int, q: int, n_pad: int) -> list:
@@ -168,7 +177,8 @@ class FedAvgAPI:
     def __init__(self, dataset: FedDataset, config: FedConfig,
                  bundle: Optional[ModelBundle] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 order_hook: Optional[OrderHook] = None):
+                 order_hook: Optional[OrderHook] = None,
+                 noise_hook: Optional[NoiseHook] = None):
         check_ported(config)
         self.device = default_device(device)
         self.dataset = dataset
@@ -177,6 +187,7 @@ class FedAvgAPI:
             config.model, dataset.class_num, input_shape=dataset.train_x.shape[2:] or None)
         self.task = get_task(dataset.task, dataset.class_num)
         self.order_hook = order_hook
+        self.noise_hook = noise_hook
         #: the per-client exit mask of set_client_active; None = all active
         self._client_active: Optional[np.ndarray] = None
         self.variables = self.bundle.init(config.seed, self.device)
@@ -350,12 +361,15 @@ class FedAvgAPI:
         return plan
 
     def _round_orders(self, round_idx: int, positions: "int | Sequence[int]",
-                      n: Optional[int] = None) -> torch.Tensor:
+                      n: Optional[int] = None, group_round: Optional[int] = None
+                      ) -> torch.Tensor:
         """[len(positions), epochs, n] per-epoch permutations of n (n_pad
         by default) for each cohort position (``positions``, or an int for
         ``range(positions)``): its draws from ``client_generator``, or the
         order hook's. Every round trains on these; at full participation a
-        position is the client's index."""
+        position is the client's index. ``group_round`` (hierarchical FL)
+        gives each group round its own orders, and the hook is then called
+        ``order_hook(round_idx, pos, n, group_round)``."""
         n_pad = int(self.dataset.train_x.shape[1])
         n = n_pad if n is None else int(n)
         if isinstance(positions, (int, np.integer)):
@@ -363,13 +377,24 @@ class FedAvgAPI:
         out = []
         for i in (int(p) for p in positions):
             if self.order_hook is not None:
-                orders = (self.order_hook(round_idx, i) if n == n_pad
+                orders = (self.order_hook(round_idx, i, n, group_round)
+                          if group_round is not None
+                          else self.order_hook(round_idx, i) if n == n_pad
                           else self.order_hook(round_idx, i, n))
             else:
-                g = client_generator(self.config.seed, round_idx, i)
+                g = client_generator(self.config.seed, round_idx, i, group_round or 0)
                 orders = [torch.randperm(n, generator=g) for _ in range(self.config.epochs)]
             out.append(torch.stack([torch.as_tensor(o, dtype=torch.int64) for o in orders]))
         return torch.stack(out)
+
+    def _server_rng(self, round_idx: int):
+        """The round's server randomness (``rng`` of ``aggregate`` and of
+        ``server_update``): ``server_generator(seed, round, device)``, or the
+        ``noise_hook`` bound to the round, a ``(i, name, shape)`` noise
+        source."""
+        if self.noise_hook is not None:
+            return functools.partial(self.noise_hook, round_idx)
+        return server_generator(self.config.seed, round_idx, self.device)
 
     # -- elastic rounds ----------------------------------------------------------
 
@@ -519,7 +544,7 @@ class FedAvgAPI:
             if out is not None:
                 self.variables, self.server_state = apply_server_and_rollback(
                     self.variables, out.variables, out.extras, out.total, self.server_state,
-                    None, self._server_update)
+                    self._server_rng(round_idx), self._server_update)
                 return out.train_loss if c.async_rounds else float(out.train_loss)
         counts = np.asarray(self.dataset.train_counts, np.int64)[sampled]
         tx, ty, tm = self._dev_train
@@ -539,7 +564,8 @@ class FedAvgAPI:
                             torch.tensor([r.tau for r in results], device=self.device))
         if wn.sum() > 0:      # else the round keeps weights and server state
             self.variables, self.server_state = self.aggregate(
-                self.variables, infos.variables, w, infos, None, self.server_state)
+                self.variables, infos.variables, w, infos, self._server_rng(round_idx),
+                self.server_state)
         train_loss = (losses * w).sum() / torch.clamp(w.sum(), min=1e-12)
         return train_loss if self.config.async_rounds else float(train_loss)
 
@@ -640,7 +666,7 @@ class FedAvgAPI:
         """The streaming mode that applies to this API: the config's, or
         "off" (logged once) when the streaming fold cannot mirror it: it
         rewires aggregation, carries cross-silo hooks, or rewires the local
-        trainer or the round."""
+        trainer or the round (``_run_round_inner`` or ``_plain_round``)."""
         if self._stream_mode_memo is not None:
             return self._stream_mode_memo
         mode = self.config.stream_aggregate
@@ -648,7 +674,8 @@ class FedAvgAPI:
         if mode != "off" and (cls.aggregate is not FedAvgAPI.aggregate
                               or self.crosssilo_hooks() is not None
                               or cls.build_local_train is not FedAvgAPI.build_local_train
-                              or cls._run_round_inner is not FedAvgAPI._run_round_inner):
+                              or cls._run_round_inner is not FedAvgAPI._run_round_inner
+                              or cls._plain_round is not FedAvgAPI._plain_round):
             log.warning("stream_aggregate=%r ignored: %s rewires aggregation (or carries "
                         "crosssilo hooks) or the round, which the streaming fold cannot "
                         "mirror; using the batch path", mode, cls.__name__)
@@ -937,10 +964,10 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
                  bundle: Optional[ModelBundle] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  order_hook: Optional[OrderHook] = None,
-                 mesh: Optional[ClientMesh] = None):
+                 mesh: Optional[ClientMesh] = None, **kw):
         self.mesh = mesh or client_mesh(device=device)
         super().__init__(dataset, config, bundle, device=self.mesh.device,
-                         order_hook=order_hook)
+                         order_hook=order_hook, **kw)
         D = self.mesh.world_size
         cohort = self._cohort
         if cohort % D:
@@ -1117,12 +1144,14 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
             tx, ty, tm = pm["data"]
             out = pm["round_fn"](self.variables, self.server_state, tx, ty, tm, w[rows],
                                  self._round_orders(round_idx, rows),
-                                 rank_plan(plan, self.mesh.world_size, self.mesh.rank), total)
+                                 rank_plan(plan, self.mesh.world_size, self.mesh.rank), total,
+                                 self._server_rng(round_idx))
         else:
             blocks = self._dev_groups or [self._dev_sharded]
             work = [wk for rows, *rest in blocks
                     for wk in self._work(round_idx, rows, *rest[-3:], w)]
-            out = self._round(self.variables, self.server_state, work, total)
+            out = self._round(self.variables, self.server_state, work, total,
+                              self._server_rng(round_idx))
         self.variables, self.server_state, loss = out
         return loss if c.async_rounds else float(loss)
 
@@ -1142,7 +1171,8 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
         pos = np.arange(len(sampled))[self.mesh.block(len(sampled))]
         work = self._work(round_idx, sampled[pos], x, y, m, w, positions=pos)
         self.variables, self.server_state, loss = self._round(
-            self.variables, self.server_state, work, float(w.astype(np.float64).sum()))
+            self.variables, self.server_state, work, float(w.astype(np.float64).sum()),
+            self._server_rng(round_idx))
         return loss if c.async_rounds else float(loss)
 
     def round_counts(self, round_idx: int) -> tuple:

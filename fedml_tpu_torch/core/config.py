@@ -356,12 +356,6 @@ _OBS = "ROADMAP §1 item 12 (observability: tracing, pulse plane, health, fedlen
 #: field -> the ROADMAP item that ports its feature; set away from its
 #: default, each raises (check_ported)
 UNPORTED_FIELDS = {
-    "group_num": "ROADMAP §1 item 9 (hierarchical FL)",
-    "group_comm_round": "ROADMAP §1 item 9 (hierarchical FL)",
-    "norm_bound": "ROADMAP §1 item 9 (robust aggregation; item 7's clip_update_by_norm)",
-    "stddev": "ROADMAP §1 item 9 (robust aggregation; item 7's add_dp_noise)",
-    "attack_type": "ROADMAP §1 item 9 (robust aggregation, data/edge_cases.py)",
-    "poison_frac": "ROADMAP §1 item 9 (robust aggregation, data/edge_cases.py)",
     "unrolled": "ROADMAP §1 item 9 (fednas)",
     "temperature": "ROADMAP §1 item 9 (fedgkt)",
     "alpha_distill": "ROADMAP §1 item 9 (fedgkt)",

@@ -4,7 +4,9 @@ Client sampling is numpy and bit-equal to the JAX package. Per-client
 shuffles use an explicit ``torch.Generator`` derived from
 (seed, round, cohort position); it does not reproduce JAX's threefry
 stream, so parity tests inject the reference's permutations instead
-(``parallel/local.make_local_train_fn``'s ``orders``).
+(``parallel/local.make_local_train_fn``'s ``orders``). Server-side draws
+(the DP noise of robust aggregation) take :func:`server_generator`, the
+counterpart of ``server_key(round_key(root, r))``.
 """
 
 from __future__ import annotations
@@ -24,10 +26,25 @@ def sample_clients(round_idx: int, client_num_in_total: int,
                               replace=False)).astype(np.int64)
 
 
-def client_generator(seed: int, round_idx: int, client_pos: int) -> torch.Generator:
-    """A CPU generator for one client's shuffles in one round, a pure
-    function of (seed, round, cohort position)."""
-    state = np.random.SeedSequence([seed, round_idx, client_pos]).generate_state(2)
-    g = torch.Generator()
+def _seeded(entropy: list, device=None) -> torch.Generator:
+    state = np.random.SeedSequence(entropy).generate_state(2)
+    g = torch.Generator() if device is None else torch.Generator(device=device)
     g.manual_seed(int(state[0]) << 32 | int(state[1]))
     return g
+
+
+def client_generator(seed: int, round_idx: int, client_pos: int,
+                     group_round: int = 0) -> torch.Generator:
+    """A CPU generator for one client's shuffles in one round, a pure
+    function of (seed, round, cohort position) and, for the group rounds of
+    hierarchical FL after the first, the group round's index (group round 0
+    draws the flat round's orders)."""
+    return _seeded([seed, round_idx, client_pos] + ([group_round] if group_round else []))
+
+
+def server_generator(seed: int, round_idx: int, device=None) -> torch.Generator:
+    """The generator of a round's server-side draws, a pure function of
+    (seed, round), on ``device`` (the aggregate's: the card draws on the
+    card). Every paradigm derives it the same way, so the simulation and
+    every rank of the mesh draw the same noise."""
+    return _seeded([seed, round_idx, 0x5E87], device)

@@ -35,23 +35,18 @@ ALGORITHMS = (
 )
 
 #: the ported algorithms (the crosssilo_* ones on the mesh of the initialised
-#: process group, or one rank without one)
+#: process group, or one rank without one; silo_* are ``SiloRunner`` over
+#: their algorithm, as in the JAX package)
 PORTED = ("fedavg", "fedopt", "fedprox", "fednova", "fedagc", "centralized",
           "crosssilo_fedavg", "crosssilo_fedopt", "crosssilo_fedprox", "crosssilo_fednova",
-          "crosssilo_fedagc")
+          "crosssilo_fedagc", "fedavg_robust", "crosssilo_fedavg_robust", "hierarchical",
+          "crosssilo_hierarchical", "silo_fedavg", "silo_fedopt", "silo_fednova",
+          "silo_fedagc")
 
 _ITEM9 = "ROADMAP §1 item 9 (the algorithm zoo)"
 #: algorithm -> the ROADMAP item that ports it
 UNPORTED = {
     **{a: _ITEM9 for a in ALGORITHMS if a not in PORTED},
-    "fedavg_robust": "ROADMAP §1 item 9 (robust)",
-    "crosssilo_fedavg_robust": "ROADMAP §1 items 4c and 9 (robust)",
-    "hierarchical": "ROADMAP §1 item 9 (hierarchical)",
-    "crosssilo_hierarchical": "ROADMAP §1 items 4b and 9 (hierarchical)",
-    "silo_fedavg": "ROADMAP §1 item 9 (silo)",
-    "silo_fedopt": "ROADMAP §1 item 9 (silo)",
-    "silo_fednova": "ROADMAP §1 item 9 (silo)",
-    "silo_fedagc": "ROADMAP §1 item 9 (silo)",
     "streaming_fedavg": "ROADMAP §1 item 9 (streaming_fedavg)",
     "vfl": "ROADMAP §1 items 9 and 10 (vfl, vertical loaders)",
     "fedavg_edge": "ROADMAP §1 item 11 (edge runtimes)",
@@ -113,16 +108,30 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
     from fedml_tpu_torch.algorithms.fednova import CrossSiloFedNovaAPI, FedNovaAPI
     from fedml_tpu_torch.algorithms.fedopt import CrossSiloFedOptAPI, FedOptAPI
     from fedml_tpu_torch.algorithms.fedprox import CrossSiloFedProxAPI, FedProxAPI
+    from fedml_tpu_torch.algorithms.hierarchical import (CrossSiloHierarchicalFedAvgAPI,
+                                                         HierarchicalFedAvgAPI)
+    from fedml_tpu_torch.algorithms.robust import CrossSiloFedAvgRobustAPI, FedAvgRobustAPI
+    from fedml_tpu_torch.algorithms.silo import SiloRunner
 
     apis = {
         "fedavg": FedAvgAPI, "fedopt": FedOptAPI, "fedprox": FedProxAPI,
         "fednova": FedNovaAPI, "fedagc": FedAGCAPI, "centralized": CentralizedTrainer,
         "crosssilo_fedavg": CrossSiloFedAvgAPI, "crosssilo_fedopt": CrossSiloFedOptAPI,
         "crosssilo_fedprox": CrossSiloFedProxAPI, "crosssilo_fednova": CrossSiloFedNovaAPI,
-        "crosssilo_fedagc": CrossSiloFedAGCAPI,
+        "crosssilo_fedagc": CrossSiloFedAGCAPI, "fedavg_robust": FedAvgRobustAPI,
+        "crosssilo_fedavg_robust": CrossSiloFedAvgRobustAPI,
+        "hierarchical": HierarchicalFedAvgAPI,
+        "crosssilo_hierarchical": CrossSiloHierarchicalFedAvgAPI,
     }
+    silo = {"silo_fedavg": FedAvgAPI, "silo_fedopt": FedOptAPI, "silo_fednova": FedNovaAPI,
+            "silo_fedagc": FedAGCAPI}
     ds = _load(config)
-    result = apis[algorithm](ds, config, _bundle_for(config, ds), device=device).train()
+    bundle = _bundle_for(config, ds)
+    if algorithm in silo:
+        result = SiloRunner(ds, config, api_cls=silo[algorithm], bundle=bundle,
+                            device=device).train()
+    else:
+        result = apis[algorithm](ds, config, bundle, device=device).train()
     log.info("result %s", json.dumps({k: v for k, v in dict(result).items()
                                       if isinstance(v, (int, float, str))}))
     return result

@@ -82,3 +82,20 @@ def torch_to_flax(state: dict, bn_name: Optional[str] = None) -> dict:
     if not out["batch_stats"]:
         del out["batch_stats"]
     return out
+
+
+def flax_path(key: str, ndim: int) -> tuple:
+    """The flax path (collection first) of a state-dict entry of ``ndim``
+    dimensions, as :func:`torch_to_flax` places it."""
+    path = tuple(key.split("."))
+    name = path[-1]
+    if name == "weight" and ndim in (2, 4):
+        return ("params",) + path[:-1] + ("kernel",)
+    return ("batch_stats" if name in ("mean", "var") else "params",) + path
+
+
+def flax_leaf_order(state: dict) -> list:
+    """The state dict's names in the order ``jax.tree_util`` flattens the
+    flax variables they map to (every dict level by sorted key), so a leaf's
+    position here is its index in the JAX package's flattened tree."""
+    return sorted(state, key=lambda k: flax_path(k, state[k].dim()))

@@ -14,6 +14,12 @@ counterpart.
 
 Without an initialised process group the mesh has one rank and no group,
 and the all-reduce is the identity (as ``psum`` over one device is).
+
+Hierarchical FL's 2-D ``('group', 'clients')`` mesh
+(:func:`hierarchical_mesh`) lays the ranks out row-major: rank r sits in
+group row ``r // clients_per_group`` at slot ``r % clients_per_group``, and
+each axis is a subgroup of the process group (a row's ranks for the
+``clients`` all-reduce, a column's for the ``group`` one).
 """
 
 from __future__ import annotations
@@ -105,3 +111,56 @@ def shard_client_batch(mesh: ClientMesh, arrays: Sequence[np.ndarray],
             t = t.to(dtype)
         out.append(t)
     return tuple(out)
+
+
+@dataclass(frozen=True)
+class HierarchicalMesh:
+    """One rank's view of the 2-D ``('group', 'clients')`` mesh:
+    ``num_groups`` rows of ``clients_per_group`` ranks, this rank at
+    (``group_index``, ``slot``). ``clients`` is the :class:`ClientMesh` of
+    this rank's row (the group all-reduce), ``groups`` that of its column
+    (the global reduce across groups); an axis of one rank has no group."""
+
+    world_size: int
+    rank: int
+    group: Optional[dist.ProcessGroup]
+    device: torch.device
+    num_groups: int
+    clients_per_group: int
+    clients: ClientMesh
+    groups: ClientMesh
+
+    @property
+    def shape(self) -> dict:
+        """The JAX mesh's axis sizes."""
+        return {"group": self.num_groups, "clients": self.clients_per_group}
+
+    @property
+    def group_index(self) -> int:
+        return self.rank // self.clients_per_group
+
+    @property
+    def slot(self) -> int:
+        return self.rank % self.clients_per_group
+
+
+def hierarchical_mesh(num_groups: int, clients_per_group: int,
+                      device: Optional[Union[str, torch.device]] = None) -> HierarchicalMesh:
+    """The ``('group', 'clients')`` mesh over the initialised process group
+    (``num_groups * clients_per_group`` must be its world size), or, without
+    one, the one-rank mesh ``G = 1`` with no group. Every rank builds the
+    same subgroups in the same order (``dist.new_group`` is collective):
+    one a row, then one a column, skipping axes of one rank."""
+    base = client_mesh(device=device)
+    G, cpg = int(num_groups), int(clients_per_group)
+    if G * cpg != base.world_size:
+        raise ValueError(f"a {G} x {cpg} ('group', 'clients') mesh needs {G * cpg} ranks; the "
+                         f"process group has {base.world_size}")
+    g, s = divmod(base.rank, cpg)
+    rows = [dist.new_group([r * cpg + j for j in range(cpg)]) if cpg > 1 else None
+            for r in range(G)]
+    cols = [dist.new_group([r * cpg + j for r in range(G)]) if G > 1 else None
+            for j in range(cpg)]
+    return HierarchicalMesh(base.world_size, base.rank, base.group, base.device, G, cpg,
+                            ClientMesh(cpg, s, rows[g], base.device),
+                            ClientMesh(G, g, cols[s], base.device))

@@ -634,21 +634,23 @@ def make_crosssilo_packed_round(bundle: ModelBundle, task: Task, n_pad: int, mes
     ``apply_server_and_rollback`` (``crosssilo.mesh_finish``).
 
     Returns ``round_fn(variables, server_state, tx, ty, tm, weights, orders,
-    plan, total) -> (variables, server_state, loss)``: ``tx/ty/tm`` this
+    plan, total, rng=None) -> (variables, server_state, loss)``: ``tx/ty/tm`` this
     rank's block of the clients in plan order (``perm``) on its device,
     ``weights`` [block] their aggregation weights, ``orders`` [block,
     epochs, n_pad] their per-epoch orders (each client's by its original
     index), ``plan`` this rank's lanes (:func:`rank_plan`), ``total`` the
-    total weight over every rank, known on the host. ``round_fn.lanes`` is
+    total weight over every rank, known on the host, ``rng`` the round's
+    server randomness. ``round_fn.lanes`` is
     the lane program (its ``.lanes`` cache)."""
     lanes_fn = make_packed_cohort_train(bundle, task, n_pad, client_transform=client_transform,
                                         reduce_extras=reduce_extras, **lane_kwargs)
 
-    def round_fn(variables, server_state, tx, ty, tm, weights, orders, plan, total: float):
+    def round_fn(variables, server_state, tx, ty, tm, weights, orders, plan, total: float,
+                 rng=None):
         sums = lanes_fn.sums(variables, tx, ty, tm, np.arange(tx.shape[0]), weights, orders,
                              plan)
         return mesh_finish(mesh, variables, sums.acc, sums.loss_sum, sums.extras, total,
-                           server_state, server_update)
+                           server_state, server_update, rng)
 
     round_fn.lanes = lanes_fn
     return round_fn

@@ -30,9 +30,6 @@ BASE = dict(model="lr", dataset="tiny", client_num_in_total=4, client_num_per_ro
 #: a value away from the default for each unported field, with the fields it
 #: needs to pass the JAX package's own checks
 NON_DEFAULT = {
-    "group_num": {"group_num": 2}, "group_comm_round": {"group_comm_round": 2},
-    "norm_bound": {"norm_bound": 1.0}, "stddev": {"stddev": 0.1},
-    "attack_type": {"attack_type": "edge_case"}, "poison_frac": {"poison_frac": 0.1},
     "unrolled": {"unrolled": 1}, "temperature": {"temperature": 2.0},
     "alpha_distill": {"alpha_distill": 0.5}, "model_client": {"model_client": "resnet4"},
     "model_server": {"model_server": "resnet32_server"}, "epochs_server": {"epochs_server": 2},
@@ -161,10 +158,10 @@ def test_unported_field_raises_at_construction(field):
 
 
 def test_other_entry_points_check_too():
-    cfg = FedConfig(**BASE, norm_bound=1.0)
+    cfg = FedConfig(**BASE, unrolled=1)
     for build in (lambda: CrossSiloFedAvgAPI(_ds(), cfg, device="cpu"),
                   lambda: CentralizedTrainer(_ds(), cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="norm_bound"):
+        with pytest.raises(NotImplementedError, match="unrolled"):
             build()
 
 

@@ -52,7 +52,9 @@ def test_new_modules_are_covered():
     for mod in ("experiments/__init__.py", "experiments/run.py", "experiments/main_fedavg.py",
                 "core/serialization.py", "utils/checkpoint.py", "data/cifar.py",
                 "data/mnist.py", "data/femnist.py", "models/cnn.py",
-                "algorithms/centralized.py"):
+                "algorithms/centralized.py", "algorithms/robust.py",
+                "algorithms/hierarchical.py", "algorithms/silo.py", "data/edge_cases.py",
+                "experiments/main_fedavg_robust.py", "experiments/main_hierarchical.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
@@ -62,6 +64,8 @@ def test_the_launcher_loads_no_jax_at_run_time():
         "from fedml_tpu_torch.experiments import run\n"
         "from fedml_tpu_torch.data import known_datasets, load_dataset\n"
         "import fedml_tpu_torch.utils.checkpoint, fedml_tpu_torch.algorithms.centralized\n"
+        "import fedml_tpu_torch.algorithms.silo, fedml_tpu_torch.algorithms.robust\n"
+        "import fedml_tpu_torch.algorithms.hierarchical, fedml_tpu_torch.data.edge_cases\n"
         "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

@@ -62,6 +62,10 @@ def test_main_runs_each_ported_algorithm(algorithm, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["algorithm"] == algorithm
     assert result["round"] == [0, 1] and last["round"] == 1       # --ci: 2 rounds
+    if algorithm.startswith("silo_"):      # SiloRunner's history (the JAX package's keys)
+        assert np.isfinite(last["GLOBAL/Test/Loss"]) and 0.0 <= last["GLOBAL/Test/Acc"] <= 1.0
+        assert last["best_round"] in (0, 1) and "Client.0/Train/Acc" in last
+        return
     assert np.isfinite(last["Test/Loss"]) and 0.0 <= last["Test/Acc"] <= 1.0
     if algorithm != "centralized":
         assert last["rounds_per_sec"] == result["timing"]["rounds_per_sec"] > 0
@@ -93,8 +97,8 @@ def test_unknown_algorithm_rank_and_class_num():
         run_experiment(FedConfig(rank=1, world_size=3), "fedavg", device="cpu")
     with pytest.raises(ValueError, match="class_num"):
         run_experiment(FedConfig(dataset="synthetic_1_1", class_num=3), "fedavg", device="cpu")
-    with pytest.raises(NotImplementedError, match="norm_bound"):
-        main(SMALL + ["--norm_bound", "1.0"], device="cpu")
+    with pytest.raises(NotImplementedError, match="unrolled"):
+        main(SMALL + ["--unrolled", "1"], device="cpu")
 
 
 @pytest.mark.parametrize("algorithm", PORTED)
@@ -230,7 +234,8 @@ _FEDERATED_ONLY = {
     "cohort_chunk": {"cohort_chunk": 2, "stream_aggregate": "deterministic"},
     "cohort_policy": "speed",
     "failure_prob": 0.25, "host_pipeline_depth": 2, "host_pipeline_workers": 2,
-    "device_data": "off",
+    "device_data": "off", "norm_bound": 1.0, "stddev": 0.1, "attack_type": "edge_case",
+    "poison_frac": 0.1, "group_num": 2, "group_comm_round": 2,
 }
 
 

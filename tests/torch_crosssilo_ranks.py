@@ -10,8 +10,10 @@ from __future__ import annotations
 def run_rank(rank: int, world: int, store: str, spec: dict, out) -> None:
     """``spec``: ``data`` (make_synthetic_classification kwargs), ``run``
     (FedConfig kwargs), ``model`` ("lr" or "cifar-small"), ``init``
-    (name -> array), ``orders`` ((round, client, n) -> [epochs, n]),
-    ``rounds``. Puts ``(rank, losses, variables)`` on ``out``, or
+    (name -> array), ``orders`` ((round, client, n) -> [epochs, n], or
+    (round, client, n, group round) -> [epochs, n] for hierarchical FL),
+    ``rounds``, and ``groups`` for ``CrossSiloHierarchicalFedAvgAPI`` on a
+    ``groups`` x ``world / groups`` mesh. Puts ``(rank, losses, variables)`` on ``out``, or
     ``(rank, error)``."""
     import numpy as np
     import torch
@@ -20,11 +22,12 @@ def run_rank(rank: int, world: int, store: str, spec: dict, out) -> None:
     torch.set_num_threads(1)
     try:
         from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI
+        from fedml_tpu_torch.algorithms.hierarchical import CrossSiloHierarchicalFedAvgAPI
         from fedml_tpu_torch.core.config import FedConfig
         from fedml_tpu_torch.data.synthetic import make_synthetic_classification
         from fedml_tpu_torch.models import ModelBundle, create_model
         from fedml_tpu_torch.models.resnet import CifarResNet
-        from fedml_tpu_torch.parallel.mesh import client_mesh, init_multihost
+        from fedml_tpu_torch.parallel.mesh import client_mesh, hierarchical_mesh, init_multihost
 
         init_multihost(f"file://{store}", world, rank, device="cpu", timeout_s=60)
         ds = make_synthetic_classification(**spec["data"])
@@ -36,11 +39,18 @@ def run_rank(rank: int, world: int, store: str, spec: dict, out) -> None:
         n_pad = ds.train_x.shape[1]
         orders = spec["orders"]
 
-        def hook(r, j, n=n_pad):
-            return [torch.from_numpy(o) for o in orders[(r, j, n)]]
+        def hook(r, j, n=n_pad, group_round=None):
+            key = (r, j, n) if group_round is None else (r, j, n, group_round)
+            return [torch.from_numpy(o) for o in orders[key]]
 
-        api = CrossSiloFedAvgAPI(ds, FedConfig(**spec["run"]), bundle, order_hook=hook,
-                                 mesh=client_mesh(world, device="cpu"))
+        groups = spec.get("groups")
+        if groups:
+            api = CrossSiloHierarchicalFedAvgAPI(
+                ds, FedConfig(**spec["run"]), bundle, order_hook=hook,
+                mesh=hierarchical_mesh(groups, world // groups, device="cpu"))
+        else:
+            api = CrossSiloFedAvgAPI(ds, FedConfig(**spec["run"]), bundle, order_hook=hook,
+                                     mesh=client_mesh(world, device="cpu"))
         api.variables = {k: torch.from_numpy(np.array(v)) for k, v in spec["init"].items()}
         losses = [float(api.run_round(r)) for r in range(spec["rounds"])]
         out.put((rank, losses, {k: v.numpy() for k, v in api.variables.items()}))
