@@ -170,12 +170,31 @@ Phases (any failure raises and the script exits non-zero):
    one-rank robust and hierarchical meshes within 1e-5 (relative norm) of
    their simulations, and one group round within the end-to-end bound of
    FedAvg. Real images/s of each arm.
+15. Decentralized FL, streaming FedAvg and TurboAggregate, after phase 14,
+   with no profile, on the flagship (ResNet-56, ``bn_impl="pallas"``, bf16,
+   batch 64, 2 rounds an arm, the first with its capture): (a) DSGD on 16
+   nodes (the flagship's recipe at 16 clients, the symmetric topology at
+   ``neighbor_num=2``), (b) PushSum on them, (c) the DSGD mesh on one rank
+   without a process group; (d) ``StreamingFedAvgAPI`` on the 32-client
+   flagship, 8 a round, ``stream_aggregate="off"`` at pipeline depth 0,
+   (e) ``"deterministic"`` at depth 2; (f) ``TurboAggregateAPI`` on it.
+   Gates: 57 K1 + 57 K2 and one replay a live step, none in any
+   evaluation; finite losses; PushSum's mass N (rtol 1e-5) every round; the
+   native host batcher available and its batches equal to its Python
+   form's; and in f32 on a small CifarResNet through K1/K2 (cuDNN's
+   deterministic algorithms): the one-rank mesh round equal to the
+   simulator's bit for bit (DSGD, PushSum), the streamed round equal to
+   FedAvg's host round bit for bit, ``deterministic`` within rtol 1e-6 /
+   atol 1e-7 of ``off``, TurboAggregate within 1e-4 of the plain weighted
+   mean. Real images/s and steps a round of each arm, the mix's ms (CUDA
+   events), the host MPC's ms a round and its largest |x * w| beside the
+   field's ~1024, the streamed arms' ``stream_stats``.
 
-Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13 and 14 is a replay of the step
+Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14 and 15 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4f, 4d, 4e, 13 and 14 (in 4c the FedOpt-adam packed run and the client-adam plain
+but 4f, 4d, 4e, 13, 14 and 15 (in 4c the FedOpt-adam packed run and the client-adam plain
 run; 4d's and 4f's arms take their steps from the same trainers; 4e's are neither
 re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
@@ -1457,11 +1476,12 @@ def flagship_data():
 
 
 def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", api_cls=None, ds=None,
-                 mesh=None, **config):
+                 mesh=None, api_kw: Optional[dict] = None, **config):
     """bench.py's flagship cut to 2 rounds: ResNet-56 FedAvg (or
     ``api_cls``) on 32 non-IID synthetic CIFAR-10-shaped clients, 8 a
     round, batch 64, bf16; ``config`` overrides FedConfig fields, ``mesh``
-    is a cross-silo API's client mesh."""
+    is a cross-silo API's client mesh, ``api_kw`` more keyword arguments of
+    the API class."""
     import torch
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
@@ -1476,15 +1496,20 @@ def flagship_api(bn_impl: str = "pallas", conv_impl: str = "xla", api_cls=None, 
     cfg = FedConfig(**{**base, **config})
     bundle = create_model("resnet56", 10, input_shape=ds.train_x.shape[2:],
                           dtype=torch.bfloat16, bn_impl=bn_impl, conv_impl=conv_impl)
-    return (api_cls or FedAvgAPI)(ds, cfg, bundle, **({"mesh": mesh} if mesh else {}))
+    return (api_cls or FedAvgAPI)(ds, cfg, bundle, **({"mesh": mesh} if mesh else {}),
+                                  **(api_kw or {}))
 
 
-def run_rounds(api, tag: str, smi: str, replayed: Optional[int] = None) -> tuple:
+def run_rounds(api, tag: str, smi: str, replayed: Optional[int] = None,
+               on_round=None, eval_finite: bool = True) -> tuple:
     """The configured rounds (one sync each), then evaluate_global. Returns
     (rounds, metrics, eval seconds, launches after the rounds, launches
     after the evaluation); the counters are set to 0 just before. With
     ``replayed``, the rounds must have replayed the captured step that many
-    times: once a live (or executed packed) step."""
+    times: once a live (or executed packed) step. ``on_round(api, r)``
+    runs after each round's sync; a dict it returns joins that round's
+    record. ``eval_finite=False`` leaves the evaluation's loss to the
+    caller's check."""
     from fedml_tpu_torch.ops import batchnorm as bn
     from fedml_tpu_torch.ops import conv_lanes as cl
 
@@ -1498,7 +1523,8 @@ def run_rounds(api, tag: str, smi: str, replayed: Optional[int] = None) -> tuple
         dt = time.perf_counter() - t
         real, executed = api.round_counts(r)
         rounds.append({"round": r, "loss": loss, "seconds": dt, "real_images": real,
-                       "executed_images": executed, "real_images_per_s": real / dt})
+                       "executed_images": executed, "real_images_per_s": real / dt,
+                       **((on_round(api, r) or {}) if on_round is not None else {})})
         log(f"{tag} round {r}: loss {loss:.4f}, {dt:.2f} s, {real} real images "
             f"({executed} executed), {real / dt:.1f} real images/s")
         if not np.isfinite(loss):
@@ -1515,7 +1541,7 @@ def run_rounds(api, tag: str, smi: str, replayed: Optional[int] = None) -> tuple
     train_s = sum(r["seconds"] for r in rounds)
     log(f"{tag} {len(rounds)} rounds in {train_s:.2f} s: {len(rounds) / train_s:.4f} rounds/s, "
         f"{sum(r['real_images'] for r in rounds) / train_s:.1f} real images/s; {smi}")
-    if not (np.isfinite(metrics["loss"]) and 0.0 <= metrics["acc"] <= 1.0):
+    if not ((np.isfinite(metrics["loss"]) or not eval_finite) and 0.0 <= metrics["acc"] <= 1.0):
         raise AssertionError(f"evaluate_global gave {metrics}")
     return rounds, metrics, eval_s, trained, launches
 
@@ -3574,6 +3600,314 @@ def fedavg_packed_arm(smi: str) -> dict:
             "real_images_per_s": sum(r["real_images"] for r in rounds_rec) / train_s}
 
 
+# -- phase 15: gossip (DSGD, PushSum, the one-rank mesh), streaming FedAvg, TurboAggregate --
+
+# the gossip arms' federation: the flagship's recipe at 16 nodes (~25 steps
+# a node a round); every node trains every round
+GOSSIP_NODES = 16
+# TurboAggregate's aggregate against the plain weighted mean of the same
+# client states (tests/test_turboaggregate.py:105's bound)
+TURBO_ATOL = 1e-4
+
+
+def gossip_data():
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+
+    return make_synthetic_classification(
+        "cifar10-bench-16", (32, 32, 3), 10, GOSSIP_NODES, records_per_client=1562,
+        partition_method="hetero", partition_alpha=0.5, batch_size=64, seed=SEED)
+
+
+def turbo_probe_cls():
+    """``TurboAggregateAPI`` that also takes the plain weighted mean of the
+    same client states (``core/pytree.tree_weighted_mean``) and records,
+    each round, the secure aggregate's largest distance from it over the
+    floats that did not wrap beside ``mpc_stats``; what it computes is
+    unchanged."""
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
+    from fedml_tpu_torch.core.pytree import tree_stack, tree_weighted_mean
+
+    class TurboProbe(TurboAggregateAPI):
+        def __init__(self, *a, **kw):
+            self.mpc_rounds = []
+            super().__init__(*a, **kw)
+
+        def secure_aggregate(self, client_vars, wn):
+            import torch
+
+            out = super().secure_aggregate(client_vars, wn)
+            plain = tree_weighted_mean(tree_stack(list(client_vars)), torch.as_tensor(wn))
+            err = 0.0
+            for k in out:
+                d = (out[k].double() - plain[k].double()).abs()
+                if k in self.wrapped:
+                    d = d[~self.wrapped[k].to(d.device)]
+                err = max(err, float(d.max()) if d.numel() else 0.0)
+            self.mpc_rounds.append(dict(self.mpc_stats, max_abs_err_vs_plain_mean=err))
+            return out
+
+    return TurboProbe
+
+
+def zoo_arm(label: str, smi: str, api, on_round=None, eval_finite: bool = True) -> dict:
+    """2 rounds of one of phase 15's APIs (the first with its capture), then
+    the evaluation: finite losses, 57 K1 + 57 K2 and one replay a live step,
+    none in the evaluation; real images/s and steps a round."""
+    tag = f"[zoo gossip/stream/turbo {label}]"
+    bs = api.config.batch_size
+    steps_per_round = [api.round_counts(r)[1] // bs for r in range(api.config.comm_round)]
+    steps = sum(steps_per_round)
+    rounds_rec, metrics, eval_s, trained, after_eval = run_rounds(
+        api, tag, smi, replayed=steps, on_round=on_round, eval_finite=eval_finite)
+    check_bn_launches(tag, trained, after_eval, steps)
+    train_s = sum(r["seconds"] for r in rounds_rec)
+    return {"steps_per_round": steps_per_round, "steps": steps, "rounds": rounds_rec,
+            "eval": metrics, "eval_s": eval_s, "launches": after_eval,
+            "real_images_per_s": sum(r["real_images"] for r in rounds_rec) / train_s}
+
+
+def gossip_arm(label: str, smi: str, mode: str, mesh: bool) -> dict:
+    """(a)-(c): DSGD or PushSum on the 16 nodes over the symmetric topology
+    (``neighbor_num=2``), the simulator or the one-rank mesh without a
+    process group. PushSum's mass must stay N (rtol 1e-5) every round. The
+    mix's CUDA-event ms on the final node state (``mix_stacked``: one f32
+    product over the flat [16, 860,026] view), the consensus distance and
+    node 0's evaluation."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.decentralized import (DecentralizedFedAPI,
+                                                          MeshDecentralizedFedAPI)
+    from fedml_tpu_torch.parallel.gossip import mix_stacked
+
+    api = flagship_api(api_cls=MeshDecentralizedFedAPI if mesh else DecentralizedFedAPI,
+                       ds=gossip_data(), api_kw={"mode": mode},
+                       client_num_in_total=GOSSIP_NODES, client_num_per_round=GOSSIP_NODES)
+    if mesh and (api.mesh.world_size != 1 or api.mesh.group is not None):
+        raise AssertionError(f"[gossip {label}] not the group-less one-rank mesh: {api.mesh}")
+
+    def mass(api, r):
+        total = float(api.ps_weights.sum())
+        if mode == "pushsum" and not abs(total - GOSSIP_NODES) <= 1e-5 * GOSSIP_NODES:
+            raise AssertionError(f"[gossip {label}] round {r}: PushSum mass {total}, not "
+                                 f"{GOSSIP_NODES}")
+        w = api.ps_weights
+        return {"ps_weights_sum": total, "ps_weights_min": float(w.min()),
+                "ps_weights_max": float(w.max())}
+
+    rec = zoo_arm(label, smi, api, on_round=mass)
+    rec["mix_ms"] = cuda_time_ms(lambda: mix_stacked(api.node_vars, api.W), iters=10,
+                                 repeats=3, warmup=2)
+    rec.update(mode=mode, mesh=mesh, nodes=GOSSIP_NODES,
+               consensus_distance=api.consensus_distance(), node0_eval=api.evaluate_node(0),
+               topology_degree=[int(x) for x in (api.W > 0).sum(0).tolist()])
+    log(f"[gossip {label}] steps a round {rec['steps_per_round']}, "
+        f"{rec['real_images_per_s']:.1f} real images/s, mix {rec['mix_ms']:.4f} ms (events), "
+        f"consensus distance {rec['consensus_distance']:.6g}, node 0 {rec['node0_eval']}, "
+        f"mass {[r['ps_weights_sum'] for r in rec['rounds']]}; {smi}")
+    del api
+    torch.cuda.empty_cache()
+    return rec
+
+
+def native_batches_check(ds) -> dict:
+    """The native batcher is the one that runs (``native.available()``),
+    and its batches equal the Python form's on client 0's round-0 orders:
+    the real-first order of each epoch cut to its live steps, as the
+    streamed round feeds it."""
+    import torch
+
+    from fedml_tpu_torch import native
+    from fedml_tpu_torch.core.rng import client_generator
+    from fedml_tpu_torch.parallel.local import real_first
+
+    if not native.available():
+        raise AssertionError("[stream] the native host pipeline is not available")
+    x, _, mask = ds.client_arrays(0)
+    bs = 64
+    steps = -(-int(ds.train_counts[0]) // bs)
+    g = client_generator(SEED, 0, 0)
+    order = real_first(torch.randperm(len(mask), generator=g),
+                       torch.from_numpy(np.array(mask)))[:steps * bs].numpy()[None]
+    forms = [native.HostPipeline(x, None, bs, orders=order, native=n) for n in (True, False)]
+    try:
+        for _ in range(2 * steps):
+            a, b = (p.next_batch()[0] for p in forms)
+            if not np.array_equal(a, b):
+                raise AssertionError("[stream] native and Python batches differ")
+    finally:
+        for p in forms:
+            p.close()
+    return {"available": True, "batches_compared": 2 * steps, "equal": True}
+
+
+def stream_arm(label: str, smi: str, mode: str, depth: int) -> dict:
+    """(d)/(e): StreamingFedAvgAPI on the flagship (32 clients, 8 a round),
+    ``stream_aggregate`` ``mode``, the round pipeline at ``depth``: its
+    ``stream_stats`` and the stage rows beside the arm's images/s."""
+    from fedml_tpu_torch.algorithms.streaming_fedavg import StreamingFedAvgAPI
+
+    api = flagship_api(api_cls=StreamingFedAvgAPI, ds=flagship_data(), stream_aggregate=mode,
+                       host_pipeline_depth=depth)
+    try:
+        rec = zoo_arm(label, smi, api, on_round=lambda a, r: {"stream_stats": a.stream_stats})
+    finally:
+        api.close()
+    rec.update(mode=mode, depth=depth, stream_stats=api.stream_stats,
+               stage_rows=list(api._stage_rows))
+    log(f"[stream {label}] steps a round {rec['steps_per_round']}, "
+        f"{rec['real_images_per_s']:.1f} real images/s, stream_stats {api.stream_stats}, "
+        f"stages {rec['stage_rows']}; {smi}")
+    return rec
+
+
+def turbo_arm(smi: str) -> dict:
+    """(f): TurboAggregateAPI on the flagship (32 clients, 8 a round): the
+    host MPC's ms a round, its largest |x * w| and total beside the field's
+    limit, the floats that wrapped (by leaf), and its distance from the
+    plain weighted mean of the same client states over the others, which
+    must be within ``TURBO_ATOL``. A wrapped float is the JAX package's
+    arithmetic too (the field holds totals below ~1024 at 20 fractional
+    bits); the evaluation's loss must be finite unless a float wrapped."""
+    api = flagship_api(api_cls=turbo_probe_cls(), ds=flagship_data())
+    rec = zoo_arm("turboaggregate", smi, api, eval_finite=False,
+                  on_round=lambda a, r: {"mpc": a.mpc_rounds[-1]})
+    mpc = api.mpc_rounds
+    rec["mpc_rounds"] = mpc
+    log(f"[turbo] steps a round {rec['steps_per_round']}, {rec['real_images_per_s']:.1f} real "
+        f"images/s, MPC {[round(m['mpc_ms'], 1) for m in mpc]} ms a round over "
+        f"{mpc[0]['floats']} floats x {mpc[0]['clients']} clients, max |x*w| "
+        f"{[m['max_abs_xw'] for m in mpc]} and max |total| {[m['max_abs_total'] for m in mpc]} "
+        f"against the field's {mpc[0]['field_limit']:.6g}: wrapped "
+        f"{[(m['wrapped_floats'], m['wrapped_leaves']) for m in mpc]}; max |secure - plain "
+        f"mean| elsewhere {[m['max_abs_err_vs_plain_mean'] for m in mpc]}; evaluation "
+        f"{rec['eval']}; {smi}")
+    worst = max(m["max_abs_err_vs_plain_mean"] for m in mpc)
+    if not worst <= TURBO_ATOL:
+        raise AssertionError(f"[turbo] the secure aggregate lies {worst} from the plain mean "
+                             f"where nothing wrapped, above {TURBO_ATOL}")
+    if not np.isfinite(rec["eval"]["loss"]) and not any(m["wrapped_floats"] for m in mpc):
+        raise AssertionError(f"[turbo] evaluation {rec['eval']} with no wrapped float")
+    return rec
+
+
+def zoo_gossip_f32_gates(smi: str) -> dict:
+    """The f32 gates on a small CifarResNet through K1/K2 (widths 8/16/16,
+    8x8 images, 4 clients, 2 epochs), TF32 off and cuDNN's deterministic
+    algorithms on (restored after), as phase 4e's: (1) the one-rank mesh
+    round equal to the simulator round bit for bit, DSGD and PushSum, 2
+    rounds; (2) the streamed round (``off``) equal to FedAvg's host round
+    bit for bit, 2 rounds (the host round on the whole record axis,
+    ``bucket_quantum_batches=0``); (3) ``deterministic`` within rtol 1e-6 /
+    atol 1e-7 of ``off`` over a round (tests/test_fedsched.py:35); (4)
+    TurboAggregate's aggregate within ``TURBO_ATOL`` of the plain weighted
+    mean of the same client states, 2 rounds, its largest |x * w| printed
+    against the field's ~1024."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.decentralized import (DecentralizedFedAPI,
+                                                          MeshDecentralizedFedAPI)
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.algorithms.streaming_fedavg import StreamingFedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import ModelBundle
+    from fedml_tpu_torch.models.resnet import CifarResNet
+
+    ds = make_synthetic_classification(
+        "gossip-check", (8, 8, 3), 10, 4, records_per_client=16, test_records=40,
+        partition_method="hetero", partition_alpha=0.5, batch_size=8, seed=SEED)
+    base = dict(model="cifar-small", client_num_in_total=4, client_num_per_round=4,
+                comm_round=2, batch_size=8, epochs=2, lr=0.05, momentum=0.9, seed=SEED)
+
+    def make(cls, **kw):
+        extra = {k: kw.pop(k) for k in ("mode",) if k in kw}
+        return cls(ds, FedConfig(**{**base, **kw}), ModelBundle(
+            "cifar-small", CifarResNet(1, 10, widths=(8, 16, 16), bn_impl="pallas"), (8, 8, 3)),
+            **extra)
+
+    def rounds(api, n):
+        return [float(api.run_round(r)) for r in range(n)]
+
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("dsgd", "pushsum"):
+            sim, mesh = make(DecentralizedFedAPI, mode=mode), make(MeshDecentralizedFedAPI,
+                                                                   mode=mode)
+            mesh.variables = {k: v.clone() for k, v in sim.variables.items()}
+            mesh.init_nodes()
+            ls, lm = rounds(sim, 2), rounds(mesh, 2)
+            differ = [k for k, v in sim.node_vars.items() if not torch.equal(mesh.node_vars[k], v)]
+            if ls != lm or differ or not torch.equal(sim.ps_weights, mesh.ps_weights):
+                raise AssertionError(f"[gossip gates] {mode}: one-rank mesh {lm} vs simulator "
+                                     f"{ls}; node leaves differ {differ[:6]}")
+            out[f"mesh_equals_sim_{mode}"] = {"losses": ls, "bit_equal": True}
+        host_kw = dict(client_num_per_round=3, device_data="off", bucket_quantum_batches=0)
+        host, streamed = make(FedAvgAPI, **host_kw), make(StreamingFedAvgAPI, **host_kw)
+        streamed.variables = {k: v.clone() for k, v in host.variables.items()}
+        lh, lst = rounds(host, 2), rounds(streamed, 2)
+        differ = [k for k, v in host.variables.items() if not torch.equal(streamed.variables[k], v)]
+        if lh != lst or differ:
+            raise AssertionError(f"[stream gates] streamed {lst} vs host round {lh}; leaves "
+                                 f"differ {differ[:6]}")
+        out["stream_equals_host_round"] = {"losses": lh, "bit_equal": True}
+        off, det = make(StreamingFedAvgAPI, **host_kw), make(
+            StreamingFedAvgAPI, **host_kw, stream_aggregate="deterministic")
+        det.variables = {k: v.clone() for k, v in off.variables.items()}
+        lo, ld = rounds(off, 1), rounds(det, 1)
+        np.testing.assert_allclose(ld, lo, rtol=1e-6, atol=1e-7)
+        err = max(assert_close(f"[stream gates] deterministic vs off {k}", det.variables[k], v,
+                               1e-6, 1e-7) for k, v in off.variables.items())
+        out["deterministic_vs_off"] = {"losses": [lo, ld], "max_abs_err": err,
+                                       "stream_stats": det.stream_stats}
+        turbo = make(turbo_probe_cls())
+        lt = rounds(turbo, 2)
+        worst = max(m["max_abs_err_vs_plain_mean"] for m in turbo.mpc_rounds)
+        if not worst <= TURBO_ATOL or any(m["wrapped_floats"] for m in turbo.mpc_rounds):
+            raise AssertionError(f"[turbo gates] secure aggregate {worst} from the plain mean, "
+                                 f"above {TURBO_ATOL}: {turbo.mpc_rounds}")
+        out["turbo_vs_plain_mean"] = {"losses": lt, "max_abs_err": worst, "atol": TURBO_ATOL,
+                                      "mpc_rounds": turbo.mpc_rounds}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"[zoo gossip/stream/turbo gates] f32 on the card: {out}; {smi}")
+    return out
+
+
+def phase_train_zoo_gossip(smi: str) -> dict:
+    """Phase 15: decentralized FL (DSGD, PushSum, the one-rank mesh),
+    streaming FedAvg (off at depth 0, deterministic at depth 2) and
+    TurboAggregate on the flagship (ResNet-56, ``bn_impl="pallas"``, bf16,
+    batch 64), through K1/K2, profiled nowhere; the native batcher's check
+    and the f32 gates."""
+    import gc
+
+    import torch
+
+    out, launches = {"arms": {}}, {"bn_fwd": 0, "bn_bwd": 0}
+
+    def add(label, rec):
+        out["arms"][label] = rec
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    add("dsgd", gossip_arm("(a) DSGD", smi, "dsgd", mesh=False))
+    add("pushsum", gossip_arm("(b) PushSum", smi, "pushsum", mesh=False))
+    add("dsgd-mesh", gossip_arm("(c) DSGD one-rank mesh", smi, "dsgd", mesh=True))
+    out["native"] = native_batches_check(flagship_data())
+    add("stream-off", stream_arm("(d) off, depth 0", smi, "off", 0))
+    add("stream-deterministic", stream_arm("(e) deterministic, depth 2", smi, "deterministic", 2))
+    add("turboaggregate", turbo_arm(smi))
+    out["f32_checks"] = zoo_gossip_f32_gates(smi)
+    out["launches"] = launches
+    log("[zoo gossip/stream/turbo] real images/s: " + ", ".join(
+        f"{k} {v['real_images_per_s']:.1f}" for k, v in out["arms"].items()) + f"; {smi}")
+    return out
+
+
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
                     ) -> tuple[float, float, int]:
     """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
@@ -4022,6 +4356,7 @@ def main() -> int:
     crossdevice = timed("train_crossdevice", phase_train_crossdevice, smi)
     loop = timed("train_loop", phase_train_loop, smi)
     robust = timed("train_robust", phase_train_robust, smi)
+    zoo_gossip = timed("train_zoo_gossip", phase_train_zoo_gossip, smi)
     err.update(conv_err)
     err.update(lm_err)
 
@@ -4049,8 +4384,8 @@ def main() -> int:
             source = "batchnorm.cu"
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
             # lowering A/B's, the cross-silo arms' and the cross-device
-            # flagship arms' timed rounds, and phase 13's train() runs, each
-            # counted from 0 just before it
+            # flagship arms' timed rounds, phase 13's train() runs and the
+            # arms of phases 14 and 15, each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -4058,7 +4393,8 @@ def main() -> int:
                        "crosssilo": crosssilo["launches"][name],
                        "crossdevice": crossdevice["launches"][name],
                        "train_loop": loop["launches"][name],
-                       "robust_hier_silo": robust["launches"][name]}
+                       "robust_hier_silo": robust["launches"][name],
+                       "zoo_gossip_stream_turbo": zoo_gossip["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -4144,7 +4480,7 @@ def main() -> int:
         "timing_packed": timing_packed, "timing_packed_by_lanes": timing_packed_by_lanes,
         "train": train, "train_packed": train_packed,
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
-        "train_loop": loop, "train_robust": robust,
+        "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

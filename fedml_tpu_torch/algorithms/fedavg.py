@@ -558,6 +558,13 @@ class FedAvgAPI:
         ``[cohort, n, ...]`` (each client's orders permute the n records),
         then ``aggregate`` with the weights ``wn`` (counts x live)."""
         results = self._train_clients(round_idx, range(len(counts)), cx, cy, cm, counts)
+        return self._finish_clients(round_idx, results, wn)
+
+    def _finish_clients(self, round_idx: int, results: Sequence[LocalResult],
+                        wn: np.ndarray) -> "float | torch.Tensor":
+        """The plain round's tail: ``aggregate`` of the clients' results
+        with the weights ``wn``, unless their total is 0 (the round then
+        keeps weights and server state), and the weighted train loss."""
         w = torch.as_tensor(wn, dtype=torch.float32, device=self.device)
         losses = torch.stack([r.train_loss for r in results])
         infos = LocalResult(tree_stack([r.variables for r in results]), losses,
@@ -922,6 +929,44 @@ class FedAvgAPI:
             if c.checkpoint_dir and ((r + 1) % c.checkpoint_frequency == 0
                                      or r == c.comm_round - 1):
                 self.save(os.path.join(c.checkpoint_dir, "latest.ckpt"), r + 1)
+
+
+class OwnRoundMixin:
+    """For a :class:`FedAvgAPI` subclass whose round program is its own
+    (hierarchical FL, gossip, TurboAggregate; in the JAX package such a
+    subclass overrides ``build_round_step``). As there, the FedAvg gather
+    path does not place the data on the device, the packed schedule is not
+    taken whatever ``pack_lanes`` says, and ``failure_prob`` is ignored,
+    each logged once with the JAX package's warning; ``packed_status`` keeps
+    the JAX package's answer, which names the packed schedule as the
+    algorithm's FedAvg would."""
+
+    def _maybe_place_train_data(self):
+        if self.config.device_data == "on":
+            log.warning("device_data='on' ignored: %s overrides the round program, which the "
+                        "gather path cannot mirror; using the host-slice path",
+                        type(self).__name__)
+        return None
+
+    def build_packed_train(self):
+        if self.config.pack_lanes > 0:
+            log.warning("pack_lanes=%d ignored: %s overrides the round program, which the "
+                        "packed lane program cannot mirror", self.config.pack_lanes,
+                        type(self).__name__)
+        return None
+
+    def packed_status(self) -> dict:
+        if self.config.pack_lanes <= 0:
+            return {"scheduled": False, "packed_conv_active": False, "reason": "pack_lanes=0"}
+        return self._packed_conv_status()
+
+    def _sample_failures(self, round_idx, cohort, record=True):
+        if self.config.failure_prob and not getattr(self, "_warned_no_elastic", False):
+            log.warning("failure_prob=%s ignored: %s rewires the round program without an "
+                        "elastic (zero-weight) aggregation guard", self.config.failure_prob,
+                        type(self).__name__)
+            self._warned_no_elastic = True
+        return None
 
 
 class CrossSiloFedAvgAPI(FedAvgAPI):

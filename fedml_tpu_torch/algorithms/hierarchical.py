@@ -13,11 +13,12 @@ round's. Clients go to groups round-robin: cohort position i to group
 (the reference CI's property, CI-script-fedavg.sh:51-57): group round 0
 draws the flat round's orders.
 
-As in the JAX package, the round program is the algorithm's own, so the
-round is the host round (the cohort shipped each round, its record axis cut
-to the bucket): the data is not placed on the device, the packed schedule is
-not taken whatever ``pack_lanes`` says, the rounds do not stream, and
-``failure_prob`` is ignored with the JAX package's warning. Each group round
+As in the JAX package, the round program is the algorithm's own
+(``fedavg.OwnRoundMixin``), so the round is the host round (the cohort
+shipped each round, its record axis cut to the bucket): the data is not
+placed on the device, the packed schedule is not taken whatever
+``pack_lanes`` says, the rounds do not stream, and ``failure_prob`` is
+ignored with the JAX package's warning. Each group round
 draws its own orders (``_round_orders(..., group_round=r)``), the
 counterpart of JAX's per-client keys ``split(split(rng, GR)[r], C)[i]``.
 
@@ -29,22 +30,18 @@ clients ``{j*G + g}``, the simulation's groups.
 
 from __future__ import annotations
 
-import logging
-
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, OwnRoundMixin
 from fedml_tpu_torch.core.aggregation import hierarchical_aggregate
 from fedml_tpu_torch.core.pytree import tree_stack
 from fedml_tpu_torch.parallel.crosssilo import SiloWork, make_hierarchical_round
 from fedml_tpu_torch.parallel.mesh import HierarchicalMesh, hierarchical_mesh
 
-log = logging.getLogger(__name__)
 
-
-class HierarchicalFedAvgAPI(FedAvgAPI):
+class HierarchicalFedAvgAPI(OwnRoundMixin, FedAvgAPI):
     """Standalone hierarchical simulator; clients assigned to groups
     round-robin (client i -> group i % group_num, like the reference's even
     split)."""
@@ -53,33 +50,6 @@ class HierarchicalFedAvgAPI(FedAvgAPI):
         self.group_num = max(int(config.group_num), 1)
         self.group_comm_round = max(int(config.group_comm_round), 1)
         super().__init__(dataset, config, bundle, **kw)
-
-    def _maybe_place_train_data(self):
-        if self.config.device_data == "on":
-            log.warning("device_data='on' ignored: %s overrides the round program, which the "
-                        "gather path cannot mirror; using the host-slice path",
-                        type(self).__name__)
-        return None
-
-    def build_packed_train(self):
-        return None
-
-    def packed_status(self) -> dict:
-        """The JAX package's answer: its hierarchical API overrides only the
-        round program, so its status names the packed schedule as its
-        FedAvg would, although its host rounds never take it (nor do the
-        port's)."""
-        if self.config.pack_lanes <= 0:
-            return {"scheduled": False, "packed_conv_active": False, "reason": "pack_lanes=0"}
-        return self._packed_conv_status()
-
-    def _sample_failures(self, round_idx, cohort, record=True):
-        if self.config.failure_prob and not getattr(self, "_warned_no_elastic", False):
-            log.warning("failure_prob=%s ignored: %s rewires the round program without an "
-                        "elastic (zero-weight) aggregation guard", self.config.failure_prob,
-                        type(self).__name__)
-            self._warned_no_elastic = True
-        return None
 
     def _plain_round(self, round_idx: int, cx, cy, cm, counts: np.ndarray,
                      wn: np.ndarray) -> "float | torch.Tensor":

@@ -12,6 +12,8 @@ name the JAX package knows but the port does not load yet raises
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Callable
 
@@ -66,6 +68,52 @@ class FedDataset:
         """The sampled clients' stacked (x, y, mask, counts)."""
         return (self.train_x[idx], self.train_y[idx], self.train_mask[idx],
                 self.train_counts[idx])
+
+    def client_arrays(self, k: int):
+        """One client's padded ``(x, y, mask)``, the streaming round's
+        accessor (views of the stack; a virtual dataset materializes it)."""
+        return self.train_x[k], self.train_y[k], self.train_mask[k]
+
+    def client_slice_cached(self, k: int, cap: int = 64):
+        """``client_slice([k])`` behind a small LRU of ``cap`` clients
+        (the JAX package's). Repeated requests for a client (every epoch,
+        every round it is sampled) are served from the cache, so a virtual
+        dataset's ``materialized_rows`` counts each client once while it
+        stays cached. Thread-safe and single-flight: concurrent misses for
+        one client materialize it once and share the result. The arrays are
+        shared, so they are made read-only."""
+        k = int(k)
+        lock = self.__dict__.setdefault("_client_lru_lock", threading.Lock())
+        cache = self.__dict__.setdefault("_client_lru", {})
+        pending = self.__dict__.setdefault("_client_lru_pending", {})
+        with lock:
+            hit = cache.get(k)
+            if hit is not None:
+                cache[k] = cache.pop(k)       # dict order is recency
+                return hit
+            fut = pending.get(k)
+            owner = fut is None
+            if owner:
+                fut = pending[k] = Future()
+        if not owner:
+            return fut.result()
+        try:
+            out = self.client_slice(np.asarray([k]))
+            for a in out:
+                if isinstance(a, np.ndarray):
+                    a.flags.writeable = False
+        except BaseException as e:
+            with lock:
+                pending.pop(k, None)          # the next request retries
+            fut.set_exception(e)
+            raise
+        with lock:
+            cache[k] = out
+            while len(cache) > cap:
+                cache.pop(next(iter(cache)))
+            pending.pop(k, None)
+        fut.set_result(out)
+        return out
 
 
 def _register_all() -> None:

@@ -101,8 +101,10 @@ class CrossDeviceDataset(FedDataset):
         return x, y, m, self.train_counts[idx]
 
     def client_arrays(self, k: int):
-        """One client's padded ``(x, y, mask)``."""
-        x, y, m, _ = self.client_slice(np.asarray([k]))
+        """One client's padded ``(x, y, mask)``, through the client LRU
+        (``client_slice_cached``), so a client is materialized once while
+        it stays cached."""
+        x, y, m, _ = self.client_slice_cached(k)
         return x[0], y[0], m[0]
 
 

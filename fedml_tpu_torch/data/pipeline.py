@@ -22,23 +22,30 @@ stream wait for the copy's event and records each tensor as used on that
 stream, so the caching allocator keeps its block until the consumer's work
 on it is done. On the CPU both are plain hand-offs.
 
-The native threaded batcher (``HostPipeline``) and ``device_stream`` are
-not ported.
+The batch-granular half is :func:`device_stream`: it takes batches from a
+``HostPipeline`` (``fedml_tpu_torch/native``, re-exported here) and ships
+each through :func:`ship` on a side stream, ``prefetch`` batches ahead of
+the consumer, which takes them in order through :func:`receive`; on the
+CPU the batches pass through as tensors over the same memory.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from fedml_tpu_torch import default_device
+from fedml_tpu_torch.native import HostPipeline
 from fedml_tpu_torch.parallel.capture import CAPTURE_LOCK
 
-__all__ = ["CohortPrefetcher", "Shipment", "materialize_cohort", "receive", "ship"]
+__all__ = ["CohortPrefetcher", "HostPipeline", "Shipment", "device_stream",
+           "materialize_cohort", "receive", "ship"]
 
 
 def materialize_cohort(dataset, sampled: np.ndarray, pool: Optional[ThreadPoolExecutor] = None,
@@ -193,3 +200,29 @@ class CohortPrefetcher:
 
     def __exit__(self, *_exc):
         self.close()
+
+
+def device_stream(pipeline: HostPipeline, n_batches: Optional[int] = None, prefetch: int = 2,
+                  device: Optional[Union[str, torch.device]] = None,
+                  stream: Optional["torch.cuda.Stream"] = None) -> Iterator[tuple]:
+    """Yield ``(x, y)`` batches of ``pipeline`` on ``device`` (``y`` None
+    without labels), keeping ``prefetch`` batches shipped ahead of the
+    consumer (:func:`ship` on ``stream``, :func:`receive` at the yield).
+    ``n_batches`` None streams one epoch."""
+    device = default_device(device)
+    if n_batches is None:
+        n_batches = pipeline.batches_per_epoch
+    ahead: deque = deque()
+
+    def take():
+        shipment, labelled = ahead.popleft()
+        t = receive(shipment)
+        return t[0], t[1] if labelled else None
+
+    for _ in range(n_batches):
+        bx, by = pipeline.next_batch()
+        ahead.append((ship([bx] if by is None else [bx, by], device, stream), by is not None))
+        if len(ahead) > prefetch:
+            yield take()
+    while ahead:
+        yield take()

@@ -41,13 +41,13 @@ PORTED = ("fedavg", "fedopt", "fedprox", "fednova", "fedagc", "centralized",
           "crosssilo_fedavg", "crosssilo_fedopt", "crosssilo_fedprox", "crosssilo_fednova",
           "crosssilo_fedagc", "fedavg_robust", "crosssilo_fedavg_robust", "hierarchical",
           "crosssilo_hierarchical", "silo_fedavg", "silo_fedopt", "silo_fednova",
-          "silo_fedagc")
+          "silo_fedagc", "decentralized", "crosssilo_decentralized", "streaming_fedavg",
+          "turboaggregate")
 
 _ITEM9 = "ROADMAP §1 item 9 (the algorithm zoo)"
 #: algorithm -> the ROADMAP item that ports it
 UNPORTED = {
     **{a: _ITEM9 for a in ALGORITHMS if a not in PORTED},
-    "streaming_fedavg": "ROADMAP §1 item 9 (streaming_fedavg)",
     "vfl": "ROADMAP §1 items 9 and 10 (vfl, vertical loaders)",
     "fedavg_edge": "ROADMAP §1 item 11 (edge runtimes)",
 }
@@ -103,6 +103,8 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
     check_ported(config)
 
     from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+    from fedml_tpu_torch.algorithms.decentralized import (DecentralizedFedAPI,
+                                                          MeshDecentralizedFedAPI)
     from fedml_tpu_torch.algorithms.fedagc import CrossSiloFedAGCAPI, FedAGCAPI
     from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
     from fedml_tpu_torch.algorithms.fednova import CrossSiloFedNovaAPI, FedNovaAPI
@@ -112,6 +114,8 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
                                                          HierarchicalFedAvgAPI)
     from fedml_tpu_torch.algorithms.robust import CrossSiloFedAvgRobustAPI, FedAvgRobustAPI
     from fedml_tpu_torch.algorithms.silo import SiloRunner
+    from fedml_tpu_torch.algorithms.streaming_fedavg import StreamingFedAvgAPI
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
 
     apis = {
         "fedavg": FedAvgAPI, "fedopt": FedOptAPI, "fedprox": FedProxAPI,
@@ -122,6 +126,8 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
         "crosssilo_fedavg_robust": CrossSiloFedAvgRobustAPI,
         "hierarchical": HierarchicalFedAvgAPI,
         "crosssilo_hierarchical": CrossSiloHierarchicalFedAvgAPI,
+        "decentralized": DecentralizedFedAPI, "crosssilo_decentralized": MeshDecentralizedFedAPI,
+        "streaming_fedavg": StreamingFedAvgAPI, "turboaggregate": TurboAggregateAPI,
     }
     silo = {"silo_fedavg": FedAvgAPI, "silo_fedopt": FedOptAPI, "silo_fednova": FedNovaAPI,
             "silo_fedagc": FedAGCAPI}

@@ -17,7 +17,8 @@ step's static inputs stay eager, as do evaluation and aggregation.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+import itertools
+from typing import Iterator, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -116,6 +117,12 @@ def module_state(module: torch.nn.Module, opt: optim.Optimizer) -> list:
             + [p.grad for p in opt.params])
 
 
+def real_first(perm: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """An epoch's record order: the permutation ``perm`` stable-sorted so
+    the real records (``mask`` 1) lead."""
+    return perm[torch.argsort(-mask[perm], stable=True)]
+
+
 def make_local_train_fn(
     bundle: ModelBundle,
     task: Task,
@@ -149,7 +156,9 @@ def make_local_train_fn(
     inputs of the step program for its shape and runs it: on CUDA a replay
     of the captured step, unless ``capture=False`` asks for the eager step
     (``parallel/capture.py``). ``local_train.bound`` holds the optimizer and
-    the anchor, ``local_train.programs`` the step programs by shape."""
+    the anchor, ``local_train.programs`` the step programs by shape, and
+    ``local_train.stream`` trains a client whose batches stream in through
+    the same programs (the streaming round, ``algorithms/streaming_fedavg``)."""
     tx = make_optimizer(optimizer, lr, momentum, wd)
     batch_step = make_batch_sgd_step(bundle, task, grad_clip=grad_clip, prox_mu=prox_mu)
     bound: dict = {}
@@ -176,12 +185,9 @@ def make_local_train_fn(
                 lambda: module_state(module, opt), capture)
         return prog
 
-    def local_train(variables: dict, x, y, mask, count: int,
-                    generator: Optional[torch.Generator] = None,
-                    orders: Optional[Sequence[torch.Tensor]] = None) -> LocalResult:
-        n_pad = x.shape[0]
-        if n_pad % batch_size:
-            raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
+    def begin(variables: dict, x, y, mask) -> CapturedStep:
+        """Load ``variables``, reset the optimizer (and FedProx's anchor) and
+        return the step program of these inputs' shapes."""
         module = bundle.module
         module.load_state_dict(variables)
         opt = bind(module)
@@ -190,15 +196,26 @@ def make_local_train_fn(
             with torch.no_grad():
                 torch._foreach_copy_(bound["anchor"],
                                      [variables[k] for k, _ in module.named_parameters()])
+        return program(module, opt, x, y, mask)
+
+    def end(ep_losses: list, steps_real: int) -> LocalResult:
+        state = {k: v.detach().clone() for k, v in bundle.module.state_dict().items()}
+        return LocalResult(state, ep_losses[-1], float(epochs * steps_real), ep_losses[0])
+
+    def local_train(variables: dict, x, y, mask, count: int,
+                    generator: Optional[torch.Generator] = None,
+                    orders: Optional[Sequence[torch.Tensor]] = None) -> LocalResult:
+        n_pad = x.shape[0]
+        if n_pad % batch_size:
+            raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
         steps_real = -(-int(count) // batch_size)
         if compute_dtype is not None and x.is_floating_point():
             x = x.to(compute_dtype)
-        step = program(module, opt, x, y, mask)
+        step = begin(variables, x, y, mask)
         ep_losses = []
         for e in range(epochs):
             perm = orders[e] if orders is not None else torch.randperm(n_pad, generator=generator)
-            perm = perm.to(x.device)
-            order = perm[torch.argsort(-mask[perm], stable=True)]
+            order = real_first(perm.to(x.device), mask)
             total = torch.zeros((), device=x.device)
             for s in range(steps_real):
                 idx = order[s * batch_size:(s + 1) * batch_size]
@@ -206,9 +223,38 @@ def make_local_train_fn(
                     torch.index_select(src, 0, idx, out=dst)
                 total = total + step()
             ep_losses.append(total / max(steps_real, 1))
-        state = {k: v.detach().clone() for k, v in module.state_dict().items()}
-        return LocalResult(state, ep_losses[-1], float(epochs * steps_real), ep_losses[0])
+        return end(ep_losses, steps_real)
 
+    def stream_train(variables: dict, batches: Iterator[torch.Tensor], y, mask,
+                     orders: torch.Tensor) -> LocalResult:
+        """``local_train`` of one client whose records stream in: ``orders``
+        ``[epochs, steps * batch_size]`` holds each epoch's real-first order
+        (:func:`real_first`) cut to its live steps' records, ``batches``
+        yields that order's record batches ``[batch_size, ...]`` on the
+        device, epoch after epoch, and ``y``/``mask`` are the client's
+        labels and mask on the device, gathered once an epoch. Each batch is
+        copied into the same step program ``local_train`` runs, so with the
+        same orders both give the same result bit for bit."""
+        steps_real = orders.shape[1] // batch_size
+        first = next(batches)
+        spec = (first.to(compute_dtype)
+                if compute_dtype is not None and first.is_floating_point() else first)
+        step = begin(variables, spec, y, mask)
+        batches = itertools.chain([first], batches)
+        ep_losses = []
+        for e in range(epochs):
+            order = orders[e].to(y.device)
+            ye, me = y.index_select(0, order), mask.index_select(0, order)
+            total = torch.zeros((), device=y.device)
+            for s in range(steps_real):
+                rows = slice(s * batch_size, (s + 1) * batch_size)
+                for src, dst in zip((next(batches), ye[rows], me[rows]), step.inputs):
+                    dst.copy_(src)
+                total = total + step()
+            ep_losses.append(total / max(steps_real, 1))
+        return end(ep_losses, steps_real)
+
+    local_train.stream = stream_train
     local_train.bound = bound
     local_train.programs = programs
     return local_train

@@ -54,7 +54,11 @@ def test_new_modules_are_covered():
                 "data/mnist.py", "data/femnist.py", "models/cnn.py",
                 "algorithms/centralized.py", "algorithms/robust.py",
                 "algorithms/hierarchical.py", "algorithms/silo.py", "data/edge_cases.py",
-                "experiments/main_fedavg_robust.py", "experiments/main_hierarchical.py"):
+                "experiments/main_fedavg_robust.py", "experiments/main_hierarchical.py",
+                "distributed/topology.py", "algorithms/decentralized.py", "parallel/gossip.py",
+                "algorithms/turboaggregate.py", "algorithms/streaming_fedavg.py",
+                "native/__init__.py", "native/build.py", "experiments/main_decentralized.py",
+                "experiments/main_streaming_fedavg.py", "experiments/main_turboaggregate.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
@@ -66,6 +70,9 @@ def test_the_launcher_loads_no_jax_at_run_time():
         "import fedml_tpu_torch.utils.checkpoint, fedml_tpu_torch.algorithms.centralized\n"
         "import fedml_tpu_torch.algorithms.silo, fedml_tpu_torch.algorithms.robust\n"
         "import fedml_tpu_torch.algorithms.hierarchical, fedml_tpu_torch.data.edge_cases\n"
+        "import fedml_tpu_torch.algorithms.decentralized, fedml_tpu_torch.native\n"
+        "import fedml_tpu_torch.algorithms.streaming_fedavg\n"
+        "import fedml_tpu_torch.algorithms.turboaggregate\n"
         "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")

@@ -2,8 +2,10 @@
 
 - ``run.main(argv, device="cpu")`` runs every ported algorithm with
   ``--ci 1`` and prints the last-line JSON; ``--result_json`` writes the
-  full dict; an unported algorithm raises ``NotImplementedError`` naming its
-  ROADMAP item, an unknown one ``KeyError``, ``--rank`` ``ValueError`` (as
+  full dict; each ported name reaches its class (the gossip, streaming and
+  TurboAggregate names checked one by one), ``UNPORTED`` names exactly the 8
+  algorithms still to port, an unported algorithm raises
+  ``NotImplementedError`` naming its ROADMAP item, an unknown one ``KeyError``, ``--rank`` ``ValueError`` (as
   the JAX launcher does); each ported algorithm has its ``main_*`` alias,
   which runs on the GPU by default and raises without one.
 - ``train()``'s history (eval rounds, Test/Acc, Test/Loss) matches the JAX
@@ -20,6 +22,7 @@
   only the federated loop reads raises at its construction.
 """
 
+import importlib
 import json
 import runpy
 import sys
@@ -80,6 +83,26 @@ def test_result_json_holds_the_full_history(tmp_path, capsys):
     assert len(full["Test/Acc"]) == 3 and "time/wall_s" in full["timing"]
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["Test/Acc"] == full["Test/Acc"][-1]
+
+
+def test_unported_names_are_the_remaining_eight():
+    assert sorted(UNPORTED) == ["crosssilo_fednas", "crosssilo_fedseg", "fedavg_edge", "fedgkt",
+                                "fednas", "fedseg", "splitnn", "vfl"]
+
+
+@pytest.mark.parametrize("algorithm, module, cls", [
+    ("decentralized", "decentralized", "DecentralizedFedAPI"),
+    ("crosssilo_decentralized", "decentralized", "MeshDecentralizedFedAPI"),
+    ("streaming_fedavg", "streaming_fedavg", "StreamingFedAvgAPI"),
+    ("turboaggregate", "turboaggregate", "TurboAggregateAPI")])
+def test_gossip_stream_turbo_dispatch_to_their_classes(algorithm, module, cls, monkeypatch):
+    api_cls = getattr(importlib.import_module(f"fedml_tpu_torch.algorithms.{module}"), cls)
+    seen = []
+    monkeypatch.setattr(api_cls, "train", lambda self: seen.append(self) or {"round": []})
+    run_experiment(FedConfig(dataset="synthetic_1_1", model="lr", client_num_in_total=4,
+                             client_num_per_round=2, batch_size=10), algorithm, device="cpu")
+    assert len(seen) == 1 and type(seen[0]) is api_cls
+    assert seen[0].device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("algorithm", sorted(UNPORTED))

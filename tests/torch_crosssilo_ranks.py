@@ -13,7 +13,10 @@ def run_rank(rank: int, world: int, store: str, spec: dict, out) -> None:
     (name -> array), ``orders`` ((round, client, n) -> [epochs, n], or
     (round, client, n, group round) -> [epochs, n] for hierarchical FL),
     ``rounds``, and ``groups`` for ``CrossSiloHierarchicalFedAvgAPI`` on a
-    ``groups`` x ``world / groups`` mesh. Puts ``(rank, losses, variables)`` on ``out``, or
+    ``groups`` x ``world / groups`` mesh, or ``gossip`` (``{"mode", "W"}``) for
+    ``MeshDecentralizedFedAPI`` over that mixing matrix, whose variables are
+    then every node's (``node.<name>``) and the PushSum mass
+    (``ps_weights``). Puts ``(rank, losses, variables)`` on ``out``, or
     ``(rank, error)``."""
     import numpy as np
     import torch
@@ -43,7 +46,23 @@ def run_rank(rank: int, world: int, store: str, spec: dict, out) -> None:
             key = (r, j, n) if group_round is None else (r, j, n, group_round)
             return [torch.from_numpy(o) for o in orders[key]]
 
-        groups = spec.get("groups")
+        groups, gossip = spec.get("groups"), spec.get("gossip")
+        init = {k: torch.from_numpy(np.array(v)) for k, v in spec["init"].items()}
+        if gossip:
+            from fedml_tpu_torch.algorithms.decentralized import MeshDecentralizedFedAPI
+            from fedml_tpu_torch.distributed.topology import BaseTopologyManager
+
+            topo = BaseTopologyManager()
+            topo.topology = np.asarray(gossip["W"])
+            api = MeshDecentralizedFedAPI(ds, FedConfig(**spec["run"]), bundle, topology=topo,
+                                          mode=gossip["mode"], order_hook=hook,
+                                          mesh=client_mesh(world, device="cpu"))
+            api.variables = init
+            api.init_nodes()
+            losses = [float(api.run_round(r)) for r in range(spec["rounds"])]
+            out.put((rank, losses, {**{f"node.{k}": v.numpy() for k, v in api.node_vars.items()},
+                                    "ps_weights": api.ps_weights.numpy()}))
+            return
         if groups:
             api = CrossSiloHierarchicalFedAvgAPI(
                 ds, FedConfig(**spec["run"]), bundle, order_hook=hook,
@@ -51,7 +70,7 @@ def run_rank(rank: int, world: int, store: str, spec: dict, out) -> None:
         else:
             api = CrossSiloFedAvgAPI(ds, FedConfig(**spec["run"]), bundle, order_hook=hook,
                                      mesh=client_mesh(world, device="cpu"))
-        api.variables = {k: torch.from_numpy(np.array(v)) for k, v in spec["init"].items()}
+        api.variables = init
         losses = [float(api.run_round(r)) for r in range(spec["rounds"])]
         out.put((rank, losses, {k: v.numpy() for k, v in api.variables.items()}))
     except Exception as e:     # reported to the parent, which fails the test
