@@ -13,7 +13,9 @@ Phases (any failure raises and the script exits non-zero):
    the packed schedule's two lanes ([rows, 2*C]), a ragged row count,
    scalar-load channel counts (C = 7, 300) and shapes past the kernels'
    on-chip capacity (planned C = 64, C = 16, then C = 64 again, and 10^6
-   rows); K2 also at one row and fewer rows than the card holds blocks; f32
+   rows), and deeplab_lite's unpacked C = 128 and unet's four widths at
+   phase 16's batch ([1024, 128]; [16384, 16], [4096, 32], [1024, 64],
+   [256, 128]); K2 also at one row and fewer rows than the card holds blocks; f32
    and bf16, ReLU on and off, both bit-identical over two calls; then a
    small CifarResNet forward and backward through the kernels against the
    same model on the CPU, and two steps of ResNet-56 through them at batch
@@ -190,11 +192,31 @@ Phases (any failure raises and the script exits non-zero):
    events), the host MPC's ms a round and its largest |x * w| beside the
    field's ~1024, the streamed arms' ``stream_stats``.
 
-Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14 and 15 is a replay of the step
+16. FedGKT and FedSeg, after phase 15, bf16 through K1/K2, each arm's
+   figures from 2 warm rounds (after one round with its captures) ending in
+   a sync: (a) FedGKT on the flagship's federation (32 clients, every one
+   every round), resnet8 / resnet56_server at full depth, epochs 1 and
+   epochs_server 1, nesterov SGD at lr 0.1, batch 64: real images/s, the
+   client and server phase ms, steps a round, n_pad, the union feature
+   tensor's bytes, peak memory, Test/Acc and the losses; 7 K1 + 7 K2 a
+   client step and 38 a server step (counted from the pair's modules first),
+   one replay a step, none in the extraction, logits and evaluation passes;
+   one client and one server step captured against eager; a 5-step profile
+   of the server step. (b) FedSeg of ``deeplab_lite`` (width 32, 2 blocks a
+   stage) on the synthetic blob task (16 clients x 128 records, 32 x 32, 4
+   classes), 8 a round, batch 16: 16 K1 + 16 K2 and one replay a step;
+   real images/s, mIoU, FWIoU, the confusion total. (c) ``unet`` on the
+   same federation: 14 a step. (d) In f32: a one-rank NCCL
+   ``CrossSiloFedSegAPI`` round within 1e-5 (relative norm) of the
+   ``FedSegAPI`` round, and a CI-depth GKT round (lr 0.01) through K1/K2
+   against the plain BN's within ``GKT_BN_GATE`` (client features, server
+   logits).
+
+Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15 and 16 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4f, 4d, 4e, 13, 14 and 15 (in 4c the FedOpt-adam packed run and the client-adam plain
+but 4f, 4d, 4e, 13, 14, 15 and 16 (in 4c the FedOpt-adam packed run and the client-adam plain
 run; 4d's and 4f's arms take their steps from the same trainers; 4e's are neither
 re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
@@ -268,8 +290,11 @@ FOLDED_SHAPES = sorted({(n, C) for bns in PACKED_BNS_BY_LANES.values() for n, C,
 # K2 alone also at one row, 37 rows and fewer rows than the card holds
 # blocks: K1, as the TPU kernel, takes var = E[x^2] - mean^2, which at a row
 # or two misses the plain two-pass variance by more than its tolerance, so
-# it is checked at >= 4,096 rows.
+# it is checked at >= 256 rows (unet's bottleneck).
 CHECK_SHAPES = [(65536, 16), (16384, 32), (4096, 64), *FOLDED_SHAPES,
+                (1024, 128),   # deeplab_lite's stage 3 and ASPP at phase 16's batch 16
+                # unet at phase 16's batch 16 (f32 there: flax promotes its convs)
+                (16384, 16), (4096, 32), (1024, 64), (256, 128),
                 (12347, 24)]   # last: ragged
 SCALAR_SHAPES = [(8_191, 7), (4_096, 300)]
 REREAD_SHAPE = (1_000_000, 16)
@@ -1271,6 +1296,35 @@ def _distance(a: dict, b: dict) -> tuple[float, list]:
     return worst, names
 
 
+def _capture_verdict(tag: str, e1: dict, e2: dict, c: dict, explain=None) -> dict:
+    """The captured run ``c`` against two eager runs ``e1``, ``e2`` of the
+    same work (named tensors): eager runs that repeat bit for bit make the
+    captured run's bits the gate; else it may be no farther from the first
+    eager run than the second is, and ``explain()``, if given, names the
+    tensors that one eager step already changes between two runs."""
+    d_ee, diff_ee = _distance(e1, e2)
+    d_ce, diff_ce = _distance(c, e1)
+    rec = {"eager_vs_eager": d_ee, "eager_vs_eager_tensors": len(diff_ee),
+           "captured_vs_eager": d_ce, "captured_vs_eager_tensors": len(diff_ce),
+           "tensors": len(e1)}
+    if not diff_ee:
+        if diff_ce:
+            raise AssertionError(f"{tag} the eager runs repeat bit for bit and the captured run "
+                                 f"differs by up to {d_ce:.3g} in {len(diff_ce)} tensors: "
+                                 f"{diff_ce[:6]}")
+        rec["verdict"] = "bit-identical"
+        return rec
+    note = ""
+    if explain is not None:
+        ops = rec["eager_differs_after_one_step_in"] = explain()
+        note = f"; one eager step differs in {ops[:6]}"
+    if d_ce > d_ee:
+        raise AssertionError(f"{tag} captured run {d_ce:.3g} from eager, farther than the "
+                             f"eager runs from each other ({d_ee:.3g}){note}")
+    rec["verdict"] = f"within the eager runs' distance{note}"
+    return rec
+
+
 def capture_gate(api, eager, tag: str, packed: bool) -> dict:
     """One client's first GATE_STEPS live steps (or one packed cohort's),
     eager twice, then captured. Eager runs that repeat bit for bit make the
@@ -1295,29 +1349,14 @@ def capture_gate(api, eager, tag: str, packed: bool) -> dict:
     if replays(api) - r0 != steps:
         raise AssertionError(f"{tag} the captured run replayed {replays(api) - r0} times for "
                              f"{steps} live steps")
-    d_ee, diff_ee = _distance(e1, e2)
-    d_ce, diff_ce = _distance(c, e1)
-    rec = {"steps": steps, "eager_vs_eager": d_ee, "eager_vs_eager_tensors": len(diff_ee),
-           "captured_vs_eager": d_ce, "captured_vs_eager_tensors": len(diff_ce),
-           "tensors": len(e1)}
-    if not diff_ee:
-        if diff_ce:
-            raise AssertionError(f"{tag} the eager runs repeat bit for bit and the captured run "
-                                 f"differs by up to {d_ce:.3g} in {len(diff_ce)} tensors: "
-                                 f"{diff_ce[:6]}")
-        rec["verdict"] = "bit-identical"
-    else:
+    def one_step_ops():
         one_e, _ = runner(eager, 1)
-        _, ops = _distance(_outcome(one_e()), _outcome(one_e()))
-        rec["eager_differs_after_one_step_in"] = ops
-        if d_ce > d_ee:
-            raise AssertionError(f"{tag} captured run {d_ce:.3g} from eager, farther than the "
-                                 f"eager runs from each other ({d_ee:.3g}); one eager step "
-                                 f"already differs in {ops[:6]}")
-        rec["verdict"] = f"within the eager runs' distance; one eager step differs in {ops[:6]}"
+        return _distance(_outcome(one_e()), _outcome(one_e()))[1]
+
+    rec = {"steps": steps, **_capture_verdict(tag, e1, e2, c, one_step_ops)}
     log(f"{tag} eager vs captured over {steps} live steps: {rec['verdict']} (eager-eager "
-        f"{d_ee:.3g} in {len(diff_ee)} of {len(e1)} tensors, captured-eager {d_ce:.3g} in "
-        f"{len(diff_ce)})")
+        f"{rec['eager_vs_eager']:.3g} in {rec['eager_vs_eager_tensors']} of {len(e1)} tensors, "
+        f"captured-eager {rec['captured_vs_eager']:.3g} in {rec['captured_vs_eager_tensors']})")
     return rec
 
 
@@ -3908,6 +3947,372 @@ def phase_train_zoo_gossip(smi: str) -> dict:
     return out
 
 
+# -- phase 16: FedGKT (resnet8 / resnet56_server) and FedSeg (deeplab_lite, unet) --
+
+# train-mode BNs a step, each one K1 and one K2 launch: GKT's client (stem + 3
+# blocks of 2) and server (two stages of 9 blocks, 2 a block, plus each
+# stage's projection); deeplab_lite (stem 1, stages 4 + 5 + 5, ASPP 1) and
+# unet (7 conv blocks of 2)
+GKT_BNS = {"client": 7, "server": 38}
+SEG_BNS = {"deeplab_lite": 16, "unet": 14}
+# the FedSeg federation: the synthetic blob task at 32 x 32, 4 classes
+SEG_DATA = dict(num_clients=16, records_per_client=128, image_size=32, num_classes=4,
+                batch_size=16, seed=SEED)
+# GKT's f32 gate (K1/K2 against the plain BN over one CI-depth round):
+# client features and server logits, relative norm. The round runs at lr
+# 0.01: at lr 0.1 it is chaotic (on the CPU, two plain BNs that differ
+# only in their op order ended 9e-7 or 1.4e-2 apart in server logits as the
+# thread count changed; at lr 0.01, 2e-7 to 1.4e-6: tests/torch_gkt_seg_chaos.py)
+GKT_BN_GATE = 1e-4
+GKT_GATE_LR = 0.01
+
+
+def gkt_api(ds, bn_impl: str = "pallas", blocks: tuple = (3, 9), dtype: str = "bfloat16",
+            **config):
+    """FedGKT on ``ds``: resnet8 / resnet56_server (or ``blocks``), every
+    client every round, epochs 1 and epochs_server 1, nesterov SGD at lr
+    0.1, batch 64."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.models.gkt import create_gkt_pair
+
+    base = dict(model="resnet56", dataset="cifar10", client_num_in_total=ds.num_clients,
+                client_num_per_round=ds.num_clients, comm_round=3, batch_size=64, epochs=1,
+                epochs_server=1, lr=0.1, dtype=dtype, frequency_of_the_test=10_000, seed=SEED)
+    cfg = FedConfig(**{**base, **config})
+    pair = create_gkt_pair(ds.class_num, tuple(ds.train_x.shape[2:]), *blocks,
+                           dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
+                           bn_impl=bn_impl)
+    return FedGKTAPI(ds, cfg, pair)
+
+
+def kernel_bns(module) -> int:
+    """The BatchNorms of ``module`` that launch K1/K2 in train mode."""
+    from fedml_tpu_torch.models.norm import PallasBatchNorm
+
+    return sum(isinstance(m, PallasBatchNorm) and m.use_kernel for m in module.modules())
+
+
+def gkt_capture_gate(api, kind: str) -> dict:
+    """One step of GKT's ``kind`` program on its first batch (client 0's, or
+    the union's), captured against its eager body twice, each from the same
+    state: when the eager steps repeat bit for bit, the captured one must
+    equal them; else it may be no farther from the first than the second
+    is. The state is put back after."""
+    import torch
+
+    prog = api.program(kind)
+    if kind == "client":
+        api._load_client(0)
+        src = (api._x[0], api._y[0], api._mask[0], api.server_logits[0])
+    else:
+        n = api.C * api.n_pad
+        src = (api._feats.view((n,) + api.pair.feature_shape), api._y.view(n),
+               api._mask.view(n), api._clogits.view(n, -1))
+    for s, dst in zip(src, prog.inputs):
+        dst.copy_(s[:dst.shape[0]])
+    saved = [t.detach().clone() for t in prog.state()]
+
+    def step(fn):
+        with torch.no_grad():
+            for t, v in zip(prog.state(), saved):
+                t.copy_(v)
+        loss = fn()
+        torch.cuda.synchronize()
+        return {"loss": loss.detach().clone(),
+                **{f"state/{i}": t.detach().clone() for i, t in enumerate(prog.state())}}
+
+    # the gate's launches and replay count no step of the rounds
+    replays, launches = prog.replays, dict(bn_counts())
+    captured = step(prog)
+    e1, e2 = step(lambda: prog.body(*prog.inputs)), step(lambda: prog.body(*prog.inputs))
+    step(lambda: torch.zeros(()))                       # the state back
+    prog.replays = replays
+    bn_counts().update(launches)
+
+    tag = f"[gkt capture {kind}]"
+    rec = _capture_verdict(tag, e1, e2, captured)
+    log(f"{tag} one step, eager vs captured: {rec['verdict']} ({rec})")
+    return rec
+
+
+def bn_counts() -> dict:
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    return bn.LAUNCHES
+
+
+def gkt_arm(smi: str) -> dict:
+    """(a): FedGKT on the flagship's federation at full depth, bf16 through
+    K1/K2. Round 0 with its captures, then 2 timed rounds (each phase ending
+    in a sync): 7 K1 + 7 K2 a client step and 38 a server step, one replay a
+    step, none in the extraction, logits or evaluation passes; real images/s,
+    client and server phase ms, n_pad, the union's bytes, peak memory,
+    Test/Acc and the losses; captured = eager for one step of each program;
+    a 5-step profile of the server step."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+    from fedml_tpu_torch.ops import conv_lanes as cl
+
+    tag = "[train gkt/seg (a) FedGKT]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = gkt_api(flagship_data())
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bns = {"client": kernel_bns(api.pair.client.module),
+           "server": kernel_bns(api.pair.server.module)}
+    if bns != GKT_BNS:
+        raise AssertionError(f"{tag} the pair has {bns} kernel BNs, not {GKT_BNS}")
+    steps_c, steps_s = api.round_steps()
+    closs, sloss = api.run_round(0)                       # with the captures
+    torch.cuda.synchronize()
+    bn.reset_launches()
+    cl.reset_launches()
+    r0 = {k: p.replays for k, p in api.programs.items()}
+    rounds = []
+    for r in (1, 2):
+        t = time.perf_counter()
+        closs = api.client_phase(r)
+        torch.cuda.synchronize()
+        tc = time.perf_counter()
+        sloss = api.server_phase(r)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        rec = {"round": r, "client_ms": (tc - t) * 1e3, "server_ms": (ts - tc) * 1e3,
+               "seconds": ts - t, "client_loss": float(closs.mean()),
+               "server_loss": float(sloss)}
+        if not (np.isfinite(rec["client_loss"]) and np.isfinite(rec["server_loss"])):
+            raise AssertionError(f"{tag} round {r}: non-finite losses {rec}")
+        rounds.append(rec)
+        log(f"{tag} round {r}: client phase {rec['client_ms']:.1f} ms, server phase "
+            f"{rec['server_ms']:.1f} ms, losses {rec['client_loss']:.4f} / "
+            f"{rec['server_loss']:.4f}")
+    trained = dict(bn.LAUNCHES)
+    replayed = {k: p.replays - r0[k] for k, p in api.programs.items()}
+    want = 2 * (GKT_BNS["client"] * steps_c + GKT_BNS["server"] * steps_s)
+    if any(trained[k] != want for k in ("bn_fwd", "bn_bwd")) or any(cl.LAUNCHES.values()):
+        raise AssertionError(f"{tag} launched {trained} (lanes {dict(cl.LAUNCHES)}) over 2 "
+                             f"rounds; expected 2 x (7 x {steps_c} + 38 x {steps_s}) = {want}")
+    if replayed != {"client": 2 * steps_c, "server": 2 * steps_s}:
+        raise AssertionError(f"{tag} replays {replayed}; expected one a step: "
+                             f"{2 * steps_c} client, {2 * steps_s} server")
+    t = time.perf_counter()
+    sums = api.evaluate()
+    eval_s = time.perf_counter() - t
+    if dict(bn.LAUNCHES) != trained:
+        raise AssertionError(f"{tag} the evaluation launched BN kernels: {bn.LAUNCHES}")
+    acc = sums["correct"] / max(sums["count"], 1.0)
+    loss = sums["loss_sum"] / max(sums["count"], 1.0)
+    if not (np.isfinite(loss) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"{tag} evaluation {sums}")
+    peak = torch.cuda.max_memory_allocated()
+    real = int(np.asarray(api.dataset.train_counts).sum())
+    train_s = sum(r["seconds"] for r in rounds)
+    gates = {k: gkt_capture_gate(api, k) for k in ("client", "server")}
+    prog = api.program("server")
+    n = api.C * api.n_pad
+    fx = api._feats.view((n,) + api.pair.feature_shape)
+
+    def five_server_steps():
+        loss = None
+        for s in range(5):
+            idx = torch.arange(s * 64, (s + 1) * 64, device=fx.device)
+            for src, dst in zip((fx, api._y.view(n), api._mask.view(n),
+                                 api._clogits.view(n, -1)), prog.inputs):
+                torch.index_select(src, 0, idx, out=dst)
+            loss = prog()
+        return float(loss)
+
+    profile = _profile(five_server_steps, 5)
+    out = {"setup_s": setup_s, "clients": api.C, "n_pad": api.n_pad,
+           "union_feature_bytes": api._feats.numel() * api._feats.element_size(),
+           "client_steps_per_round": steps_c, "server_steps_per_round": steps_s,
+           "rounds": rounds, "real_images_per_round": real,
+           "real_images_per_s": 2 * real / train_s, "peak_memory_bytes": peak,
+           "eval": {"Test/Acc": acc, "Test/Loss": loss, **sums}, "eval_s": eval_s,
+           "launches": trained, "replays": replayed, "capture_gate": gates,
+           "server_step_profile": profile}
+    log(f"{tag} {steps_c} client + {steps_s} server steps a round, n_pad {api.n_pad}, union "
+        f"{out['union_feature_bytes']} B, {out['real_images_per_s']:.1f} real images/s over 2 "
+        f"warm rounds, peak {peak / 2**30:.2f} GiB, Test/Acc {acc:.4f}, server step "
+        f"{profile['device_ms_per_step']:.3f} ms of device (busy "
+        f"{profile['device_busy_share']:.3f}, K1+K2 "
+        f"{profile['device_ms_per_step_by_family'].get('bn kernels (K1/K2)', 0.0):.3f} ms); "
+        f"{smi}")
+    del api, prog
+    return out
+
+
+def seg_arm(label: str, model: str, smi: str) -> dict:
+    """(b)/(c): FedSeg of ``model`` (bf16 through K1/K2; unet's convs run in
+    f32, as flax promotes them) on the synthetic blob federation, 8 of 16
+    clients a round, batch 16. Round 0 with its capture, then 2 timed rounds
+    ending in a sync: ``SEG_BNS[model]`` K1 + K2 and one replay a live step,
+    none in the evaluation; real images/s, mIoU, FWIoU, the confusion
+    total."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedseg import FedSegAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.segmentation import make_synthetic_segmentation
+    from fedml_tpu_torch.models import create_model
+
+    tag = f"[train gkt/seg {label}]"
+    ds = make_synthetic_segmentation(**SEG_DATA)
+    cfg = FedConfig(model=model, dataset="pascal_voc", client_num_in_total=16,
+                    client_num_per_round=8, comm_round=3, batch_size=16, epochs=1, lr=0.1,
+                    momentum=0.9, dtype="bfloat16", frequency_of_the_test=10_000, seed=SEED)
+    kw = {"dtype": torch.bfloat16} if model == "deeplab_lite" else {}
+    api = FedSegAPI(ds, cfg, create_model(model, 4, input_shape=(32, 32, 3), bn_impl="pallas",
+                                          **kw))
+    if kernel_bns(api.bundle.module) != SEG_BNS[model]:
+        raise AssertionError(f"{tag} {kernel_bns(api.bundle.module)} kernel BNs, not "
+                             f"{SEG_BNS[model]}")
+    _rounds(api, 0, 1)                                  # with its capture
+    steps = sum(api.round_counts(r)[1] // cfg.batch_size for r in (1, 2))
+    r0 = replays(api)
+    bn_counts().update({"bn_fwd": 0, "bn_bwd": 0})
+    losses, train_s = _rounds(api, 1, 2)
+    trained = dict(bn_counts())
+    scores = api.evaluate_global()
+    after = dict(bn_counts())
+    want = SEG_BNS[model] * steps
+    if (any(trained[k] != want for k in trained) or after != trained
+            or replays(api) - r0 != steps or not np.isfinite(losses).all()):
+        raise AssertionError(f"{tag} launched {trained} ({after} after the evaluation), "
+                             f"{replays(api) - r0} replays, losses {losses}; expected "
+                             f"{SEG_BNS[model]} x {steps} steps, one replay each")
+    real = sum(api.round_counts(r)[0] for r in (1, 2))
+    out = {"model": model, "steps": steps, "losses": losses, "seconds": train_s,
+           "real_images_per_s": real / train_s, "eval": scores, "launches": trained}
+    log(f"{tag} {steps} steps over 2 warm rounds, {out['real_images_per_s']:.1f} real images/s, "
+        f"mIoU {scores['mIoU']:.4f}, FWIoU {scores['FWIoU']:.4f}, confusion total "
+        f"{scores['confusion_total']:.0f}; {smi}")
+    return out
+
+
+def gkt_seg_f32_gates(smi: str) -> dict:
+    """In f32 with TF32 off and cuDNN's deterministic algorithms: (1) a
+    one-rank NCCL ``CrossSiloFedSegAPI`` round (``deeplab_lite`` through
+    K1/K2, 4 clients, all of them) within 1e-5 (relative norm) of the
+    ``FedSegAPI`` round from the same weights; (2) a GKT round at CI depth
+    (client 1 block, server 1 a stage, lr ``GKT_GATE_LR``) with
+    ``bn_impl="pallas"`` against the same round with ``"xla"`` from the same
+    weights and orders: client features and new server logits within
+    ``GKT_BN_GATE`` (relative norm)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.algorithms.fedseg import CrossSiloFedSegAPI, FedSegAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.segmentation import make_synthetic_segmentation
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.parallel.mesh import client_mesh, init_multihost
+
+    def rel(a: dict, b: dict) -> float:
+        num = sum(float(((a[k].double() - v.double()) ** 2).sum()) for k, v in b.items())
+        return (num / max(sum(float((v.double() ** 2).sum()) for v in b.values()), 1e-30)) ** 0.5
+
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ds = make_synthetic_segmentation(num_clients=4, records_per_client=16, image_size=32,
+                                         num_classes=4, batch_size=8, seed=SEED)
+        cfg = FedConfig(model="deeplab_lite", client_num_in_total=4, client_num_per_round=4,
+                        comm_round=1, batch_size=8, epochs=2, lr=0.05, momentum=0.9, seed=SEED)
+
+        def bundle():
+            return create_model("deeplab_lite", 4, input_shape=(32, 32, 3), bn_impl="pallas")
+
+        sim = FedSegAPI(ds, cfg, bundle())
+        init = {k: v.clone() for k, v in sim.variables.items()}
+        loss_sim = float(sim.run_round(0))
+        tmp = tempfile.mkdtemp(prefix="nccl-store-")
+        try:
+            init_multihost(f"file://{tmp}/store", 1, 0, timeout_s=120)
+            mesh = CrossSiloFedSegAPI(ds, cfg, bundle(), mesh=client_mesh())
+            if mesh.mesh.group is None or mesh.mesh.world_size != 1:
+                raise AssertionError(f"[gkt/seg gates] not a one-rank group: {mesh.mesh}")
+            mesh.variables = {k: v.clone() for k, v in init.items()}
+            loss_mesh = float(mesh.run_round(0))
+            backend = dist.get_backend()
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+        d = rel(mesh.variables, sim.variables)
+        if not d < 1e-5:
+            raise AssertionError(f"[gkt/seg gates] the NCCL CrossSiloFedSegAPI round lies {d} "
+                                 f"(relative norm) from the FedSegAPI round, above 1e-5")
+        out["crosssilo_fedseg_vs_fedseg"] = {"backend": backend, "relative_norm": d,
+                                             "losses": [loss_sim, loss_mesh]}
+        gds = make_synthetic_classification("gkt-gate", (32, 32, 3), 10, 4,
+                                            records_per_client=64, partition_method="hetero",
+                                            partition_alpha=0.5, batch_size=16, seed=SEED)
+        apis = {b: gkt_api(gds, bn_impl=b, blocks=(1, 1), dtype="float32", batch_size=16,
+                           lr=GKT_GATE_LR) for b in ("pallas", "xla")}
+        plain = apis["xla"]
+        apis["pallas"].client_vars = {k.replace("BatchNorm", "PallasBatchNorm"): v.clone()
+                                      for k, v in plain.client_vars.items()}
+        apis["pallas"].server_vars = {k.replace("BatchNorm", "PallasBatchNorm"): v
+                                      for k, v in plain.server_vars.items()}
+        bn_counts().update({"bn_fwd": 0, "bn_bwd": 0})
+        for api in apis.values():
+            api.run_round(0)
+        torch.cuda.synchronize()
+        steps_c, steps_s = apis["pallas"].round_steps()
+        # CI depth: client stem + 1 block (3 BNs), server 2 projecting blocks (6)
+        want = 3 * steps_c + 6 * steps_s
+        if bn_counts() != {"bn_fwd": want, "bn_bwd": want}:
+            raise AssertionError(f"[gkt/seg gates] the pallas GKT round launched {bn_counts()}, "
+                                 f"not 3 x {steps_c} + 6 x {steps_s}")
+        gate = {}
+        for name in ("_feats", "server_logits"):
+            a, b = getattr(apis["pallas"], name), getattr(plain, name)
+            gate[name] = float((a.double() - b.double()).norm() / b.double().norm())
+        if not all(v <= GKT_BN_GATE for v in gate.values()):
+            raise AssertionError(f"[gkt/seg gates] the pallas GKT round lies {gate} (relative "
+                                 f"norm) from the plain one, above {GKT_BN_GATE}")
+        out["gkt_pallas_vs_xla"] = {"relative_norm": gate, "bound": GKT_BN_GATE,
+                                    "client_steps": steps_c, "server_steps": steps_s}
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log(f"[gkt/seg gates] f32 on the card: {out}; {smi}")
+    return out
+
+
+def phase_train_gkt_seg(smi: str) -> dict:
+    """Phase 16: FedGKT (a) and FedSeg of deeplab_lite (b) and unet (c),
+    bf16 through K1/K2, then the f32 gates (d)."""
+    import gc
+
+    import torch
+
+    out, launches = {"arms": {}}, {"bn_fwd": 0, "bn_bwd": 0}
+    for label, run in (("gkt", lambda: gkt_arm(smi)),
+                       ("deeplab_lite", lambda: seg_arm("(b) deeplab_lite", "deeplab_lite", smi)),
+                       ("unet", lambda: seg_arm("(c) unet", "unet", smi))):
+        rec = out["arms"][label] = run()
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["f32_checks"] = gkt_seg_f32_gates(smi)
+    out["launches"] = launches
+    log("[train gkt/seg] real images/s: " + ", ".join(
+        f"{k} {v['real_images_per_s']:.1f}" for k, v in out["arms"].items()) + f"; {smi}")
+    return out
+
+
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
                     ) -> tuple[float, float, int]:
     """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
@@ -4357,6 +4762,7 @@ def main() -> int:
     loop = timed("train_loop", phase_train_loop, smi)
     robust = timed("train_robust", phase_train_robust, smi)
     zoo_gossip = timed("train_zoo_gossip", phase_train_zoo_gossip, smi)
+    gkt_seg = timed("train_gkt_seg", phase_train_gkt_seg, smi)
     err.update(conv_err)
     err.update(lm_err)
 
@@ -4385,7 +4791,7 @@ def main() -> int:
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
             # lowering A/B's, the cross-silo arms' and the cross-device
             # flagship arms' timed rounds, phase 13's train() runs and the
-            # arms of phases 14 and 15, each counted from 0 just before it
+            # arms of phases 14, 15 and 16, each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -4394,7 +4800,8 @@ def main() -> int:
                        "crossdevice": crossdevice["launches"][name],
                        "train_loop": loop["launches"][name],
                        "robust_hier_silo": robust["launches"][name],
-                       "zoo_gossip_stream_turbo": zoo_gossip["launches"][name]}
+                       "zoo_gossip_stream_turbo": zoo_gossip["launches"][name],
+                       "gkt_seg": gkt_seg["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -4481,6 +4888,7 @@ def main() -> int:
         "train": train, "train_packed": train_packed,
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
+        "train_gkt_seg": gkt_seg,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

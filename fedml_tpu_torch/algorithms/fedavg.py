@@ -285,23 +285,35 @@ class FedAvgAPI:
 
     # -- packed schedule (parallel/packed.py) --------------------------------
 
+    def _packing_blocker(self) -> Optional[tuple[str, str]]:
+        """Why the lane program cannot run this API, as (``packed_status``'s
+        reason, the detail logged), or None: the model has no lane-stacked
+        twin (``deeplab_lite``, ``unet``, ``transformer``; the JAX package
+        vmaps any model over the lanes, so it schedules these), or this
+        subclass rewires
+        ``build_local_train`` or overrides ``aggregate`` without hooks."""
+        name = type(self).__name__
+        if getattr(self.bundle.module, "lane_stacked", None) is None:
+            why = f"model {self.bundle.name!r} has no lane-stacked twin"
+            return why, why
+        mirror = f"{name} has no packed-lane algorithm mirror"
+        if type(self).build_local_train is not FedAvgAPI.build_local_train:
+            return mirror, (f"{name} rewires build_local_train, which the packed lane program "
+                            "cannot mirror")
+        if self.crosssilo_hooks() is None and type(self).aggregate is not FedAvgAPI.aggregate:
+            return mirror, f"{name} overrides aggregate() without crosssilo hooks"
+        return None
+
     def _packing_hooks(self) -> Optional[dict]:
         """The packed round's algorithm contract: ``{}`` for the plain
         weighted mean, the hook dict of ``crosssilo_hooks``, or None (logged
-        once) when the lane program cannot mirror this subclass: it rewires
-        ``build_local_train``, or overrides ``aggregate`` without hooks."""
-        name = type(self).__name__
-        if type(self).build_local_train is not FedAvgAPI.build_local_train:
-            why = f"{name} rewires build_local_train, which the packed lane program cannot mirror"
-        else:
+        once) when ``_packing_blocker`` names a reason."""
+        blocker = self._packing_blocker()
+        if blocker is None:
             hooks = self.crosssilo_hooks()
-            if hooks is not None:
-                return hooks
-            if type(self).aggregate is FedAvgAPI.aggregate:
-                return {}
-            why = f"{name} overrides aggregate() without crosssilo hooks"
+            return {} if hooks is None else hooks
         if not getattr(self, "_warned_no_pack", False):
-            log.warning("pack_lanes=%d ignored: %s", self.config.pack_lanes, why)
+            log.warning("pack_lanes=%d ignored: %s", self.config.pack_lanes, blocker[1])
             self._warned_no_pack = True
         return None
 
@@ -340,9 +352,9 @@ class FedAvgAPI:
         lowering is active (the JAX package's dict)."""
         if self.config.pack_lanes <= 0:
             return {"scheduled": False, "packed_conv_active": False, "reason": "pack_lanes=0"}
-        if self._packing_hooks() is None:
-            return {"scheduled": False, "packed_conv_active": False,
-                    "reason": f"{type(self).__name__} has no packed-lane algorithm mirror"}
+        blocker = self._packing_blocker()
+        if blocker is not None:
+            return {"scheduled": False, "packed_conv_active": False, "reason": blocker[0]}
         if self._packed_train is None and not (self._dev_train is None
                                                and self._stream_packed_active()):
             return {"scheduled": False, "packed_conv_active": False, "reason": "device_data=off"}
@@ -836,13 +848,18 @@ class FedAvgAPI:
             if pf is not None:
                 pf.close()
 
-    def evaluate_global(self) -> dict:
+    def eval_sums(self) -> dict:
+        """The global model's metric sums over the test pool, on the host
+        (scalars as numbers, a segmentation confusion matrix as an array)."""
         if self._dev_test is None:
             ds = self.dataset
             self._dev_test = self._to_device(ds.test_x, ds.test_y, ds.test_mask, cast=False)
         x, y, m = self._dev_test
         sums = self._eval(self.variables, x, y, m)
-        return finalize_metrics({k: v.item() for k, v in sums.items()})
+        return {k: v.item() if v.numel() == 1 else v.cpu().numpy() for k, v in sums.items()}
+
+    def evaluate_global(self) -> dict:
+        return finalize_metrics(self.eval_sums())
 
     def save(self, path: str, round_idx: int = 0, orbax: bool = False) -> None:
         """Checkpoint the variables and the server state with the round to

@@ -173,8 +173,9 @@ def add_decayed_weights(wd: float) -> Transform:
     return Transform(lambda params, n_lanes=0: {}, update)
 
 
-def trace(decay: float) -> Transform:
-    """Momentum: ``t = g + decay * t``; the update is ``t``."""
+def trace(decay: float, nesterov: bool = False) -> Transform:
+    """Momentum: ``t = g + decay * t``; the update is ``t``, or with
+    ``nesterov`` ``g + decay * t`` of the new ``t`` (optax's rule)."""
     def init(params, n_lanes=0):
         return {"trace": _zeros(params)}
 
@@ -182,7 +183,11 @@ def trace(decay: float) -> Transform:
         t = state["trace"]
         torch._foreach_mul_(t, decay)
         torch._foreach_add_(t, grads)
-        return list(t), state
+        if not nesterov:
+            return list(t), state
+        u = torch._foreach_mul(t, decay)
+        torch._foreach_add_(u, grads)
+        return u, state
 
     return Transform(init, update)
 
@@ -280,9 +285,9 @@ def scale_by_yogi(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-3,
 
 # the optax aliases, with optax's defaults
 
-def sgd(lr: float, momentum: float = 0.0) -> Transform:
+def sgd(lr: float, momentum: float = 0.0, nesterov: bool = False) -> Transform:
     if momentum:
-        return chain(trace(momentum), scale_by_learning_rate(lr))
+        return chain(trace(momentum, nesterov), scale_by_learning_rate(lr))
     return scale_by_learning_rate(lr)
 
 

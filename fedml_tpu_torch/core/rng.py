@@ -48,3 +48,10 @@ def server_generator(seed: int, round_idx: int, device=None) -> torch.Generator:
     card). Every paradigm derives it the same way, so the simulation and
     every rank of the mesh draw the same noise."""
     return _seeded([seed, round_idx, 0x5E87], device)
+
+
+def init_generator(seed: int, *stream: int) -> torch.Generator:
+    """A CPU generator for initial weights, a pure function of the seed and
+    the ``stream`` path (FedGKT: ``(1, client)`` for each client's edge net,
+    ``(2,)`` for the server net)."""
+    return _seeded([seed, 0x1417, *stream])

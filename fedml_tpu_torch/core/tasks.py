@@ -1,14 +1,15 @@
 """Task families: mask-aware loss and metric sums (counterpart of
-``fedml_tpu/core/tasks.py``; classification, next-word prediction and
-multilabel tag prediction on the ported paths).
+``fedml_tpu/core/tasks.py``): classification, next-word prediction,
+multilabel tag prediction and semantic segmentation.
 
 Padded records carry mask 0 and contribute nothing to loss or metrics.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -102,11 +103,60 @@ def tag_metrics(logits, targets, mask) -> dict:
 
 tag_prediction = Task(tag_loss, tag_metrics)
 
+
+# semantic segmentation (the FedSeg Evaluator: pixel acc, mIoU and FWIoU
+# from a confusion matrix): logits [B, H, W, C], targets [B, H, W] with
+# ``ignore_index`` for unlabelled pixels, the record mask [B]
+
+def make_segmentation_task(num_classes: int, ignore_index: int = 255) -> Task:
+    def valid_pixels(targets, mask):
+        m = mask.reshape(mask.shape + (1,) * (targets.dim() - mask.dim()))
+        return (targets != ignore_index) & (m > 0)
+
+    def seg_loss(logits, targets, mask) -> torch.Tensor:
+        valid = valid_pixels(targets, mask)
+        per = int_cross_entropy(logits, torch.where(valid, targets, 0))
+        return _masked_mean(per, valid)
+
+    def seg_metrics(logits, targets, mask) -> dict:
+        # counted in int64: a float count stalls at 2^24 pixels a cell;
+        # invalid pixels go to one extra bin, which is dropped
+        valid = valid_pixels(targets, mask)
+        idx = targets.long() * num_classes + logits.argmax(-1)
+        idx = torch.where(valid, idx, num_classes * num_classes).reshape(-1)
+        conf = torch.bincount(idx, minlength=num_classes * num_classes + 1)
+        return {"confusion": conf[:num_classes * num_classes].view(num_classes, num_classes),
+                "count": valid.sum()}
+
+    return Task(seg_loss, seg_metrics)
+
+
+def segmentation_scores(confusion) -> dict:
+    """Acc / Acc_class / mIoU / FWIoU of an accumulated confusion matrix
+    (rows: true class, columns: prediction), on the host in float64."""
+    conf = np.asarray(confusion.cpu() if torch.is_tensor(confusion) else confusion, np.float64)
+    total = max(conf.sum(), 1.0)
+    diag = np.diag(conf)
+    rows, cols = conf.sum(axis=1), conf.sum(axis=0)
+    with np.errstate(invalid="ignore"):
+        acc_class = np.nanmean(np.where(rows > 0, diag / np.maximum(rows, 1.0), np.nan))
+        union = rows + cols - diag
+        miou = np.nanmean(np.where(union > 0, diag / np.maximum(union, 1.0), np.nan))
+    fwiou = np.nansum(np.where(union > 0, rows / total * diag / np.maximum(union, 1.0), 0.0))
+    return {"Acc": diag.sum() / total, "Acc_class": acc_class, "mIoU": miou, "FWIoU": fwiou}
+
+
 TASKS: dict[str, Task] = {"classification": classification, "nwp": nwp,
                           "tag_prediction": tag_prediction}
 
 
-def get_task(name: str, class_num=None) -> Task:
+def get_task(name: str, class_num: Optional[int] = None) -> Task:
+    """``"segmentation"`` is built for ``class_num`` classes (its metrics
+    carry a [C, C] confusion matrix); the other tasks are looked up."""
+    if name == "segmentation":
+        if not class_num:
+            raise ValueError("segmentation task requires class_num")
+        return make_segmentation_task(class_num)
     if name not in TASKS:
-        raise KeyError(f"unknown task {name!r}; ported: {sorted(TASKS)}")
+        raise KeyError(f"unknown task {name!r}; known: {sorted(TASKS) + ['segmentation']}")
     return TASKS[name]

@@ -25,7 +25,6 @@ _LOADERS: dict[str, Callable[..., "FedDataset"]] = {}
 UNPORTED_DATASETS = {
     **{n: "ROADMAP §1 item 10 (loaders: stackoverflow)"
        for n in ("stackoverflow_lr", "stackoverflow_nwp")},
-    **{n: "ROADMAP §1 item 10 (loaders: segmentation)" for n in ("pascal_voc", "coco_seg")},
     **{n: "ROADMAP §1 item 10 (loaders: imagenet)"
        for n in ("ILSVRC2012", "imagenet", "gld23k", "gld160k")},
 }
@@ -118,13 +117,13 @@ class FedDataset:
 
 def _register_all() -> None:
     from fedml_tpu_torch.data import (cifar, crossdevice, femnist, mnist,  # noqa: F401
-                                      shakespeare, synthetic)
+                                      segmentation, shakespeare, synthetic)
 
 
 def load_dataset(name: str, **kw) -> FedDataset:
     """Dispatch on the reference's ``--dataset`` values (synthetic_1_1,
     mnist, femnist, fed_cifar100, cifar10, cifar100, cinic10, shakespeare,
-    fed_shakespeare, stackoverflow_lr_full, ...). Loaders ignore keyword
+    fed_shakespeare, stackoverflow_lr_full, pascal_voc, ...). Loaders ignore keyword
     arguments they do not take."""
     _register_all()
     if name in UNPORTED_DATASETS:

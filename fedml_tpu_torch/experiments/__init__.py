@@ -42,7 +42,7 @@ PORTED = ("fedavg", "fedopt", "fedprox", "fednova", "fedagc", "centralized",
           "crosssilo_fedagc", "fedavg_robust", "crosssilo_fedavg_robust", "hierarchical",
           "crosssilo_hierarchical", "silo_fedavg", "silo_fedopt", "silo_fednova",
           "silo_fedagc", "decentralized", "crosssilo_decentralized", "streaming_fedavg",
-          "turboaggregate")
+          "turboaggregate", "fedgkt", "fedseg", "crosssilo_fedseg")
 
 _ITEM9 = "ROADMAP §1 item 9 (the algorithm zoo)"
 #: algorithm -> the ROADMAP item that ports it
@@ -107,15 +107,18 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
                                                           MeshDecentralizedFedAPI)
     from fedml_tpu_torch.algorithms.fedagc import CrossSiloFedAGCAPI, FedAGCAPI
     from fedml_tpu_torch.algorithms.fedavg import CrossSiloFedAvgAPI, FedAvgAPI
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
     from fedml_tpu_torch.algorithms.fednova import CrossSiloFedNovaAPI, FedNovaAPI
     from fedml_tpu_torch.algorithms.fedopt import CrossSiloFedOptAPI, FedOptAPI
     from fedml_tpu_torch.algorithms.fedprox import CrossSiloFedProxAPI, FedProxAPI
+    from fedml_tpu_torch.algorithms.fedseg import CrossSiloFedSegAPI, FedSegAPI
     from fedml_tpu_torch.algorithms.hierarchical import (CrossSiloHierarchicalFedAvgAPI,
                                                          HierarchicalFedAvgAPI)
     from fedml_tpu_torch.algorithms.robust import CrossSiloFedAvgRobustAPI, FedAvgRobustAPI
     from fedml_tpu_torch.algorithms.silo import SiloRunner
     from fedml_tpu_torch.algorithms.streaming_fedavg import StreamingFedAvgAPI
     from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
+    from fedml_tpu_torch.models.gkt import gkt_blocks_from_names
 
     apis = {
         "fedavg": FedAvgAPI, "fedopt": FedOptAPI, "fedprox": FedProxAPI,
@@ -128,10 +131,20 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
         "crosssilo_hierarchical": CrossSiloHierarchicalFedAvgAPI,
         "decentralized": DecentralizedFedAPI, "crosssilo_decentralized": MeshDecentralizedFedAPI,
         "streaming_fedavg": StreamingFedAvgAPI, "turboaggregate": TurboAggregateAPI,
+        "fedseg": FedSegAPI, "crosssilo_fedseg": CrossSiloFedSegAPI,
     }
     silo = {"silo_fedavg": FedAvgAPI, "silo_fedopt": FedOptAPI, "silo_fednova": FedNovaAPI,
             "silo_fedagc": FedAGCAPI}
     ds = _load(config)
+    if algorithm == "fedgkt":
+        # the JAX launcher's: the pair from --model_client/--model_server,
+        # blocks (1, 2) under --ci; the model flag is not read
+        blocks = (1, 2) if config.ci else gkt_blocks_from_names(config.model_client,
+                                                                config.model_server)
+        result = FedGKTAPI(ds, config, client_blocks=blocks[0],
+                           server_blocks_per_stage=blocks[1], device=device).train()
+        log.info("result %s", json.dumps(result))
+        return result
     bundle = _bundle_for(config, ds)
     if algorithm in silo:
         result = SiloRunner(ds, config, api_cls=silo[algorithm], bundle=bundle,

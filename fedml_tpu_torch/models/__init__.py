@@ -35,6 +35,7 @@ class ModelBundle:
     name: str
     module: nn.Module
     input_shape: tuple            # single-example shape, no batch dim
+    task: str = "classification"  # the task family it is built for (core/tasks.py)
 
     @property
     def packed_twin(self) -> bool:
@@ -84,7 +85,8 @@ def create_model(model_name: str, output_dim: int,
                  input_shape: Optional[Sequence[int]] = None, **kw) -> ModelBundle:
     """Factory keyed by the reference's --model flag values. Every factory
     takes ``input_shape`` (None: its default); ``lr`` sizes its layer by it."""
-    from fedml_tpu_torch.models import cnn, linear, resnet, transformer  # noqa: F401
+    from fedml_tpu_torch.models import (cnn, linear, resnet, segmentation,  # noqa: F401
+                                        transformer)
 
     if model_name not in _REGISTRY:
         raise KeyError(f"unknown or unported model {model_name!r}; known: {sorted(_REGISTRY)}")

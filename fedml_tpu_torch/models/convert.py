@@ -12,6 +12,12 @@ flat, keyed by the same module path joined with dots. The map is:
   modules are ``BatchNorm_i`` or ``PallasBatchNorm_i``.
 
 Both directions only transpose, so a round trip is bit-exact.
+
+``stacked=True`` maps a tree whose every leaf carries a leading stack axis
+(FedGKT's client nets: ``vmap(init)`` over one key a client gives leaves
+``[C, ...]``) to a state dict of ``[C, ...]`` tensors and back: the axis is
+kept and each slice is mapped as above, so client i's state dict is slice
+i of every entry.
 """
 
 from __future__ import annotations
@@ -39,38 +45,45 @@ def _rename_bn(path: tuple, bn_name: Optional[str]) -> tuple:
     return tuple(_BN.sub(rf"{bn_name}_\2", p) for p in path)
 
 
-def flax_to_torch(variables: dict, bn_name: Optional[str] = None) -> dict:
+def flax_to_torch(variables: dict, bn_name: Optional[str] = None,
+                  stacked: bool = False) -> dict:
     """Flax variables -> the port's state dict. ``bn_name``
     ("PallasBatchNorm" or "BatchNorm") renames every BN path so a tree of
-    either flax BN class loads into a model of either ``bn_impl``."""
+    either flax BN class loads into a model of either ``bn_impl``;
+    ``stacked`` keeps a leading stack axis (module note)."""
     out = {}
+    s = int(stacked)
+    lead = tuple(range(s))
     for coll in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(coll, {})):
             path = _rename_bn(path, bn_name)
             a = np.asarray(leaf)
             name = path[-1]
-            if name == "kernel" and a.ndim == 4:
-                a, name = a.transpose(3, 2, 0, 1), "weight"
-            elif name == "kernel" and a.ndim == 2:
-                a, name = a.T, "weight"
+            if name == "kernel" and a.ndim == 4 + s:
+                a, name = a.transpose(*lead, *(d + s for d in (3, 2, 0, 1))), "weight"
+            elif name == "kernel" and a.ndim == 2 + s:
+                a, name = np.swapaxes(a, s, s + 1), "weight"
             elif name == "kernel":
                 raise ValueError(f"kernel {'/'.join(path)} is neither 2-D nor 4-D")
             out[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(a, order="C"))
     return out
 
 
-def torch_to_flax(state: dict, bn_name: Optional[str] = None) -> dict:
-    """The port's state dict -> flax variables of numpy arrays."""
+def torch_to_flax(state: dict, bn_name: Optional[str] = None, stacked: bool = False) -> dict:
+    """The port's state dict -> flax variables of numpy arrays (``stacked``:
+    every entry carries a leading stack axis, which is kept)."""
     out: dict = {"params": {}, "batch_stats": {}}
+    s = int(stacked)
+    lead = tuple(range(s))
     for key, t in state.items():
         path = _rename_bn(tuple(key.split(".")), bn_name)
         a = t.detach().cpu().numpy()
         name = path[-1]
         coll = "params"
-        if name == "weight" and a.ndim == 4:
-            a, name = a.transpose(2, 3, 1, 0), "kernel"
-        elif name == "weight" and a.ndim == 2:
-            a, name = a.T, "kernel"
+        if name == "weight" and a.ndim == 4 + s:
+            a, name = a.transpose(*lead, *(d + s for d in (2, 3, 1, 0))), "kernel"
+        elif name == "weight" and a.ndim == 2 + s:
+            a, name = np.swapaxes(a, s, s + 1), "kernel"
         elif name == "weight":
             raise ValueError(f"weight {key} is neither 2-D nor 4-D")
         elif name in ("mean", "var"):

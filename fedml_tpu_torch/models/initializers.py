@@ -24,3 +24,11 @@ def embed_normal_(w: torch.Tensor, generator: Optional[torch.Generator]) -> None
     (untruncated) normal of variance 1 / features."""
     with torch.no_grad():
         w.normal_(0.0, math.sqrt(1.0 / w.shape[1]), generator=generator)
+
+
+def reset_submodules(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Fresh weights from ``generator`` for every submodule that has
+    ``reset_parameters``, in module order."""
+    for m in module.modules():
+        if m is not module and hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)

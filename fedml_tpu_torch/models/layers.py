@@ -1,5 +1,5 @@
-"""flax's basic layers with their defaults: ``Dense``, ``Embed`` and
-``LayerNorm``. Parameters keep flax's leaf names (``weight`` for a Dense
+"""flax's basic layers with their defaults: ``Dense``, ``Conv`` (stride 1,
+NHWC), ``Embed`` and ``LayerNorm``. Parameters keep flax's leaf names (``weight`` for a Dense
 kernel, transposed; ``embedding``; ``scale``, ``bias``), so weight
 conversion is a path map (``models/convert.py``)."""
 
@@ -47,6 +47,37 @@ class Dense(nn.Module):
         xs = x.to(dt).reshape(x.shape[0], L, d).transpose(0, 1)       # [L, N, in]
         w = self.weight.to(dt).view(L, out // L, d).transpose(1, 2)   # [L, in, out]
         return torch.baddbmm(self.bias.to(dt).view(L, 1, out // L), xs, w)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv(features, (k, k), padding="SAME", kernel_dilation=r)``
+    at stride 1 on NHWC input: ``weight`` OIHW, an optional zero-initialised
+    ``bias``. A SAME conv of odd size k at dilation r pads ``r * (k - 1) / 2``
+    on each side. Computes in ``dtype``, or by default in the promoted type
+    of input and weight."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int, dilation: int = 1,
+                 use_bias: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dilation = dilation
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def reset_parameters(self, generator=None) -> None:
+        o, i, kh, kw = self.weight.shape
+        lecun_normal_(self.weight, i * kh * kw, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
+                     padding=self.dilation * (self.weight.shape[-1] // 2),
+                     dilation=self.dilation)
+        return y.permute(0, 2, 3, 1).contiguous()
 
 
 class Embed(nn.Module):

@@ -45,7 +45,7 @@ import torch
 from torch import nn
 
 from fedml_tpu_torch.models import ModelBundle, register_model
-from fedml_tpu_torch.models.initializers import lecun_normal_
+from fedml_tpu_torch.models.initializers import lecun_normal_, reset_submodules
 from fedml_tpu_torch.models.layers import Dense
 from fedml_tpu_torch.models.norm import PallasBatchNorm
 from fedml_tpu_torch.ops import conv_lanes
@@ -78,6 +78,8 @@ class Conv(nn.Module):
 def _norm(features: int, bn_impl: str, fuse_relu: bool = False,
           axis: int = -1) -> tuple[str, PallasBatchNorm]:
     """(flax class name, module) of one train-mode BatchNorm."""
+    if bn_impl not in ("xla", "pallas"):
+        raise ValueError(f"bn_impl must be 'xla' or 'pallas', got {bn_impl!r}")
     name = "PallasBatchNorm" if bn_impl == "pallas" else "BatchNorm"
     return name, PallasBatchNorm(features, momentum=0.9, fuse_relu=fuse_relu,
                                  use_kernel=bn_impl == "pallas", axis=axis)
@@ -188,9 +190,7 @@ class CifarResNet(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """Fresh weights from ``generator``, in module order."""
-        for m in self.modules():
-            if m is not self and hasattr(m, "reset_parameters"):
-                m.reset_parameters(generator)
+        reset_submodules(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [N, H, W, C] images -> [N, output_dim] f32 logits; lane-stacked,

@@ -23,7 +23,7 @@ from typing import Iterator, NamedTuple, Optional, Sequence
 import torch
 
 from fedml_tpu_torch.core import optim
-from fedml_tpu_torch.core.tasks import Task
+from fedml_tpu_torch.core.tasks import Task, segmentation_scores
 from fedml_tpu_torch.models import ModelBundle
 from fedml_tpu_torch.parallel.capture import CapturedStep
 
@@ -84,11 +84,9 @@ def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
     in place first (``opt.zero_grad(set_to_none=False)``), so they keep
     their addresses. With ``prox_mu`` the loss gains
     ``0.5 * prox_mu * ||w - anchor||^2`` over the parameters (``anchor``:
-    the global model's, in ``opt.params`` order), before the clip. The
-    optional clip scales every gradient by
-    ``min(1, clip / max(global_norm, 1e-12))``, as the JAX step does
-    (``clip_grad_norm_`` adds 1e-6 instead). Syncs nothing with the host,
-    so it can be captured."""
+    the global model's, in ``opt.params`` order), before the optional clip
+    (:func:`clip_grads_`). Syncs nothing with the host, so it can be
+    captured."""
 
     def batch_step(module, opt, bx, by, bm, anchor=None):
         module.train()
@@ -99,15 +97,23 @@ def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
         if prox_mu:
             loss = loss + prox_term(opt.params, anchor, prox_mu)
         if grad_clip:
-            grads = [p.grad for p in opt.params if p.grad is not None]
-            gnorm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
-            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-            for g in grads:
-                g.mul_(scale.to(g.dtype))
+            clip_grads_(opt.params, grad_clip)
         opt.step()
         return loss
 
     return batch_step
+
+
+@torch.no_grad()
+def clip_grads_(params: list, grad_clip: float) -> None:
+    """Scale every ``.grad`` by ``min(1, clip / max(global_norm, 1e-12))``,
+    in place, as the JAX step clips (``clip_grad_norm_`` adds 1e-6
+    instead); syncs nothing with the host."""
+    grads = [p.grad for p in params if p.grad is not None]
+    gnorm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
+    scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
 
 
 def module_state(module: torch.nn.Module, opt: optim.Optimizer) -> list:
@@ -278,7 +284,12 @@ def make_eval_fn(bundle: ModelBundle, task: Task, eval_batch_size: int = 256):
 
 def finalize_metrics(sums: dict) -> dict:
     """Metric sums -> acc, mean loss, and precision and recall (tag
-    prediction)."""
+    prediction); segmentation sums -> Acc / Acc_class / mIoU / FWIoU of
+    their confusion matrix, with ``acc`` the pixel accuracy and ``loss``
+    1 - mIoU."""
+    if "confusion" in sums:
+        scores = {k: float(v) for k, v in segmentation_scores(sums["confusion"]).items()}
+        return {**scores, "acc": scores["Acc"], "loss": 1.0 - scores["mIoU"]}
     out = {}
     count = float(sums.get("count", 1.0))
     if "correct" in sums:

@@ -8,12 +8,15 @@
 - Every field is ported, XLA-only (accepted and ignored) or unported; each
   unported one, set away from its default, raises ``NotImplementedError``
   at ``FedAvgAPI`` construction naming the field and its ROADMAP item.
+- FedGKT's five fields are live: each, set away from its default, changes
+  what ``FedGKTAPI`` builds or computes.
 """
 
 import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from fedml_tpu.core.config import FedConfig as JaxFedConfig
 from fedml_tpu.core.config import add_args as jax_add_args
@@ -30,10 +33,7 @@ BASE = dict(model="lr", dataset="tiny", client_num_in_total=4, client_num_per_ro
 #: a value away from the default for each unported field, with the fields it
 #: needs to pass the JAX package's own checks
 NON_DEFAULT = {
-    "unrolled": {"unrolled": 1}, "temperature": {"temperature": 2.0},
-    "alpha_distill": {"alpha_distill": 0.5}, "model_client": {"model_client": "resnet4"},
-    "model_server": {"model_server": "resnet32_server"}, "epochs_server": {"epochs_server": 2},
-    "backend": {"backend": "grpc"}, "rank": {"rank": 1, "world_size": 2},
+    "unrolled": {"unrolled": 1}, "backend": {"backend": "grpc"}, "rank": {"rank": 1, "world_size": 2},
     "world_size": {"world_size": 2}, "grpc_ipconfig_path": {"grpc_ipconfig_path": "ip.csv"},
     "grpc_base_port": {"grpc_base_port": 50100}, "wire_codec": {"wire_codec": "q8"},
     "wire_delta": {"wire_delta": True}, "wire_reliable": {"wire_reliable": True},
@@ -173,3 +173,45 @@ def test_xla_only_fields_are_accepted_and_change_nothing():
     assert plain.run_round(0) == xla.run_round(0)
     for k, v in plain.variables.items():
         np.testing.assert_array_equal(xla.variables[k].numpy(), v.numpy())
+
+
+#: FedGKT's fields, each away from its default
+GKT_FIELDS = {"temperature": 2.0, "alpha_distill": 0.5, "model_client": "resnet4",
+              "model_server": "resnet32_server", "epochs_server": 2}
+
+
+@pytest.fixture
+def one_torch_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("field", sorted(GKT_FIELDS))
+def test_gkt_field_takes_effect(field, one_torch_thread):
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+
+    ds = make_synthetic_classification("gkt", (8, 8, 3), 3, 2, records_per_client=4,
+                                       partition_method="homo", batch_size=4, seed=0)
+    base = dict(BASE, client_num_in_total=2, client_num_per_round=2)
+    cfgs = [FedConfig(**base), FedConfig(**base, **{field: GKT_FIELDS[field]})]
+    assert unported_fields(cfgs[1]) == {}
+    # the depth fields build from the names; the others train at CI depth
+    depth = {} if field.startswith("model_") else dict(client_blocks=1, server_blocks_per_stage=1)
+    apis = [FedGKTAPI(ds, c, device="cpu", **depth) for c in cfgs]
+    blocks = [sum(n.count(".") == 0 and n.startswith("BasicBlock")
+                  for n, _ in half.module.named_modules())
+              for a in apis for half in (a.pair.client, a.pair.server)]
+    if field == "model_client":          # resnet8 -> 3 blocks, resnet4 -> 1
+        assert blocks[0::2] == [3, 1] and blocks[1] == blocks[3]
+    elif field == "model_server":        # resnet56_server -> 2 x 9 blocks, resnet32 -> 2 x 5
+        assert blocks[1::2] == [18, 10] and blocks[0] == blocks[2]
+    elif field == "epochs_server":       # twice the server steps, the same client steps
+        (c0, s0), (c1, s1) = (a.round_steps() for a in apis)
+        assert (c1, s1) == (c0, 2 * s0) and len(apis[1]._server_orders(0)) == 2
+    else:                                # the server's distillation term in round 0
+        apis[1].client_vars = {k: v.clone() for k, v in apis[0].client_vars.items()}
+        apis[1].server_vars = apis[0].server_vars
+        losses = [float(a.run_round(0)[1]) for a in apis]
+        assert np.isfinite(losses).all() and losses[0] != losses[1]

@@ -58,7 +58,10 @@ def test_new_modules_are_covered():
                 "distributed/topology.py", "algorithms/decentralized.py", "parallel/gossip.py",
                 "algorithms/turboaggregate.py", "algorithms/streaming_fedavg.py",
                 "native/__init__.py", "native/build.py", "experiments/main_decentralized.py",
-                "experiments/main_streaming_fedavg.py", "experiments/main_turboaggregate.py"):
+                "experiments/main_streaming_fedavg.py", "experiments/main_turboaggregate.py",
+                "models/gkt.py", "models/segmentation.py", "algorithms/fedgkt.py",
+                "algorithms/fedseg.py", "data/segmentation.py", "experiments/main_fedgkt.py",
+                "experiments/main_fedseg.py", "experiments/main_crosssilo_fedseg.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
@@ -73,7 +76,9 @@ def test_the_launcher_loads_no_jax_at_run_time():
         "import fedml_tpu_torch.algorithms.decentralized, fedml_tpu_torch.native\n"
         "import fedml_tpu_torch.algorithms.streaming_fedavg\n"
         "import fedml_tpu_torch.algorithms.turboaggregate\n"
+        "import fedml_tpu_torch.algorithms.fedgkt, fedml_tpu_torch.algorithms.fedseg\n"
         "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
+        "load_dataset('pascal_voc', num_clients=2)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -188,3 +188,20 @@ def test_unknown_names_raise(bad):
         FedOptAPI(ds, cfg.replace(server_optimizer=bad), device="cpu")
     assert FedOptAPI(ds, cfg.replace(client_optimizer="Adam", server_optimizer="YOGI"),
                      device="cpu").server_state["opt"]
+
+
+@pytest.mark.parametrize("momentum", [0.9, 0.5])
+def test_nesterov_sgd_matches_optax(momentum):
+    """``sgd(lr, momentum, nesterov=True)``: FedGKT's client and server rule
+    (``optax.sgd(lr, momentum=0.9, nesterov=True)``, fedml_tpu/algorithms/
+    fedgkt.py:66-75)."""
+    for jp, tp, _ in _run_both(optax.sgd(0.05, momentum=momentum, nesterov=True),
+                               optim.sgd(0.05, momentum, nesterov=True), seed=3):
+        _assert_close(jp, tp)
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_trace_matches_optax(nesterov):
+    for jp, tp, ts in _run_both(optax.trace(0.9, nesterov=nesterov),
+                                optim.trace(0.9, nesterov), seed=4):
+        _assert_close(jp, tp)
