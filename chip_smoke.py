@@ -211,12 +211,35 @@ Phases (any failure raises and the script exits non-zero):
    ``FedSegAPI`` round, and a CI-depth GKT round (lr 0.01) through K1/K2
    against the plain BN's within ``GKT_BN_GATE`` (client features, server
    logits).
+17. FedNAS, SplitNN and VFL, after phase 16. (a) The DARTS search at the
+   launcher's full width (channels 16, 8 layers, 4 steps, multiplier 4:
+   929 BatchNorms a forward, all through K1/K2 with ReLU off), f32, on 2
+   CIFAR-10-shaped clients of 2 batches of 64, both every round,
+   lr 0.025; first-order, then unrolled (the exact second-order
+   architect, through the BN wrapper's differentiable backward): round 0
+   with its capture, then 2 timed rounds (1 unrolled) ending in a sync;
+   real images/s, ``FEDNAS_LAUNCHES`` K1 + K2 and one replay a step, none in
+   the evaluation; peak memory; a one-step profile (first-order) or a replay's
+   CUDA-event time (unrolled). (a) and (b) run cuDNN's deterministic
+   algorithms. (b) In f32, on the full width at 3 layers
+   (``FEDNAS_GATE_SIZE``): one step of each architect captured against eager;
+   one search step of each architect through K1/K2 against the
+   plain BN (the alpha gradient, the weights and BN statistics, the
+   alphas, each within its ``FEDNAS_*_GATE``; a second plain BN's distance,
+   the TPU kernel's one-pass variance in plain PyTorch, reported beside it);
+   a one-rank NCCL
+   ``CrossSiloFedNASAPI`` round within 1e-5 of ``FedNASAPI``'s; K1/K2 at
+   ``DARTS_BN_SHAPES`` against their plain versions and, twice
+   differentiated, against the plain BN's second derivative
+   (``SECOND_ORDER_GATE``). (c) A SplitNN ring (split CNN, 2 clients) and a
+   VFL fit (the lending_club stand-in) on the card, with the one-rank
+   party-sharded VFL step against the fused one within 1e-5.
 
-Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15 and 16 is a replay of the step
+Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15, 16 and 17 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4f, 4d, 4e, 13, 14, 15 and 16 (in 4c the FedOpt-adam packed run and the client-adam plain
+but 4f, 4d, 4e, 13, 14, 15, 16 and 17 (in 4c the FedOpt-adam packed run and the client-adam plain
 run; 4d's and 4f's arms take their steps from the same trainers; 4e's are neither
 re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
@@ -1145,11 +1168,11 @@ HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLa
 NAMED_KERNELS = ("bn_fwd_onepass", "bn_bwd_onepass")
 
 
-def _profile(run, steps: int) -> dict:
+def _profile(run, steps: int, op_tables: bool = True) -> dict:
     """Profile one call of ``run`` (``steps`` training steps), then time an
     unprofiled call: per-step wall, device time by kernel family, busy share,
-    GPU activities, host launch calls, K1 and K2 by name, and the host
-    operators that launched the most device time."""
+    GPU activities, host launch calls, K1 and K2 by name, and (``op_tables``)
+    the host operators that launched the most device time."""
     import torch
     from torch.autograd import DeviceType
 
@@ -1172,7 +1195,8 @@ def _profile(run, steps: int) -> dict:
     total = sum(by_family.values())
     # the host-side operators that launched the most device time, and those
     # that took the most host time themselves
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    ops = ([e for e in prof.key_averages() if e.device_type == DeviceType.CPU] if op_tables
+           else [])
     top = sorted((e for e in ops if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)[:12]
     host = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]
@@ -4313,6 +4337,547 @@ def phase_train_gkt_seg(smi: str) -> dict:
     return out
 
 
+# -- phase 17: FedNAS, SplitNN, VFL ---------------------------------------------
+
+# the launcher's full-width DARTS search net (fedml_tpu/experiments/__init__.py:195-196)
+FEDNAS_SIZE = dict(channels=16, layers=8, steps=4, multiplier=4)
+FEDNAS_BNS = 929
+# K1 and K2 a search step at FEDNAS_SIZE (counted on the CPU from the wrapper
+# calls): first-order, the alpha step's forward and its backward to the
+# alphas (which reaches 829 of the BNs) and the weight step's forward and
+# backward; unrolled, the train half's forward, its create_graph backward, the
+# validation forward at the unrolled weights and its backward (through both
+# forwards' BNs), and the weight step's forward and backward
+FEDNAS_LAUNCHES = {False: {"bn_fwd": 2 * FEDNAS_BNS, "bn_bwd": 1758},
+                   True: {"bn_fwd": 3 * FEDNAS_BNS, "bn_bwd": 3616}}
+# CIFAR-10-shaped clients: 2 of 128 records (2 batches of 64), both every round
+FEDNAS_DATA = dict(num_clients=2, records_per_client=128, batch_size=64)
+# the gates' search net: the full width at 3 layers (one normal cell, two
+# reduction cells: every primitive at stride 1 and 2, 359 BNs)
+FEDNAS_GATE_SIZE = dict(FEDNAS_SIZE, layers=3)
+FEDNAS_LR = 0.025          # DARTS' weight learning rate
+# the f32 gates' bounds (relative norm): one search step through K1/K2 against
+# the plain BN. At uniform softmax weights the alpha gradient is a difference of
+# nearly equal op contributions: rounding-level changes of every BN move it by
+# up to ~1e-2 (two plain BNs, the two-pass variance and the TPU kernel's
+# one-pass one, read 1.5e-4 to 9.5e-3 apart on the card), and the alphas after
+# an Adam first step count its sign flips (3.6e-2 apart). Those two are held at
+# about 3x the largest plain-vs-plain distance seen, the weights and BN
+# statistics, well conditioned, at 1e-5.
+FEDNAS_GRAD_GATE = 3e-2    # the alpha gradient of each architect
+FEDNAS_STATE_GATE = 1e-5   # the weights and BN statistics after the step
+FEDNAS_ALPHA_GATE = 1e-1   # the alphas after the step
+SECOND_ORDER_GATE = 1e-4   # K1/K2 twice differentiated against the plain BN's
+# K1/K2 at the DARTS shapes not in CHECK_SHAPES: the stem (C = 48) at batch 64
+# and the unrolled architect's half batches at every width
+DARTS_BN_SHAPES = [(65536, 48), (32768, 48), (32768, 16), (8192, 32), (2048, 64)]
+
+
+def fednas_data(seed: int = SEED, **kw):
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+
+    d = {**FEDNAS_DATA, **kw}
+    return make_synthetic_classification("cifar10-shaped", (32, 32, 3), 10, d["num_clients"],
+                                         records_per_client=d["records_per_client"],
+                                         partition_method="homo", batch_size=d["batch_size"],
+                                         seed=seed)
+
+
+def fednas_api(ds, unrolled: bool, bn_impl: str = "pallas", size: Optional[dict] = None,
+               api_cls=None, capture: bool = True, **kw):
+    from fedml_tpu_torch.algorithms.fednas import FedNASAPI
+    from fedml_tpu_torch.core.config import FedConfig
+
+    cfg = FedConfig(model="darts", dataset="cifar10", client_num_in_total=ds.num_clients,
+                    client_num_per_round=ds.num_clients, comm_round=3,
+                    batch_size=FEDNAS_DATA["batch_size"],
+                    epochs=1, lr=FEDNAS_LR, unrolled=int(unrolled), seed=SEED,
+                    frequency_of_the_test=10_000)
+    return (api_cls or FedNASAPI)(ds, cfg, **(size or FEDNAS_SIZE), bn_impl=bn_impl,
+                                  capture=capture, **kw)
+
+
+def _fill_batch(api, client: int = 0, start: int = 0) -> None:
+    """The step program's static inputs: ``client``'s records from ``start``."""
+    import torch
+
+    prog = api.program()
+    bs = prog.inputs[0].shape[0]
+    for a, dst in zip((api.dataset.train_x, api.dataset.train_y, api.dataset.train_mask),
+                      prog.inputs):
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(a[client, start:start + bs])))
+
+
+def fednas_capture_gate(api, tag: str) -> dict:
+    """One search step on client 0's first batch from the global state,
+    captured against the eager body twice (``_capture_verdict``): weights,
+    BN statistics, alphas, both optimizers' states and the loss. Under
+    cuDNN's deterministic algorithms the eager steps repeat bit for bit, so
+    the captured step must too (cuDNN's default algorithms part two eager
+    full-width steps by ~8e-8)."""
+    import torch
+
+    prog = api.program()
+    replays, launches = prog.replays, dict(bn_counts())
+
+    def step(fn):
+        api._load(api.variables, api.alphas)
+        _fill_batch(api)
+        loss = fn()
+        torch.cuda.synchronize()
+        return {"loss": loss.detach().clone(),
+                **{f"state/{i}": t.detach().clone() for i, t in enumerate(prog.state())}}
+
+    captured = step(prog)
+    e1, e2 = step(lambda: prog.body(*prog.inputs)), step(lambda: prog.body(*prog.inputs))
+    prog.replays = replays
+    bn_counts().update(launches)
+    rec = _capture_verdict(tag, e1, e2, captured)
+    log(f"{tag} one search step, eager vs captured: {rec['verdict']} ({rec})")
+    return rec
+
+
+def fednas_arm(unrolled: bool, smi: str) -> dict:
+    """(a): the full-width search through K1/K2 (f32, bn_impl="pallas") on 2
+    CIFAR-10-shaped clients of 2 batches of 64, both every round. Round 0
+    with its capture, then 2 timed rounds (1 unrolled) ending in a sync:
+    real images/s, one replay and FEDNAS_LAUNCHES K1 + K2 a step, none in
+    the evaluation; peak memory; first-order, a one-step profile (busy
+    share, K1 + K2 device ms); unrolled, a replay's CUDA-event time.
+    Captured = eager is held in (b) (``fednas_step_capture_gate``)."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+    from fedml_tpu_torch.ops import conv_lanes as cl
+
+    tag = f"[train fednas/split/vfl (a) {'unrolled' if unrolled else 'first-order'}]"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = fednas_api(fednas_data(), unrolled)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if kernel_bns(api.module) != FEDNAS_BNS:
+        raise AssertionError(f"{tag} {kernel_bns(api.module)} kernel BNs, not {FEDNAS_BNS}")
+    bs = api.config.batch_size
+    steps = int(sum(-(-int(c) // bs) for c in api.dataset.train_counts))
+    t = time.perf_counter()
+    api.run_round(0)                                   # with the capture
+    torch.cuda.synchronize()
+    round0_s = time.perf_counter() - t
+    prog = api.program()
+    bn.reset_launches()
+    cl.reset_launches()
+    r0 = prog.replays
+    rounds = []
+    timed_rounds = (1,) if unrolled else (1, 2)
+    for r in timed_rounds:
+        t = time.perf_counter()
+        loss = float(api.run_round(r))
+        rounds.append({"round": r, "seconds": time.perf_counter() - t, "loss": loss})
+        if not np.isfinite(loss):
+            raise AssertionError(f"{tag} round {r}: loss {loss}")
+    log(f"{tag} round 0 with the capture {round0_s:.1f} s, then {rounds}")
+    trained = dict(bn.LAUNCHES)
+    n_steps = len(timed_rounds) * steps
+    want = {k: n_steps * v for k, v in FEDNAS_LAUNCHES[unrolled].items()}
+    per_step = dict(prog.launches_per_step[0]) if prog.launches_per_step else None
+    if trained != want or any(cl.LAUNCHES.values()) or prog.replays - r0 != n_steps:
+        raise AssertionError(f"{tag} launched {trained} (lanes {dict(cl.LAUNCHES)}), "
+                             f"{prog.replays - r0} replays over {len(timed_rounds)} round(s) of "
+                             f"{steps} steps; "
+                             f"expected {want}, one replay a step (the capture recorded "
+                             f"{per_step} a step)")
+    t = time.perf_counter()
+    sums = api.evaluate()
+    eval_s = time.perf_counter() - t
+    if dict(bn.LAUNCHES) != trained:
+        raise AssertionError(f"{tag} the evaluation launched BN kernels: {bn.LAUNCHES}")
+    acc = sums["correct"] / max(sums["count"], 1.0)
+    if not (np.isfinite(sums["loss_sum"]) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"{tag} evaluation {sums}")
+    peak = torch.cuda.max_memory_allocated()
+    from fedml_tpu_torch.models.darts import derive_genotype
+
+    genotype = derive_genotype(api.alphas, api.steps_cfg, api.multiplier)
+
+    def one_step():
+        _fill_batch(api, 1)
+        return float(prog())
+
+    t = time.perf_counter()
+    if unrolled:
+        # a replay's device time by CUDA events (a profile of its ~183k
+        # kernels costs ~25 s late in the script)
+        _fill_batch(api, 1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        prog()
+        end.record()
+        torch.cuda.synchronize()
+        profile = {"replay_event_ms": start.elapsed_time(end)}
+    else:
+        profile = _profile(one_step, 1, op_tables=False)
+    profile_s = time.perf_counter() - t
+    real = int(np.asarray(api.dataset.train_counts).sum())
+    train_s = sum(r["seconds"] for r in rounds)
+    out = {"unrolled": unrolled, "setup_s": setup_s, "round0_s": round0_s, "rounds": rounds,
+           "profile_s": profile_s,
+           "steps_per_round": steps, "real_images_per_round": real,
+           "real_images_per_s": len(rounds) * real / train_s,
+           "ms_per_step": train_s / (len(rounds) * steps) * 1e3,
+           "peak_memory_bytes": peak, "eval": {"Test/Acc": acc, **sums}, "eval_s": eval_s,
+           "genotype": [list(genotype.normal), list(genotype.reduce)],
+           "launches": trained, "launches_per_step": per_step,
+           "warmup_launches": prog.warmup_launches, "step_profile": profile}
+    if unrolled:
+        shown = f"a replay {profile['replay_event_ms']:.2f} ms of CUDA events"
+    else:
+        fam = profile["device_ms_per_step_by_family"]
+        log(f"{tag} a step's device ms by family {fam}")
+        shown = (f"a step {profile['device_ms_per_step']:.2f} ms of device, busy "
+                 f"{profile['device_busy_share']:.3f}, K1+K2 "
+                 f"{fam.get('bn kernels (K1/K2)', 0.0):.2f} ms, "
+                 f"{profile['gpu_activities_per_step']:.0f} GPU activities")
+    log(f"{tag} {steps} steps a round, {out['real_images_per_s']:.1f} real images/s over "
+        f"{len(rounds)} warm round(s) ({out['ms_per_step']:.1f} ms a step; round 0 with the "
+        f"capture {round0_s:.1f} s, the profile {profile_s:.1f} s), K1/K2 {per_step} a step, "
+        f"peak {peak / 2**30:.2f} GiB, Test/Acc {acc:.4f}; {shown}; {smi}")
+    del api, prog
+    return out
+
+
+def bn_fwd_onepass_plain(x2d, gamma, beta, eps: float = 1e-5, relu: bool = True):
+    """The plain forward with the TPU kernel's variance, E[x^2] - mean^2
+    clamped at 0 (``fedml_tpu/ops/batchnorm.py``'s), in place of the two-pass
+    one: another plain BN, the control of ``fednas_bn_gate``."""
+    import torch
+
+    x32 = x2d.to(torch.float32)
+    mean = x32.mean(0)
+    var = torch.clamp_min((x32 * x32).mean(0) - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    y = (x32 - mean) * rstd * gamma.to(torch.float32) + beta.to(torch.float32)
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(x2d.dtype), mean, rstd, var
+
+
+def fednas_step_capture_gate(unrolled: bool) -> dict:
+    """Captured = eager (``fednas_capture_gate``) for one search step of the
+    gates' net (FEDNAS_GATE_SIZE, through K1/K2); unrolled, the capture
+    holds the double backward, the BN wrapper's plain second-order vjp and
+    the depthwise convs' ``_GroupedConv`` backward."""
+    api = fednas_api(fednas_data(num_clients=1, records_per_client=64), unrolled,
+                     size=FEDNAS_GATE_SIZE)
+    _fill_batch(api)
+    api.program()()                                     # the capture
+    return fednas_capture_gate(
+        api, f"[fednas gate {'unrolled' if unrolled else 'first-order'} capture]")
+
+
+def fednas_bn_gate(unrolled: bool) -> dict:
+    """One search step of the gates' net through K1/K2 against the plain BN
+    from the same state and batch (f32): the architect's alpha gradient
+    before the step, then the weights, BN statistics and alphas after it,
+    relative norms within their FEDNAS_*_GATE. Reported beside it, a second
+    plain BN against the first: the wrapper with ``bn_fwd_onepass_plain``
+    (the TPU kernel's one-pass variance) and the plain backward, which
+    differ from the plain BN by rounding only."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    ds = fednas_data(num_clients=1, records_per_client=64)
+    apis = {b: fednas_api(ds, unrolled, bn_impl="xla" if b == "xla" else "pallas",
+                          size=FEDNAS_GATE_SIZE, capture=False)
+            for b in ("xla", "pallas", "onepass")}
+    plain = apis["xla"].variables
+    for b in ("pallas", "onepass"):
+        apis[b].variables = {k.replace("BatchNorm", "PallasBatchNorm"): v.clone()
+                             for k, v in plain.items()}
+        apis[b].alphas = {k: v.clone() for k, v in apis["xla"].alphas.items()}
+    got = {}
+    kernels = (bn.bn_fwd_cuda, bn.bn_bwd_cuda)
+    for b, api in apis.items():
+        if b == "onepass":
+            bn.bn_fwd_cuda, bn.bn_bwd_cuda = bn_fwd_onepass_plain, bn.bn_relu_bwd_plain
+        try:
+            api._load(api.variables, api.alphas)
+            _fill_batch(api)
+            grads = [g.detach().clone() for g in api._alpha_grads(*api.program().inputs)]
+            api._load(api.variables, api.alphas)
+            api.program()()
+            torch.cuda.synchronize()
+        finally:
+            bn.bn_fwd_cuda, bn.bn_bwd_cuda = kernels
+        state = {k.replace("PallasBatchNorm", "BatchNorm"): v.detach().clone()
+                 for k, v in api.module.state_dict().items()}
+        got[b] = (grads, state, [a.detach().clone() for a in api._alphas.values()])
+
+    def rel(a: list, b: list) -> float:
+        num = sum(float(((x.double() - y.double()) ** 2).sum()) for x, y in zip(a, b))
+        return (num / max(sum(float((y.double() ** 2).sum()) for y in b), 1e-300)) ** 0.5
+
+    def distances(b: str) -> dict:
+        (g, st, a), (gp, sp, ap) = got[b], got["xla"]
+        weights = [n for n in sp if not n.endswith((".mean", ".var"))]
+        stats = [n for n in sp if n.endswith((".mean", ".var"))]
+        return {"alpha_grad": rel(g, gp), "weights": rel([st[n] for n in weights],
+                                                         [sp[n] for n in weights]),
+                "bn_stats": rel([st[n] for n in stats], [sp[n] for n in stats]),
+                "alphas": rel(a, ap)}
+
+    control = distances("onepass")
+    bounds = {"alpha_grad": FEDNAS_GRAD_GATE, "alphas": FEDNAS_ALPHA_GATE,
+              "weights": FEDNAS_STATE_GATE, "bn_stats": FEDNAS_STATE_GATE}
+    rec = {"kernels": distances("pallas"), "control": control, "bounds": bounds,
+           "alpha_grad_scale": max(float(g.abs().max()) for g in got["xla"][0])}
+    tag = f"[fednas gate {'unrolled' if unrolled else 'first-order'}]"
+    log(f"{tag} K1/K2 against the plain BN {rec['kernels']}; the one-pass plain BN against "
+        f"it {control}; bounds {bounds}")
+    bad = {k: v for k, v in rec["kernels"].items() if not v <= bounds[k]}
+    if bad:
+        raise AssertionError(f"{tag} K1/K2 against the plain BN: {bad} above {bounds}")
+    return rec
+
+
+def darts_bn_checks() -> dict:
+    """K1/K2 at DARTS_BN_SHAPES (f32, relu off; the stem's C = 48 affine,
+    the others gamma = 1 / beta = 0) against their plain versions (phase
+    2's tolerances), and the BN twice differentiated through the kernels
+    (``fused_bn_relu`` on the card: K1, K2, then the plain vjp of the
+    backward) against the plain BN's (``models/norm._bn_plain``): the first
+    and the second derivative of ``sum(sin(y) * w)`` (its squared norm's
+    gradient), relative norm within SECOND_ORDER_GATE. These launches count
+    no path's."""
+    import torch
+
+    from fedml_tpu_torch.models.norm import _bn_plain
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    rng = np.random.default_rng(SEED + 17)
+    dev = torch.device("cuda")
+    launches = dict(bn.LAUNCHES)
+    tol = TOL["float32"]
+    out = []
+    for n, C in DARTS_BN_SHAPES:
+        x = torch.tensor((rng.normal(size=(n, C)) * 1.5 + 0.3).astype(np.float32), device=dev)
+        dy = torch.tensor(rng.normal(size=(n, C)).astype(np.float32), device=dev)
+        w = torch.tensor(rng.normal(size=(n, C)).astype(np.float32), device=dev)
+        if C == 48:
+            g = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
+            b = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
+        else:
+            g, b = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+        tag = f"[darts bn {n}x{C}]"
+        y_p, m_p, r_p, v_p = bn.bn_relu_fwd_plain(x, g, b, EPS, False)
+        y_k, m_k, r_k, v_k = bn.bn_fwd_cuda(x, g, b, EPS, False)
+        e_y = assert_close(f"K1 y {tag}", y_k, y_p, *tol["y"])
+        assert_close(f"K1 var {tag}", v_k, v_p, *tol["stat"])
+        dx_k, dg_k, db_k = bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, False)
+        dx_p, dg_p, db_p = bn.bn_relu_bwd_plain(x, y_p, dy, g, m_p, r_p, False)
+        e_dx = assert_close(f"K2 dx {tag}", dx_k, dx_p, *tol["dx"])
+        assert_close(f"K2 dgamma {tag}", dg_k, dg_p, *tol["dgb"])
+
+        def derivatives(fn):
+            xs = x.clone().requires_grad_(True)
+            (first,) = torch.autograd.grad((torch.sin(fn(xs)) * w).sum(), xs, create_graph=True)
+            (second,) = torch.autograd.grad((first * first).sum(), xs)
+            return first.detach(), second
+
+        f_k, s_k = derivatives(lambda xs: bn.fused_bn_relu(xs, g, b, EPS, False)[0])
+        f_p, s_p = derivatives(lambda xs: _bn_plain(xs, g, b, EPS, False, [1, -1])[0])
+        rec = {"shape": [n, C], "k1_y": e_y, "k2_dx": e_dx, "first": _rel(f_k, f_p),
+               "second": _rel(s_k, s_p), "second_scale": float(s_p.abs().max())}
+        if not (rec["first"] <= SECOND_ORDER_GATE and rec["second"] <= SECOND_ORDER_GATE):
+            raise AssertionError(f"{tag} the twice-differentiated kernels lie {rec} from the "
+                                 f"plain BN's, above {SECOND_ORDER_GATE}")
+        out.append(rec)
+        log(f"[check] {tag} f32 relu=False: K1 y {e_y:.3g}, K2 dx {e_dx:.3g}; first derivative "
+            f"{rec['first']:.3g}, second {rec['second']:.3g} (relative norm) of the plain BN's")
+    bn.LAUNCHES.update(launches)
+    return {"cases": out, "max_abs_err": {"bn_fwd": max(r["k1_y"] for r in out),
+                                          "bn_bwd": max(r["k2_dx"] for r in out)}}
+
+
+def fednas_nccl_gate() -> dict:
+    """A one-rank NCCL ``CrossSiloFedNASAPI`` round (the launcher's --ci
+    search net through K1/K2, f32, first-order, 4 clients) against
+    ``FedNASAPI``'s from the same state: variables and alphas within 1e-5
+    (relative norm)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.algorithms.fednas import CrossSiloFedNASAPI
+    from fedml_tpu_torch.parallel.mesh import client_mesh, init_multihost
+
+    size = dict(channels=4, layers=2, steps=2, multiplier=2)
+    ds = fednas_data(records_per_client=128)
+    sim = fednas_api(ds, False, size=size)
+    init = ({k: v.clone() for k, v in sim.variables.items()},
+            {k: v.clone() for k, v in sim.alphas.items()})
+    loss_sim = float(sim.run_round(0))
+    tmp = tempfile.mkdtemp(prefix="nccl-store-")
+    try:
+        init_multihost(f"file://{tmp}/store", 1, 0, timeout_s=120)
+        mesh = fednas_api(ds, False, size=size, api_cls=CrossSiloFedNASAPI, mesh=client_mesh())
+        if mesh.mesh.group is None or mesh.mesh.world_size != 1:
+            raise AssertionError(f"[fednas nccl] not a one-rank group: {mesh.mesh}")
+        mesh.variables, mesh.alphas = init
+        loss_mesh = float(mesh.run_round(0))
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    a = [*mesh.variables.values(), *mesh.alphas.values()]
+    b = [*sim.variables.values(), *sim.alphas.values()]
+    d = (sum(float(((x.double() - y.double()) ** 2).sum()) for x, y in zip(a, b))
+         / sum(float((y.double() ** 2).sum()) for y in b)) ** 0.5
+    if not d < 1e-5:
+        raise AssertionError(f"[fednas nccl] the NCCL CrossSiloFedNASAPI round lies {d} "
+                             f"(relative norm) from FedNASAPI's, above 1e-5")
+    return {"backend": backend, "relative_norm": d, "bit_identical": d == 0.0,
+            "losses": [loss_sim, loss_mesh]}
+
+
+def splitnn_arm(smi: str) -> dict:
+    """(c) SplitNN: ``create_split_cnn`` (features 32, hidden 128) on 2
+    CIFAR-10-shaped clients of 128 records, batch 64, lr 0.005, momentum
+    0.9 (at 0.02 the fresh lower stages on these images diverge for a
+    ring): a ring with the capture, then one timed ring ending in a sync:
+    real images/s, one replay a step, finite losses, the validation
+    accuracy through the last client's stage. No TPU kernel."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.split_nn import SplitNNAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.models.split import create_split_cnn
+
+    ds = fednas_data()
+    bs = FEDNAS_DATA["batch_size"]
+    cfg = FedConfig(dataset="cifar10", client_num_in_total=ds.num_clients,
+                    client_num_per_round=ds.num_clients, comm_round=2, batch_size=bs, epochs=1,
+                    lr=0.005, momentum=0.9, seed=SEED)
+    api = SplitNNAPI(ds, cfg, *create_split_cnn(10, (32, 32, 3)))
+    api.run_round(0)
+    prog = api._epoch.program
+    r0 = prog.replays
+    t = time.perf_counter()
+    losses = [float(v) for v in api.run_round(1)]
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t
+    acc = api._eval_client(ds.num_clients - 1)
+    steps = int(sum(-(-int(c) // bs) for c in ds.train_counts))
+    if prog.replays - r0 != steps or not np.isfinite(losses).all() or not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"[splitnn] {prog.replays - r0} replays for {steps} steps, losses "
+                             f"{losses}, val_acc {acc}")
+    real = int(np.asarray(ds.train_counts).sum())
+    out = {"steps": steps, "ring_s": ring_s, "real_images_per_s": real / ring_s,
+           "losses": losses, "val_acc": acc}
+    log(f"[train fednas/split/vfl (c) splitnn] a ring of {steps} steps "
+        f"{out['real_images_per_s']:.1f} real images/s, losses {losses}, val_acc {acc:.4f}; {smi}")
+    return out
+
+
+def vfl_arm(smi: str) -> dict:
+    """(c) VFL: ``VFLAPI`` (the fused step, captured) on the lending_club
+    table's synthetic stand-in (parties of 17 and 25 features, 512 rows),
+    hidden 16, lr 0.05, batch 64, 5 epochs: its record and steps/s; then the
+    party-sharded step on one rank (both parties on the card) against the
+    fused step from the same state over 4 batches, within 1e-5."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.vfl import VFLAPI, make_sharded_vfl_step, pad_party_params
+    from fedml_tpu_torch.data.vertical import load_vertical
+    from fedml_tpu_torch.parallel.mesh import client_mesh
+
+    vds = load_vertical("lending_club", str(ROOT / "no-such-dir"), seed=SEED)
+    api = VFLAPI(vds, hidden_dim=16, lr=0.05, batch_size=64, seed=SEED)
+    init = [{k: v.detach().clone() for k, v in p.items()} for p in api.params]
+    t = time.perf_counter()
+    last = api.fit(epochs=5, seed=SEED)
+    fit_s = time.perf_counter() - t
+    if not (np.isfinite(last["Train/Loss"]) and last["Test/Acc"] > 0.6):
+        raise AssertionError(f"[vfl] fit {last}")
+    steps = 5 * (len(vds.train_y) // 64)
+    # the sharded step against the fused one
+    fused = VFLAPI(vds, hidden_dim=16, lr=0.05, batch_size=64, seed=SEED)
+    with torch.no_grad():
+        for mine, theirs in zip(fused.params, init):
+            for k in mine:
+                mine[k].copy_(theirs[k])
+    params = pad_party_params(init, vds.party_dims)
+    step, tx = make_sharded_vfl_step(client_mesh(), lr=0.05)
+    opt = tx.init(list(params.values()))
+    d_max = max(vds.party_dims)
+    worst = 0.0
+    for s in range(4):
+        idx = np.arange(s * 64, s * 64 + 64)
+        xs = np.zeros((vds.num_parties, 64, d_max), np.float32)
+        for p in range(vds.num_parties):
+            xs[p, :, :vds.party_dims[p]] = vds.train_parts[p][idx]
+        y = torch.from_numpy(vds.train_y[idx]).cuda()
+        a = float(step(params, opt, torch.from_numpy(xs).cuda(), y))
+        b = float(fused.step([torch.from_numpy(p[idx]).cuda() for p in vds.train_parts], y))
+        worst = max(worst, abs(a - b))
+    want = pad_party_params([{k: v.detach() for k, v in p.items()} for p in fused.params],
+                            vds.party_dims)
+    worst_p = max(float((params[k] - want[k]).abs().max()) for k in want)
+    if not (worst <= 1e-5 and worst_p <= 1e-5):
+        raise AssertionError(f"[vfl] the one-rank sharded step lies {worst} (loss) / {worst_p} "
+                             "(parameters) from the fused step, above 1e-5")
+    out = {"dataset": vds.name, "record": last, "fit_s": fit_s, "steps": steps,
+           "steps_per_s": steps / fit_s, "sharded_vs_fused": {"loss": worst, "params": worst_p}}
+    log(f"[train fednas/split/vfl (c) vfl] {vds.name}: {steps} steps in {fit_s:.2f} s with 5 "
+        f"evaluations, Test/Acc {last['Test/Acc']:.4f}; one-rank sharded step vs fused: loss "
+        f"{worst:.3g}, parameters {worst_p:.3g}; {smi}")
+    return out
+
+
+def phase_train_fednas_split_vfl(smi: str) -> dict:
+    """Phase 17: the full-width FedNAS search through K1/K2, first-order (a)
+    and unrolled; the f32 gates (b), both under cuDNN's deterministic
+    algorithms; a SplitNN ring and a VFL fit (c)."""
+    import gc
+
+    import torch
+
+    out, launches = {"arms": {}}, {"bn_fwd": 0, "bn_bwd": 0}
+    # cuDNN's deterministic algorithms throughout: the captured-vs-eager and
+    # kernel-vs-plain gates then compare one algorithm's sums
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for unrolled in (False, True):
+            rec = out["arms"]["unrolled" if unrolled else "first_order"] = fednas_arm(unrolled,
+                                                                                      smi)
+            for k in launches:
+                launches[k] += rec["launches"][k]
+            gc.collect()
+            torch.cuda.empty_cache()
+        gates = {"first_order": fednas_bn_gate(False), "unrolled": fednas_bn_gate(True),
+                 "first_order_capture": fednas_step_capture_gate(False),
+                 "unrolled_capture": fednas_step_capture_gate(True), "nccl": fednas_nccl_gate()}
+        log(f"[fednas gates] f32 on the card: {gates}; {smi}")
+        out["darts_bn"] = darts_bn_checks()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out["f32_checks"] = gates
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["splitnn"] = splitnn_arm(smi)
+    out["vfl"] = vfl_arm(smi)
+    out["launches"] = launches
+    log("[train fednas/split/vfl] real images/s: " + ", ".join(
+        f"{k} {v['real_images_per_s']:.1f}" for k, v in out["arms"].items()) + f"; {smi}")
+    return out
+
+
 def attention_bound(b: int, h: int, tq: int, tk: int, d: int, causal: bool, elt: int = 2
                     ) -> tuple[float, float, int]:
     """(bytes, flops, live scores) of one K6 call at offsets 0: q, k, v
@@ -4763,6 +5328,9 @@ def main() -> int:
     robust = timed("train_robust", phase_train_robust, smi)
     zoo_gossip = timed("train_zoo_gossip", phase_train_zoo_gossip, smi)
     gkt_seg = timed("train_gkt_seg", phase_train_gkt_seg, smi)
+    fednas = timed("train_fednas_split_vfl", phase_train_fednas_split_vfl, smi)
+    for k, v in fednas["darts_bn"]["max_abs_err"].items():
+        err[k] = max(err[k], v)
     err.update(conv_err)
     err.update(lm_err)
 
@@ -4791,7 +5359,7 @@ def main() -> int:
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
             # lowering A/B's, the cross-silo arms' and the cross-device
             # flagship arms' timed rounds, phase 13's train() runs and the
-            # arms of phases 14, 15 and 16, each counted from 0 just before it
+            # arms of phases 14, 15, 16 and 17, each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -4801,7 +5369,8 @@ def main() -> int:
                        "train_loop": loop["launches"][name],
                        "robust_hier_silo": robust["launches"][name],
                        "zoo_gossip_stream_turbo": zoo_gossip["launches"][name],
-                       "gkt_seg": gkt_seg["launches"][name]}
+                       "gkt_seg": gkt_seg["launches"][name],
+                       "fednas_split_vfl": fednas["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -4888,7 +5457,7 @@ def main() -> int:
         "train": train, "train_packed": train_packed,
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
-        "train_gkt_seg": gkt_seg,
+        "train_gkt_seg": gkt_seg, "train_fednas_split_vfl": fednas,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

@@ -356,7 +356,6 @@ _OBS = "ROADMAP §1 item 12 (observability: tracing, pulse plane, health, fedlen
 #: field -> the ROADMAP item that ports its feature; set away from its
 #: default, each raises (check_ported)
 UNPORTED_FIELDS = {
-    "unrolled": "ROADMAP §1 item 9 (fednas)",
     **{name: _EDGE for name in (
         "backend", "rank", "world_size", "grpc_ipconfig_path", "grpc_base_port", "wire_codec",
         "wire_delta", "wire_reliable", "wire_retry_base_s", "wire_retry_max", "wire_inbox_cap",

@@ -42,15 +42,11 @@ PORTED = ("fedavg", "fedopt", "fedprox", "fednova", "fedagc", "centralized",
           "crosssilo_fedagc", "fedavg_robust", "crosssilo_fedavg_robust", "hierarchical",
           "crosssilo_hierarchical", "silo_fedavg", "silo_fedopt", "silo_fednova",
           "silo_fedagc", "decentralized", "crosssilo_decentralized", "streaming_fedavg",
-          "turboaggregate", "fedgkt", "fedseg", "crosssilo_fedseg")
+          "turboaggregate", "fedgkt", "fedseg", "crosssilo_fedseg", "fednas",
+          "crosssilo_fednas", "splitnn", "vfl")
 
-_ITEM9 = "ROADMAP §1 item 9 (the algorithm zoo)"
 #: algorithm -> the ROADMAP item that ports it
-UNPORTED = {
-    **{a: _ITEM9 for a in ALGORITHMS if a not in PORTED},
-    "vfl": "ROADMAP §1 items 9 and 10 (vfl, vertical loaders)",
-    "fedavg_edge": "ROADMAP §1 item 11 (edge runtimes)",
-}
+UNPORTED = {"fedavg_edge": "ROADMAP §1 item 11 (edge runtimes)"}
 
 
 def _bundle_for(config: FedConfig, ds):
@@ -135,7 +131,35 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
     }
     silo = {"silo_fedavg": FedAvgAPI, "silo_fedopt": FedOptAPI, "silo_fednova": FedNovaAPI,
             "silo_fedagc": FedAGCAPI}
+    if algorithm == "vfl":
+        # the vertical loaders (their synthetic table for any other name)
+        from fedml_tpu_torch.algorithms.vfl import VFLAPI
+        from fedml_tpu_torch.data.vertical import load_vertical
+
+        vds = load_vertical(config.dataset, config.data_dir, seed=config.seed)
+        result = VFLAPI(vds, lr=config.lr, batch_size=config.batch_size, seed=config.seed,
+                        device=device).fit(epochs=config.comm_round, seed=config.seed)
+        log.info("result %s", json.dumps(result))
+        return result
     ds = _load(config)
+    if algorithm in ("fednas", "crosssilo_fednas"):
+        from fedml_tpu_torch.algorithms.fednas import CrossSiloFedNASAPI, FedNASAPI
+
+        size = (dict(channels=4, layers=2, steps=2, multiplier=2) if config.ci
+                else dict(channels=16, layers=8, steps=4, multiplier=4))
+        cls = CrossSiloFedNASAPI if algorithm == "crosssilo_fednas" else FedNASAPI
+        result = cls(ds, config, **size, device=device).train()
+        log.info("result %s", {k: v for k, v in result.items() if k != "genotype"})
+        return result
+    if algorithm == "splitnn":
+        from fedml_tpu_torch.algorithms.split_nn import SplitNNAPI
+        from fedml_tpu_torch.models.split import create_split_cnn, create_split_mlp
+
+        make = create_split_cnn if ds.train_x.ndim == 5 else create_split_mlp   # [C, n, H, W, ch]
+        cb, sb = make(ds.class_num, input_shape=ds.train_x.shape[2:])
+        result = SplitNNAPI(ds, config, cb, sb, device=device).train()
+        log.info("result %s", json.dumps({k: v[-1] for k, v in result.items() if v}))
+        return result
     if algorithm == "fedgkt":
         # the JAX launcher's: the pair from --model_client/--model_server,
         # blocks (1, 2) under --ci; the model flag is not read

@@ -1,0 +1,9 @@
+"""Thin alias of the unified launcher (the reference's one main per
+algorithm): equivalent to ``--algorithm splitnn``."""
+
+import sys
+
+from fedml_tpu_torch.experiments.run import main
+
+if __name__ == "__main__":
+    main(sys.argv[1:], default_algorithm="splitnn")

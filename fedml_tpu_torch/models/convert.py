@@ -11,6 +11,13 @@ flat, keyed by the same module path joined with dots. The map is:
   ``var`` in batch_stats)  <->  the tensor of the same name. The BN
   modules are ``BatchNorm_i`` or ``PallasBatchNorm_i``.
 
+A depthwise conv's kernel (HWIO ``[k, k, 1, C]``, DARTS) maps like any
+conv's, to ``[C, 1, k, k]``. An affine-free BN (flax ``use_scale=False,
+use_bias=False``) has no ``scale``/``bias`` leaves, and the port's
+``PallasBatchNorm(affine=False)`` keeps them out of its state dict. DARTS'
+architecture weights are no flax variables: :func:`alphas_to_torch` /
+:func:`alphas_to_flax` carry them.
+
 Both directions only transpose, so a round trip is bit-exact.
 
 ``stacked=True`` maps a tree whose every leaf carries a leading stack axis
@@ -91,7 +98,7 @@ def torch_to_flax(state: dict, bn_name: Optional[str] = None, stacked: bool = Fa
         node = out[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[name] = np.ascontiguousarray(a)
+        node[name] = np.array(a, order="C")      # a copy: no view of the tensor
     if not out["batch_stats"]:
         del out["batch_stats"]
     return out
@@ -112,3 +119,13 @@ def flax_leaf_order(state: dict) -> list:
     flax variables they map to (every dict level by sorted key), so a leaf's
     position here is its index in the JAX package's flattened tree."""
     return sorted(state, key=lambda k: flax_path(k, state[k].dim()))
+
+
+def alphas_to_torch(alphas: dict) -> dict:
+    """DARTS alphas (``{"normal", "reduce"}`` arrays ``[k, 8]``) as tensors."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in alphas.items()}
+
+
+def alphas_to_flax(alphas: dict) -> dict:
+    """The port's alphas as numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in alphas.items()}

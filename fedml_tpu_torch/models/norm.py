@@ -8,6 +8,11 @@ batch`` with momentum ``m = 0.9`` and the BIASED batch variance.
 ``torch.nn.BatchNorm2d`` is not a drop-in: it blends the unbiased variance,
 and its ``momentum`` weights the other side of the blend.
 
+``affine=False`` is flax ``nn.BatchNorm(use_scale=False, use_bias=False)``
+(DARTS): ``scale`` = 1 and ``bias`` = 0 are non-persistent buffers, so
+they are in no parameter list and no state dict, as flax has no such
+leaves.
+
 ``axis=1`` is flax ``nn.BatchNorm(axis=1)`` on the lanes layout
 ``[N, C, H*W]`` (``conv_impl="lanes"``): statistics over (N, H*W), the
 same numerics, plain PyTorch only (the JAX package runs no BN kernel on
@@ -24,7 +29,8 @@ from fedml_tpu_torch.ops.batchnorm import fused_bn_relu
 
 class PallasBatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5,
-                 fuse_relu: bool = False, use_kernel: bool = True, axis: int = -1):
+                 fuse_relu: bool = False, use_kernel: bool = True, axis: int = -1,
+                 affine: bool = True):
         super().__init__()
         if axis not in (-1, 1) or (axis == 1 and use_kernel):
             raise ValueError(f"axis must be -1, or 1 without the kernel; got axis={axis}, "
@@ -34,8 +40,12 @@ class PallasBatchNorm(nn.Module):
         self.epsilon = epsilon
         self.fuse_relu = fuse_relu
         self.use_kernel = use_kernel
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        if affine:
+            self.scale = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_buffer("scale", torch.ones(features), persistent=False)
+            self.register_buffer("bias", torch.zeros(features), persistent=False)
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 

@@ -219,26 +219,72 @@ def bn_bwd_cuda(x2d, y, dy, gamma, mean, rstd, relu: bool = True):
     return dx, dgamma, dbeta
 
 
-# -- the autograd op --------------------------------------------------------
+# -- the autograd ops -------------------------------------------------------
+
+def _bn_relu_bwd_graph(x2d, y, dy, gamma, eps: float, relu: bool):
+    """The closed-form backward as a differentiable function of ``x2d``,
+    ``dy`` and ``gamma``: ``bn_relu_bwd_plain`` with ``mean``/``rstd``
+    recomputed from ``x2d`` (the forward's saved ones are constants to
+    autograd). The ReLU mask ``y > 0`` is piecewise constant, as in JAX's
+    autodiff of flax BN."""
+    x32 = x2d.to(torch.float32)
+    mean = x32.mean(0)
+    xc = x32 - mean
+    return bn_relu_bwd_plain(x2d, y, dy, gamma, mean, torch.rsqrt((xc * xc).mean(0) + eps), relu)
+
+
+class BNReLUBackward(torch.autograd.Function):
+    """K2 (or its plain version for CPU tensors) as a function of
+    ``(x2d, dy, gamma)``, so a gradient taken with ``create_graph=True``
+    can be differentiated again. Its own backward, the vjp of the BN
+    backward, is plain PyTorch on :func:`_bn_relu_bwd_graph`: JAX's
+    counterpart is XLA's autodiff of flax BN, no Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, x2d, y, dy, gamma, mean, rstd, eps, relu):
+        bwd = bn_bwd_cuda if dy.is_cuda else bn_relu_bwd_plain
+        dx, dgamma, dbeta = bwd(x2d, y, dy, gamma, mean, rstd, relu)
+        ctx.save_for_backward(x2d, y, dy, gamma)
+        ctx.eps, ctx.relu = eps, relu
+        return dx, dgamma, dbeta
+
+    @staticmethod
+    def backward(ctx, ddx, ddgamma, ddbeta):
+        x2d, y, dy, gamma = ctx.saved_tensors
+        want = (ctx.needs_input_grad[0], ctx.needs_input_grad[2], ctx.needs_input_grad[3])
+        leaves = [t.detach().requires_grad_(w) for t, w in zip((x2d, dy, gamma), want)]
+        with torch.enable_grad():
+            outs = _bn_relu_bwd_graph(leaves[0], y.detach(), leaves[1], leaves[2], ctx.eps,
+                                      ctx.relu)
+            pairs = [(o, g) for o, g in zip(outs, (ddx, ddgamma, ddbeta))
+                     if g is not None and o.requires_grad]
+            wrt = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], wrt,
+                                             [g for _, g in pairs], allow_unused=True)
+                         if pairs and wrt else [None] * len(wrt))
+        gx, gdy, ggamma = (next(grads) if w else None for w in want)
+        return gx, None, gdy, ggamma, None, None, None, None
+
 
 class FusedBNReLU(torch.autograd.Function):
     """BN(+ReLU) over the rows of [n, C] whose backward is K2 (or its plain
-    version for CPU tensors)."""
+    version for CPU tensors), through :class:`BNReLUBackward`, so it is
+    twice differentiable."""
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, eps, relu):
         fwd = bn_fwd_cuda if x2d.is_cuda else bn_relu_fwd_plain
         y, mean, rstd, var = fwd(x2d, gamma, beta, eps, relu)
         ctx.save_for_backward(x2d, y, gamma, mean, rstd)
-        ctx.relu = relu
+        ctx.eps, ctx.relu = eps, relu
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x2d, y, gamma, mean, rstd = ctx.saved_tensors
-        bwd = bn_bwd_cuda if dy.is_cuda else bn_relu_bwd_plain
-        dx, dgamma, dbeta = bwd(x2d, y, dy.contiguous(), gamma, mean, rstd, ctx.relu)
+        dx, dgamma, dbeta = BNReLUBackward.apply(x2d, y, dy.contiguous(), gamma, mean, rstd,
+                                                 ctx.eps, ctx.relu)
         return dx, dgamma, dbeta, None, None
 
 
@@ -246,7 +292,8 @@ def fused_bn_relu(x, gamma, beta, eps: float = 1e-5, relu: bool = True):
     """Train-mode BN(+ReLU) over all leading axes of ``x`` (channels last).
 
     Returns ``(y, mean, var)``: ``y`` in ``x.dtype``; ``mean``/``var`` the
-    BIASED f32 batch statistics, which carry no gradient."""
+    BIASED f32 batch statistics, which carry no gradient. Twice
+    differentiable: the first backward is K2, the second plain PyTorch."""
     C = x.shape[-1]
     y, mean, var = FusedBNReLU.apply(x.reshape(-1, C), gamma, beta, float(eps), bool(relu))
     return y.reshape(x.shape), mean, var

@@ -7,7 +7,8 @@ A :class:`CapturedStep` owns a step body's static input tensors. The
 caller writes a step's batch into them and calls the step, which returns
 the body's output. On CUDA tensors the first call
 
-1. runs ``WARMUP_STEPS`` steps of the body on a side stream, which primes
+1. runs ``WARMUP_STEPS`` steps of the body (or the step's
+   ``warmup_steps``) on a side stream, which primes
    what the body does once and may not do under capture: the kernels'
    libraries (``ops/build.py``), the BN kernels' launch plans and
    shared-memory limits (``ops/batchnorm._plan``), the grid-barrier words
@@ -84,11 +85,15 @@ def _delta(after: list[dict], before: list[dict]) -> list[dict]:
 class CapturedStep:
     """``body(*inputs) -> output`` over static ``inputs``, captured once on
     CUDA and replayed on every call (see the module note). ``state()``
-    returns every tensor the body mutates."""
+    returns every tensor the body mutates. ``warmup_steps`` eager steps run
+    before the capture: one already primes every plan and library the body
+    uses; a step of ~10^5 launches takes seconds eagerly."""
 
     def __init__(self, body: Callable, inputs: Sequence[torch.Tensor],
-                 state: Callable[[], list], capture: bool = True):
+                 state: Callable[[], list], capture: bool = True,
+                 warmup_steps: int = WARMUP_STEPS):
         self.body = body
+        self.warmup_steps = warmup_steps
         self.inputs = list(inputs)
         self.state = state
         self.capture = capture
@@ -123,7 +128,7 @@ class CapturedStep:
         stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            for _ in range(WARMUP_STEPS):
+            for _ in range(self.warmup_steps):
                 self.body(*self.inputs)
             with torch.no_grad():
                 for t, v in zip(self.state(), saved):

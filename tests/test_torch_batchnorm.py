@@ -17,7 +17,7 @@ import torch
 from fedml_tpu.models.norm import PallasBatchNorm as JaxPallasBatchNorm
 from fedml_tpu.ops import batchnorm as jbn
 from fedml_tpu.ops.batchnorm import fused_bn_relu as jax_fused_bn_relu
-from fedml_tpu_torch.models.norm import PallasBatchNorm
+from fedml_tpu_torch.models.norm import PallasBatchNorm, _bn_plain
 from fedml_tpu_torch.ops import batchnorm as tbn
 
 # the first two shapes tile, so the JAX side really runs the Pallas kernel;
@@ -159,6 +159,68 @@ def test_norm_module_running_stats_match_pallas_batchnorm(fuse_relu):
     ev_j = JaxPallasBatchNorm(use_running_average=True, fuse_relu=fuse_relu).apply(variables, x)
     ev_t = mod_t.eval()(torch.tensor(x))
     np.testing.assert_allclose(ev_t.detach().numpy(), np.asarray(ev_j), atol=2e-5)
+
+
+def _second_derivatives(bn, x, g, b, affine):
+    """The first derivative of ``sum(sin(bn(x)) * w)`` and the gradient of
+    its squared norm, by x (and gamma when affine): the upstream gradient
+    cos(y) * w depends on x, so the second pass runs through the BN
+    backward's dy as well as its x and gamma."""
+    w = np.random.default_rng(7).normal(size=x.shape).astype(np.float32)
+    xt = torch.tensor(x, requires_grad=True)
+    gt = torch.tensor(g, requires_grad=affine)
+    wrt = [xt, gt] if affine else [xt]
+    first = torch.autograd.grad((torch.sin(bn(xt, gt, torch.tensor(b))) * torch.tensor(w)).sum(),
+                                wrt, create_graph=True)
+    second = torch.autograd.grad(sum((t * t).sum() for t in first), wrt)
+    return [t.detach().numpy() for t in first], [t.numpy() for t in second], w
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("affine", [False, True])
+def test_second_derivative_matches_plain_bn_and_jax(relu, affine):
+    """A gradient of a gradient through ``fused_bn_relu`` (the CPU plain
+    branch; K1/K2 are held to it on the card) equals the plain BN's
+    (``models/norm._bn_plain``) and ``jax.grad`` of a ``jax.grad`` through
+    flax ``nn.BatchNorm`` (+ ``nn.relu``), f32, [64, 8], affine or
+    gamma = 1 / beta = 0: rtol 1e-4 / atol 1e-4 on second derivatives of
+    scale ~10-200; the first derivative at the first-order tolerance,
+    rtol 1e-5 / atol 1e-5. Before the BN backward was itself
+    differentiable, the second derivative missed by 8.44 on a scale of
+    8.42."""
+    import flax.linen as fnn
+
+    x, g, b = _inputs((64, 8), seed=11)
+    if not affine:
+        g, b = np.ones_like(g), np.zeros_like(b)
+    first_t, second_t, w = _second_derivatives(
+        lambda x, g, b: tbn.fused_bn_relu(x, g, b, 1e-5, relu)[0], x, g, b, affine)
+    first_p, second_p, _ = _second_derivatives(
+        lambda x, g, b: _bn_plain(x, g, b, 1e-5, relu, [1, -1])[0], x, g, b, affine)
+
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5,
+                       use_scale=affine, use_bias=affine)
+    variables = bn.init(jax.random.key(0), x)
+
+    def f(xg):
+        params = {"scale": xg[1], "bias": jnp.asarray(b)} if affine else {}
+        y, _ = bn.apply({**variables, "params": params}, xg[0], mutable=["batch_stats"])
+        y = fnn.relu(y) if relu else y
+        return jnp.sum(jnp.sin(y) * w)
+
+    def sq(xg):
+        gr = jax.grad(f)(xg)
+        return sum(jnp.sum(t * t) for t in gr[:1 + affine])
+
+    xg = (jnp.asarray(x), jnp.asarray(g))
+    first_j = jax.grad(f)(xg)[:1 + affine]
+    second_j = jax.grad(sq)(xg)[:1 + affine]
+    for got, plain, want in zip(first_t, first_p, first_j):
+        np.testing.assert_allclose(got, plain, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+    for got, plain, want in zip(second_t, second_p, second_j):
+        np.testing.assert_allclose(got, plain, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

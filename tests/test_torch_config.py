@@ -33,7 +33,7 @@ BASE = dict(model="lr", dataset="tiny", client_num_in_total=4, client_num_per_ro
 #: a value away from the default for each unported field, with the fields it
 #: needs to pass the JAX package's own checks
 NON_DEFAULT = {
-    "unrolled": {"unrolled": 1}, "backend": {"backend": "grpc"}, "rank": {"rank": 1, "world_size": 2},
+    "backend": {"backend": "grpc"}, "rank": {"rank": 1, "world_size": 2},
     "world_size": {"world_size": 2}, "grpc_ipconfig_path": {"grpc_ipconfig_path": "ip.csv"},
     "grpc_base_port": {"grpc_base_port": 50100}, "wire_codec": {"wire_codec": "q8"},
     "wire_delta": {"wire_delta": True}, "wire_reliable": {"wire_reliable": True},
@@ -158,11 +158,19 @@ def test_unported_field_raises_at_construction(field):
 
 
 def test_other_entry_points_check_too():
-    cfg = FedConfig(**BASE, unrolled=1)
+    cfg = FedConfig(**BASE, rounds_per_step=2)
     for build in (lambda: CrossSiloFedAvgAPI(_ds(), cfg, device="cpu"),
                   lambda: CentralizedTrainer(_ds(), cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="unrolled"):
+        with pytest.raises(NotImplementedError, match="rounds_per_step"):
             build()
+
+
+def test_unrolled_is_live():
+    """FedNAS's ``unrolled`` is ported: no entry point refuses it (only
+    FedNAS reads it, as in the JAX package)."""
+    cfg = FedConfig(**BASE, unrolled=1)
+    assert "unrolled" not in UNPORTED_FIELDS and unported_fields(cfg) == {}
+    FedAvgAPI(_ds(), cfg, device="cpu")
 
 
 def test_xla_only_fields_are_accepted_and_change_nothing():

@@ -61,7 +61,11 @@ def test_new_modules_are_covered():
                 "experiments/main_streaming_fedavg.py", "experiments/main_turboaggregate.py",
                 "models/gkt.py", "models/segmentation.py", "algorithms/fedgkt.py",
                 "algorithms/fedseg.py", "data/segmentation.py", "experiments/main_fedgkt.py",
-                "experiments/main_fedseg.py", "experiments/main_crosssilo_fedseg.py"):
+                "experiments/main_fedseg.py", "experiments/main_crosssilo_fedseg.py",
+                "models/darts.py", "algorithms/fednas.py", "models/split.py",
+                "algorithms/split_nn.py", "data/vertical.py", "algorithms/vfl.py",
+                "experiments/main_fednas.py", "experiments/main_crosssilo_fednas.py",
+                "experiments/main_splitnn.py", "experiments/main_vfl.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
@@ -77,6 +81,9 @@ def test_the_launcher_loads_no_jax_at_run_time():
         "import fedml_tpu_torch.algorithms.streaming_fedavg\n"
         "import fedml_tpu_torch.algorithms.turboaggregate\n"
         "import fedml_tpu_torch.algorithms.fedgkt, fedml_tpu_torch.algorithms.fedseg\n"
+        "import fedml_tpu_torch.algorithms.fednas, fedml_tpu_torch.algorithms.split_nn\n"
+        "import fedml_tpu_torch.algorithms.vfl, fedml_tpu_torch.data.vertical\n"
+        "fedml_tpu_torch.data.vertical.load_vertical('lending_club', 'no-such-dir')\n"
         "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
         "load_dataset('pascal_voc', num_clients=2)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"

@@ -4,7 +4,7 @@
   ``--ci 1`` and prints the last-line JSON (FedGKT and FedSeg on image
   stand-ins); ``--result_json`` writes the full dict; each ported name
   reaches its class (the gossip, streaming and TurboAggregate names checked
-  one by one), ``UNPORTED`` names exactly the 5 algorithms still to port,
+  one by one), ``UNPORTED`` names exactly the one algorithm still to port,
   an unported algorithm raises ``NotImplementedError`` naming its ROADMAP
   item, an unknown one ``KeyError``, ``--rank`` ``ValueError`` (as the JAX
   launcher does); each ported algorithm has its ``main_*`` alias,
@@ -69,6 +69,11 @@ IMAGE_ARGS = {
                "--client_num_per_round 2 --batch_size 8 --lr 0.05 --ci 1").split(),
 }
 IMAGE_ARGS["crosssilo_fedseg"] = IMAGE_ARGS["fedseg"]
+# FedNAS's search net at the launcher's --ci size, first-order, on the
+# FEMNIST stand-in (28 x 28 x 1, 30 records a client: one step a client)
+IMAGE_ARGS["fednas"] = IMAGE_ARGS["crosssilo_fednas"] = (
+    "--dataset femnist --client_num_in_total 2 --client_num_per_round 2 --batch_size 32 "
+    "--lr 0.05 --ci 1").split()
 
 
 @pytest.fixture
@@ -93,6 +98,18 @@ def test_main_runs_each_ported_algorithm(algorithm, capsys, request):
         assert result["round"] == last["round"] == 1 and np.isfinite(last["Train/ServerLoss"])
         assert np.isfinite(last["Test/Loss"]) and 0.0 <= last["Test/Acc"] <= 1.0
         return
+    if algorithm.endswith("fednas"):       # FedNASAPI's last evaluation, with its genotype
+        assert result["round"] == last["round"] == 1 and np.isfinite(last["Train/Loss"])
+        assert 0.0 <= last["Test/Acc"] <= 1.0 and len(result["genotype"].normal) == 4
+        return
+    if algorithm == "splitnn":             # the ring's history: 6 client epochs, 2 validations
+        assert len(result["epoch_loss"]) == 2 * 6 and len(result["val_acc"]) == 2
+        assert np.isfinite(last["epoch_loss"]) and 0.0 <= last["val_acc"] <= 1.0
+        return
+    if algorithm == "vfl":                 # the fused fit's last epoch on the synthetic table
+        assert result["epoch"] == last["epoch"] == 1 and np.isfinite(last["Train/Loss"])
+        assert 0.0 <= last["Test/Acc"] <= 1.0
+        return
     assert result["round"] == [0, 1] and last["round"] == 1       # --ci: 2 rounds
     if algorithm.startswith("silo_"):      # SiloRunner's history (the JAX package's keys)
         assert np.isfinite(last["GLOBAL/Test/Loss"]) and 0.0 <= last["GLOBAL/Test/Acc"] <= 1.0
@@ -115,7 +132,7 @@ def test_result_json_holds_the_full_history(tmp_path, capsys):
 
 
 def test_unported_names_are_the_remaining_eight():
-    assert sorted(UNPORTED) == ["crosssilo_fednas", "fedavg_edge", "fednas", "splitnn", "vfl"]
+    assert sorted(UNPORTED) == ["fedavg_edge"]
 
 
 @pytest.mark.parametrize("algorithm, module, cls", [
@@ -254,8 +271,8 @@ def test_unknown_algorithm_rank_and_class_num():
         run_experiment(FedConfig(rank=1, world_size=3), "fedavg", device="cpu")
     with pytest.raises(ValueError, match="class_num"):
         run_experiment(FedConfig(dataset="synthetic_1_1", class_num=3), "fedavg", device="cpu")
-    with pytest.raises(NotImplementedError, match="unrolled"):
-        main(SMALL + ["--unrolled", "1"], device="cpu")
+    with pytest.raises(NotImplementedError, match="rounds_per_step"):
+        main(SMALL + ["--rounds_per_step", "2"], device="cpu")
 
 
 @pytest.mark.parametrize("algorithm", PORTED)

@@ -417,4 +417,4 @@ def test_check_ported_accepts_this_slices_fields():
     cfg = FedConfig(norm_bound=1.0, stddev=0.1, poison_frac=0.1, group_num=2,
                     group_comm_round=2, attack_type="edge_case")
     assert unported_fields(cfg) == {}
-    assert "unrolled" in unported_fields(FedConfig(unrolled=1))
+    assert "rounds_per_step" in unported_fields(FedConfig(rounds_per_step=2))
