@@ -235,11 +235,37 @@ Phases (any failure raises and the script exits non-zero):
    VFL fit (the lending_club stand-in) on the card, with the one-rank
    party-sharded VFL step against the fused one within 1e-5.
 
-Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15, 16 and 17 is a replay of the step
+18. The BN zoo, dropout and the FedML baselines, after phase 17. (a) bf16
+   through K1/K2 on CIFAR-10-shaped non-IID synthetic clients (4 of 2
+   batches of 64, all every round, lr 0.1, momentum 0.9): ``mobilenet``,
+   ``mobilenet_v3`` (small), ``vgg16``, ``efficientnet-b0`` and
+   ``resnet56_w128`` each round 0 with its capture, then 2 timed rounds
+   ending in a sync: real images/s, ``ZOO_BNS`` K1 + K2 and one replay a
+   step, none in the evaluation, peak memory, a one-step profile (busy
+   share, K1 + K2 ms); every other ``ZOO_BNS`` name (``efficientnet-b7``:
+   K1/K2 at C = 3840) one captured step, its launches and a finite loss.
+   (b) In f32: K1/K2 against their plain versions at C = 1152 .. 3840
+   (``WIDE_BN_SHAPES``, and ``WIDE_REREAD_SHAPES`` past the on-chip rows)
+   and at every [rows, C] of the zoo's K1 calls at batch 64 (recorded in
+   (a); the timed arms' equal ``ZOO_BN_SHAPES``), f32 and bf16, ReLU on and
+   off, bit-identical over two calls; the gradients and BN statistics'
+   update of one batch of ``ZOO_STEP_NAMES`` through K1/K2 against the
+   plain BN's within ``ZOO_GRAD_GATE``, which the bf16-rounded plain BN
+   must exceed (the plain BN again and the one-pass one beside); captured = eager
+   with dropout on (``cnn_dropout``, ``efficientnet-b0``) over 3 replays
+   under 3 keys, the replayed masks equal to the eager ones and different
+   from each other; the packed ``cnn_dropout`` round (2 lanes, off and
+   blockdiag) lane by lane against its clients' plain training within
+   ``DROPOUT_PACKED_TOL``. (c) FedML's baselines a round each
+   (``BASELINES``): ``resnet18_gn`` on fed_cifar100, ``rnn`` on
+   shakespeare, ``rnn_stackoverflow`` on stackoverflow_nwp, ``lr`` on
+   stackoverflow_lr and ``cnn_dropout`` on femnist packed in 2 lanes.
+
+Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15, 16, 17 and 18 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
-but 4f, 4d, 4e, 13, 14, 15, 16 and 17 (in 4c the FedOpt-adam packed run and the client-adam plain
+but 4f, 4d, 4e, 13, 14, 15, 16, 17 and 18 (in 4c the FedOpt-adam packed run and the client-adam plain
 run; 4d's and 4f's arms take their steps from the same trainers; 4e's are neither
 re-run eagerly nor profiled) then runs
 one client's first 12 live steps (or one packed cohort) through the eager
@@ -332,6 +358,11 @@ K1_REREAD_SHAPES = {REREAD_SHAPE, K2_PLAN_ORDER[0]}
 K1_SHAPES = [*CHECK_SHAPES, *SCALAR_SHAPES, *K2_PLAN_ORDER, REREAD_SHAPE]
 BN_CHECK_SHAPES = [*CHECK_SHAPES, (1, 16), (200, 64), (1000, 300), (37, 7), *SCALAR_SHAPES,
                    *K2_PLAN_ORDER, REREAD_SHAPE]
+# Phase 18: K1/K2 past C = 1024 (EfficientNet's widths: b0's 1152 and
+# 1280, b2's 2112, b7's 2560 and 3840) at the zoo's row counts (batch 64 at
+# 1x1, 4 at 2x2), and two shapes past the on-chip rows at C > 1024
+WIDE_BN_SHAPES = [(64, 1152), (256, 1152), (64, 1280), (64, 2112), (64, 2560), (64, 3840)]
+WIDE_REREAD_SHAPES = [(8192, 2112), (2048, 3840)]
 # ResNet-56 on the BN kernels at this batch: its C = 32 and C = 16 layers
 # keep a block's full budget of rows on chip, at two sizes of shared memory
 BN_BIG_BATCH = 512
@@ -646,6 +677,97 @@ def phase_build():
     return {"seconds": total, "per_source": {k: v["seconds"] for k, v in info.items()}}
 
 
+def check_bn_shape(rng, n: int, C: int, with_k1: bool, k1_reread: bool, k2_reread: bool,
+                   err: dict, cases: list, verbose: bool = True) -> None:
+    """K1 (when ``with_k1``) and K2 against their plain versions at one [n, C]
+    shape, f32 and bf16, ReLU on and off, each bit-identical over two calls;
+    ``k1_reread`` / ``k2_reread``: the shape must exceed that kernel's
+    on-chip rows. Adds the worst errors to ``err`` and a record a case to
+    ``cases``, and logs each case when ``verbose``."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    dev = torch.device("cuda")
+    x_np = (rng.normal(size=(n, C)) * 1.5 + 0.3).astype(np.float32)
+    dy_np = rng.normal(size=(n, C)).astype(np.float32)
+    g = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
+    b = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype).split(".")[1]]
+        x = torch.tensor(x_np, device=dev).to(dtype)
+        dy = torch.tensor(dy_np, device=dev).to(dtype)
+        for relu in (True, False):
+            tag = f"[{n}x{C} {str(dtype).split('.')[1]} relu={relu}]"
+            y_p, m_p, r_p, v_p = bn.bn_relu_fwd_plain(x, g, b, EPS, relu)
+            e_y = fplan = None
+            if with_k1:
+                got = bn.bn_fwd_cuda(x, g, b, EPS, relu)
+                _same_bits(f"K1 {tag}", got, bn.bn_fwd_cuda(x, g, b, EPS, relu))
+                y_k, m_k, r_k, v_k = got
+                e_y = assert_close(f"K1 y {tag}", y_k, y_p, *tol["y"])
+                assert_close(f"K1 mean {tag}", m_k, m_p, *tol["stat"])
+                assert_close(f"K1 var {tag}", v_k, v_p, *tol["stat"])
+                assert_close(f"K1 rstd {tag}", r_k, r_p, *tol["stat"])
+                if y_k.dtype != x.dtype:
+                    raise AssertionError(f"K1 y dtype {y_k.dtype} != {x.dtype}")
+                err["bn_fwd"] = max(err["bn_fwd"], e_y)
+                fplan = bn.fwd_plan(x)
+                if k1_reread and not fplan["rows_per_block"] > fplan["cap"]:
+                    raise AssertionError(f"K1 {tag} was meant to exceed the on-chip rows: "
+                                         f"{fplan}")
+            # K2 on the plain forward's outputs, so only the backward differs
+            dx_k, dg_k, db_k = bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, relu)
+            _same_bits(f"K2 {tag}", (dx_k, dg_k, db_k),
+                       bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, relu))
+            dx_p, dg_p, db_p = bn.bn_relu_bwd_plain(x, y_p, dy, g, m_p, r_p, relu)
+            e_dx = assert_close(f"K2 dx {tag}", dx_k, dx_p, *tol["dx"])
+            e_dg = assert_close(f"K2 dgamma {tag}", dg_k, dg_p, *tol["dgb"])
+            e_db = assert_close(f"K2 dbeta {tag}", db_k, db_p, *tol["dgb"])
+            err["bn_bwd"] = max(err["bn_bwd"], e_dx)
+            plan = bn.bwd_plan(x, relu)
+            if k2_reread and not plan["rows_per_block"] > plan["cap"]:
+                raise AssertionError(f"K2 {tag} was meant to exceed the on-chip rows: {plan}")
+            cases.append({"case": tag, "y": e_y, "dx": e_dx, "dgamma": e_dg, "dbeta": e_db,
+                          "k1_plan": fplan, "k2_plan": plan})
+            if not verbose:
+                continue
+
+            def shown(p):
+                return (f"{p['blocks']} blocks x {p['threads']} threads, loads of {p['V']}, "
+                        f"{min(p['cap'], p['rows_per_block'])} of {p['rows_per_block']} "
+                        f"rows a block on chip")
+
+            k1 = ("K1 not checked" if e_y is None
+                  else f"K1 y {e_y:.3g}, repeat bit-identical, {shown(fplan)}")
+            log(f"[check] {tag}: max|err| {k1}; K2 dx {e_dx:.3g}, dgamma {e_dg:.3g}, "
+                f"dbeta {e_db:.3g}, repeat bit-identical, {shown(plan)}")
+
+
+def bn_wide_check() -> tuple:
+    """Phase 18 (b): K1 and K2 against their plain versions at the channel
+    counts past 1024 (``WIDE_BN_SHAPES``, ``WIDE_REREAD_SHAPES``) with phase
+    2's tolerances, bit-identical over two calls, each on the kernels' wide
+    instantiation where a thread owns more columns than the narrow one holds.
+    Returns (worst errors, cases)."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    rng = np.random.default_rng(SEED + 18)
+    err = {"bn_fwd": 0.0, "bn_bwd": 0.0}
+    cases = []
+    for n, C in [*WIDE_BN_SHAPES, *WIDE_REREAD_SHAPES]:
+        reread = (n, C) in WIDE_REREAD_SHAPES
+        check_bn_shape(rng, n, C, True, reread, reread, err, cases)
+    torch.cuda.synchronize()
+    wide = sorted({c["case"].split()[0] for c in cases
+                   if c["k2_plan"]["cols"] > (4 if c["k2_plan"]["V"] == 1 else 1)})
+    log(f"[check] K1/K2 past C = 1024: {len(cases)} cases, worst y {err['bn_fwd']:.3g}, "
+        f"dx {err['bn_bwd']:.3g}; wide instantiation at {', '.join(wide)}")
+    return err, cases
+
+
 def phase_check():
     """Each kernel against its plain version on the same card tensors."""
     import torch
@@ -657,57 +779,8 @@ def phase_check():
     err = {"bn_fwd": 0.0, "bn_bwd": 0.0}
     cases = []
     for n, C in BN_CHECK_SHAPES:
-        x_np = (rng.normal(size=(n, C)) * 1.5 + 0.3).astype(np.float32)
-        dy_np = rng.normal(size=(n, C)).astype(np.float32)
-        g = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
-        b = torch.tensor(rng.normal(size=C).astype(np.float32), device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            tol = TOL[str(dtype).split(".")[1]]
-            x = torch.tensor(x_np, device=dev).to(dtype)
-            dy = torch.tensor(dy_np, device=dev).to(dtype)
-            for relu in (True, False):
-                tag = f"[{n}x{C} {str(dtype).split('.')[1]} relu={relu}]"
-                y_p, m_p, r_p, v_p = bn.bn_relu_fwd_plain(x, g, b, EPS, relu)
-                e_y = fplan = None
-                if (n, C) in K1_SHAPES:
-                    got = bn.bn_fwd_cuda(x, g, b, EPS, relu)
-                    _same_bits(f"K1 {tag}", got, bn.bn_fwd_cuda(x, g, b, EPS, relu))
-                    y_k, m_k, r_k, v_k = got
-                    e_y = assert_close(f"K1 y {tag}", y_k, y_p, *tol["y"])
-                    assert_close(f"K1 mean {tag}", m_k, m_p, *tol["stat"])
-                    assert_close(f"K1 var {tag}", v_k, v_p, *tol["stat"])
-                    assert_close(f"K1 rstd {tag}", r_k, r_p, *tol["stat"])
-                    if y_k.dtype != x.dtype:
-                        raise AssertionError(f"K1 y dtype {y_k.dtype} != {x.dtype}")
-                    err["bn_fwd"] = max(err["bn_fwd"], e_y)
-                    fplan = bn.fwd_plan(x)
-                    if (n, C) in K1_REREAD_SHAPES and not fplan["rows_per_block"] > fplan["cap"]:
-                        raise AssertionError(f"K1 {tag} was meant to exceed the on-chip rows: "
-                                             f"{fplan}")
-                # K2 on the plain forward's outputs, so only the backward differs
-                dx_k, dg_k, db_k = bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, relu)
-                _same_bits(f"K2 {tag}", (dx_k, dg_k, db_k),
-                           bn.bn_bwd_cuda(x, y_p, dy, g, m_p, r_p, relu))
-                dx_p, dg_p, db_p = bn.bn_relu_bwd_plain(x, y_p, dy, g, m_p, r_p, relu)
-                e_dx = assert_close(f"K2 dx {tag}", dx_k, dx_p, *tol["dx"])
-                e_dg = assert_close(f"K2 dgamma {tag}", dg_k, dg_p, *tol["dgb"])
-                e_db = assert_close(f"K2 dbeta {tag}", db_k, db_p, *tol["dgb"])
-                err["bn_bwd"] = max(err["bn_bwd"], e_dx)
-                plan = bn.bwd_plan(x, relu)
-                if (n, C) in REREAD_SHAPES and not plan["rows_per_block"] > plan["cap"]:
-                    raise AssertionError(f"K2 {tag} was meant to exceed the on-chip rows: {plan}")
-                cases.append({"case": tag, "y": e_y, "dx": e_dx, "dgamma": e_dg, "dbeta": e_db,
-                              "k1_plan": fplan, "k2_plan": plan})
-
-                def shown(p):
-                    return (f"{p['blocks']} blocks x {p['threads']} threads, loads of {p['V']}, "
-                            f"{min(p['cap'], p['rows_per_block'])} of {p['rows_per_block']} "
-                            f"rows a block on chip")
-
-                k1 = ("K1 not checked" if e_y is None
-                      else f"K1 y {e_y:.3g}, repeat bit-identical, {shown(fplan)}")
-                log(f"[check] {tag}: max|err| {k1}; K2 dx {e_dx:.3g}, dgamma {e_dg:.3g}, "
-                    f"dbeta {e_db:.3g}, repeat bit-identical, {shown(plan)}")
+        check_bn_shape(rng, n, C, (n, C) in K1_SHAPES, (n, C) in K1_REREAD_SHAPES,
+                       (n, C) in REREAD_SHAPES, err, cases)
     torch.cuda.synchronize()
 
     # a small CifarResNet through the kernels on the card vs its plain
@@ -4915,6 +4988,563 @@ def _close_partial(name, got, want) -> float:
     return assert_close(f"{name} o/l", o / den, po / den, 0.0, 2e-5)
 
 
+# -- phase 18: the BN zoo through K1/K2, dropout, the FedML baselines -------------
+
+# K1 = K2 launches a step (one per BatchNorm of a forward) of the zoo nets
+ZOO_BNS = {"mobilenet": 27, "mobilenet_v3": 34, "mobilenet_v3/large": 46, "vgg11": 8,
+           "vgg16": 13, "vgg19": 16, "efficientnet-b0": 49, "efficientnet-b1": 69,
+           "efficientnet-b2": 69, "efficientnet-b3": 78, "efficientnet-b4": 96,
+           "efficientnet-b5": 116, "efficientnet-b6": 134, "efficientnet-b7": 163,
+           "resnet56_w64": 57, "resnet56_w128": 57, "resnet56_nonorm": 0}
+# (a)'s timed arms; every other name of ZOO_BNS gets one captured step
+ZOO_TIMED = ("mobilenet", "mobilenet_v3", "vgg16", "efficientnet-b0", "resnet56_w128")
+# the timed arms' K1/K2 calls a step at batch 64 by (rows, C, relu), as
+# MAIN_PATH_BNS (rows = 64 x the BN's spatial size at 32 x 32 input); each
+# arm checks its recorded calls against these, and (b) holds K1/K2 against
+# their plain versions at every [rows, C] of the zoo's recorded calls
+ZOO_BN_SHAPES = {
+    "mobilenet": {(65536, 32, True): 2, (65536, 64, True): 1, (16384, 64, True): 1,
+                  (16384, 128, True): 3, (4096, 128, True): 1, (4096, 256, True): 3,
+                  (1024, 256, True): 1, (1024, 512, True): 11, (256, 512, True): 1,
+                  (256, 1024, True): 3},
+    "mobilenet_v3": {(65536, 16, False): 1, (16384, 16, False): 1, (16384, 16, True): 1,
+                     (16384, 72, True): 1, (4096, 24, False): 2, (4096, 72, True): 1,
+                     (4096, 88, True): 2, (4096, 96, False): 1, (1024, 40, False): 3,
+                     (1024, 48, False): 2, (1024, 96, False): 1, (1024, 120, False): 2,
+                     (1024, 144, False): 2, (1024, 240, False): 4, (1024, 288, False): 1,
+                     (256, 96, False): 3, (256, 288, False): 1, (256, 576, False): 5},
+    "vgg16": {(65536, 64, True): 2, (16384, 128, True): 2, (4096, 256, True): 3,
+              (1024, 512, True): 3, (256, 512, True): 3},
+    "efficientnet-b0": {(16384, 16, False): 1, (16384, 32, False): 2, (16384, 96, False): 1,
+                        (4096, 24, False): 2, (4096, 96, False): 1, (4096, 144, False): 3,
+                        (1024, 40, False): 2, (1024, 144, False): 1, (1024, 240, False): 3,
+                        (256, 80, False): 3, (256, 112, False): 3, (256, 240, False): 1,
+                        (256, 480, False): 6, (256, 672, False): 5, (64, 192, False): 4,
+                        (64, 320, False): 1, (64, 672, False): 1, (64, 1152, False): 8,
+                        (64, 1280, False): 1},
+    "resnet56_w128": {(65536, 128, True): 10, (65536, 128, False): 9, (16384, 128, True): 9,
+                      (16384, 128, False): 10, (4096, 128, True): 9, (4096, 128, False): 10},
+}
+# CIFAR-10-shaped non-IID clients: 4 of 128 records (2 batches of 64), all every round
+ZOO_DATA = dict(num_clients=4, records_per_client=128, batch_size=64)
+ZOO_LR = 0.1
+# (b)'s gradient gate: one f32 forward and backward of each net on one batch
+# of 64 through K1/K2 against the plain BN, under cuDNN's deterministic
+# algorithms: the parameters' gradients and the BN statistics' update, each
+# the norm of the difference over the plain BN's own norm, so no learning
+# rate scales the reading. Beside it three readings: the plain BN again (the
+# noise floor), the one-pass plain BN (the TPU kernel's variance: another
+# rounding of the same BN) and the plain BN with its y and dx rounded to bf16
+# (a BN of lower precision). Each bound lies between the one-pass and the
+# bf16 readings of a run with no bound (H100, 700 W; PERF.md §6): the
+# gradients' one-pass 3.6e-6 .. 3.4e-3 (K1/K2 3.8e-6 .. 8.1e-3; mobilenet's
+# and vgg16's deep BNs over 256 rows make theirs ill-conditioned), bf16
+# 0.12 .. 0.88; the statistics' update one-pass <= 2.4e-6, bf16 >= 7.1e-4.
+# The gate fails too where the bf16 BN lies inside a bound: it could not tell.
+ZOO_GRAD_GATE = {"grads": 3e-2, "bn_stat_update": 3e-5}
+ZOO_STEP_NAMES = ("mobilenet", "mobilenet_v3", "vgg16", "efficientnet-b0")
+# the packed cnn_dropout lane against its client's plain round: the JAX
+# package's bound for its dropout packed parity
+# (tests/test_packed_everywhere.py::test_dropout_model_packed_parity)
+DROPOUT_PACKED_TOL = (1e-4, 1e-5)
+CAPTURE_REPLAYS = 3
+
+
+def _zoo_name(name: str) -> tuple:
+    """(registry name, factory kwargs) of a ZOO_BNS entry."""
+    if name == "mobilenet_v3/large":
+        return "mobilenet_v3", {"mode": "large"}
+    return name, {}
+
+
+def zoo_api(name: str, num_clients: int, records: int, dtype: str = "bfloat16",
+            bn_impl: str = "pallas", comm_round: int = 3, **cfg_kw):
+    """FedAvg of a ZOO_BNS net on CIFAR-10-shaped non-IID synthetic clients
+    (all every round, batch 64, lr ZOO_LR, momentum 0.9), each step captured."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import create_model
+
+    model, kw = _zoo_name(name)
+    ds = make_synthetic_classification("cifar10-zoo", (32, 32, 3), 10, num_clients,
+                                       records_per_client=records, batch_size=64, seed=SEED)
+    cfg = FedConfig(model=model, client_num_in_total=num_clients,
+                    client_num_per_round=num_clients, comm_round=comm_round, batch_size=64,
+                    lr=ZOO_LR, momentum=0.9, dtype=dtype, frequency_of_the_test=10_000,
+                    seed=SEED, device_data="on", **cfg_kw)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return FedAvgAPI(ds, cfg, create_model(model, 10, input_shape=(32, 32, 3), dtype=tdt,
+                                           bn_impl=bn_impl, **kw))
+
+
+def record_bn_shapes(bundle, batch: int = 64) -> dict:
+    """The (rows, C, relu) of every K1 call of one train-mode forward of a
+    copy of ``bundle``'s module on a batch of ``batch`` 32 x 32 x 3 images
+    (in the dtype of its parameters), counted."""
+    import collections
+    import copy
+
+    import torch
+
+    from fedml_tpu_torch.models.norm import PallasBatchNorm
+
+    m = copy.deepcopy(bundle.module).train()
+    seen = collections.Counter()
+
+    def hook(mod, inp, out):
+        x = inp[0]
+        seen[(x.numel() // x.shape[-1], x.shape[-1], mod.fuse_relu)] += 1
+
+    for mod in m.modules():
+        if isinstance(mod, PallasBatchNorm) and mod.use_kernel:
+            mod.register_forward_hook(hook)
+    p = next(m.parameters())
+    gen = torch.Generator(device=p.device).manual_seed(SEED)
+    x = torch.randn((batch, 32, 32, 3), generator=gen, device=p.device).to(p.dtype)
+    with torch.no_grad():
+        key = torch.zeros((), dtype=torch.int64, device=p.device)
+        m(x, dropout_key=key) if bundle.uses_dropout else m(x)
+    del m
+    return dict(seen)
+
+
+def zoo_bn_arm(name: str, smi: str) -> dict:
+    """(a) one timed arm: round 0 with its capture, then 2 warm rounds
+    ending in a sync; ZOO_BNS[name] K1 + K2 and one replay a live step,
+    none in the evaluation; real images/s, peak memory, and a one-step
+    profile (device ms, busy share, K1 + K2 ms)."""
+    import torch
+
+    tag = f"[zoo (a) {name}]"
+    torch.cuda.reset_peak_memory_stats()
+    api = zoo_api(name, ZOO_DATA["num_clients"], ZOO_DATA["records_per_client"])
+    if kernel_bns(api.bundle.module) != ZOO_BNS[name]:
+        raise AssertionError(f"{tag} {kernel_bns(api.bundle.module)} kernel BNs, not "
+                             f"{ZOO_BNS[name]}")
+    shapes = record_bn_shapes(api.bundle)
+    if shapes != ZOO_BN_SHAPES[name]:
+        raise AssertionError(f"{tag} K1 calls at batch 64 {shapes}, not ZOO_BN_SHAPES' "
+                             f"{ZOO_BN_SHAPES[name]}")
+    t = time.perf_counter()
+    _rounds(api, 0, 1)                                   # with its capture
+    round0_s = time.perf_counter() - t
+    bs = api.config.batch_size
+    steps = sum(api.round_counts(r)[1] // bs for r in (1, 2))
+    r0 = replays(api)
+    bn_counts().update({"bn_fwd": 0, "bn_bwd": 0})
+    losses, train_s = _rounds(api, 1, 2)
+    trained = dict(bn_counts())
+    metrics = api.evaluate_global()
+    after = dict(bn_counts())
+    want = ZOO_BNS[name] * steps
+    if (any(v != want for v in trained.values()) or after != trained
+            or replays(api) - r0 != steps or not np.isfinite(losses).all()
+            or not np.isfinite(metrics["loss"])):
+        raise AssertionError(f"{tag} launched {trained} ({after} after the evaluation), "
+                             f"{replays(api) - r0} replays, losses {losses}, eval {metrics}; "
+                             f"expected {ZOO_BNS[name]} x {steps} steps, one replay each")
+    peak = torch.cuda.max_memory_allocated()
+    prog = step_programs(api)[0]
+    profile = _profile(lambda: prog(), 1, op_tables=False)
+    fam = profile["device_ms_per_step_by_family"]
+    k12 = fam.get("bn kernels (K1/K2)", 0.0)
+    real = sum(api.round_counts(r)[0] for r in (1, 2))
+    out = {"model": name, "steps": steps, "losses": losses, "seconds": train_s,
+           "round0_s": round0_s, "real_images_per_s": real / train_s,
+           "ms_per_step": train_s / steps * 1e3, "bns_per_step": ZOO_BNS[name],
+           "launches": trained, "peak_memory_bytes": peak, "eval": metrics,
+           "step_profile": profile, "k1k2_device_ms": k12,
+           "k1k2_share": k12 / max(profile["device_ms_per_step"], 1e-12),
+           "bn_shapes": sorted([*k, v] for k, v in shapes.items())}
+    log(f"{tag} {steps} steps over 2 warm rounds: {out['real_images_per_s']:.1f} real images/s "
+        f"({out['ms_per_step']:.2f} ms a step; round 0 with the capture {round0_s:.1f} s), "
+        f"K1 = K2 = {ZOO_BNS[name]} a step, a step {profile['device_ms_per_step']:.3f} ms of "
+        f"device (busy {profile['device_busy_share']:.3f}, K1+K2 {k12:.3f} ms = "
+        f"{out['k1k2_share']:.3f}), peak {peak / 2**30:.2f} GiB, Test/Acc "
+        f"{metrics['acc']:.4f}; {smi}")
+    del api, prog
+    return out
+
+
+def zoo_one_step(name: str, smi: str) -> dict:
+    """(a) an untimed name: one client of one batch, one round, so one
+    captured step: its capture recorded ZOO_BNS[name] K1 + K2, the loss is
+    finite."""
+    tag = f"[zoo (a) {name}]"
+    api = zoo_api(name, 1, 64, comm_round=1)
+    shapes = record_bn_shapes(api.bundle)
+    if sum(shapes.values()) != ZOO_BNS[name]:
+        raise AssertionError(f"{tag} {sum(shapes.values())} K1 calls a forward, not "
+                             f"{ZOO_BNS[name]}: {shapes}")
+    bn_counts().update({"bn_fwd": 0, "bn_bwd": 0})
+    t = time.perf_counter()
+    loss, _ = _rounds(api, 0, 1)
+    seconds = time.perf_counter() - t
+    prog = step_programs(api)[0]
+    per_step = {k: v for d in prog.launches_per_step for k, v in d.items()
+                if k in ("bn_fwd", "bn_bwd")}
+    want = {"bn_fwd": ZOO_BNS[name], "bn_bwd": ZOO_BNS[name]}
+    if per_step != want or dict(bn_counts()) != want or prog.replays != 1 \
+            or not np.isfinite(loss).all():
+        raise AssertionError(f"{tag} the captured step recorded {per_step} (counted "
+                             f"{dict(bn_counts())}, {prog.replays} replays), loss {loss}; "
+                             f"expected {want}, one replay")
+    widest = max((m.mean.numel() for m in api.bundle.module.modules()
+                  if hasattr(m, "use_kernel") and m.use_kernel), default=0)
+    log(f"{tag} one captured step: K1 = K2 = {ZOO_BNS[name]}, widest BN C = {widest}, loss "
+        f"{loss[0]:.4f}, {seconds:.1f} s with the capture; {smi}")
+    del api, prog
+    return {"model": name, "loss": loss[0], "seconds": seconds, "launches": dict(bn_counts()),
+            "widest_bn": widest, "bn_shapes": sorted([*k, v] for k, v in shapes.items())}
+
+
+def _rel_dicts(a: dict, b: dict, keys) -> float:
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in keys)
+    return (num / max(sum(float((b[k].double() ** 2).sum()) for k in keys), 1e-300)) ** 0.5
+
+
+def bn_zoo_check(shapes) -> tuple:
+    """(b) K1 and K2 against their plain versions at every [rows, C] of the
+    zoo's recorded K1 calls (``shapes``, (rows, C, relu) triples), f32 and
+    bf16, ReLU on and off, with phase 2's tolerances and bit-identical over
+    two calls, one summary line. Returns (worst errors, cases)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 20)
+    err = {"bn_fwd": 0.0, "bn_bwd": 0.0}
+    cases = []
+    todo = sorted({(n, C) for n, C, _ in shapes}, reverse=True)
+    for n, C in todo:
+        check_bn_shape(rng, n, C, True, False, False, err, cases, verbose=False)
+    torch.cuda.synchronize()
+    log(f"[check] K1/K2 at the zoo's {len(todo)} BN shapes (rows {min(n for n, _ in todo)}.."
+        f"{max(n for n, _ in todo)}, C {min(c for _, c in todo)}..{max(c for _, c in todo)}): "
+        f"{len(cases)} cases within phase 2's tolerances, worst y {err['bn_fwd']:.3g}, "
+        f"dx {err['bn_bwd']:.3g}, each repeat bit-identical")
+    return err, cases
+
+
+def bn_fwd_bf16_plain(x2d, gamma, beta, eps: float = 1e-5, relu: bool = True):
+    """The plain forward with y rounded to bf16: a BN of lower precision,
+    the control that ``zoo_step_gate`` must refuse."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    y, mean, rstd, var = bn.bn_relu_fwd_plain(x2d, gamma, beta, eps, relu)
+    return y.to(torch.bfloat16).to(y.dtype), mean, rstd, var
+
+
+def bn_bwd_bf16_plain(x2d, y, dy, gamma, mean, rstd, relu: bool = True):
+    """The plain backward with dx rounded to bf16 (``bn_fwd_bf16_plain``'s)."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    dx, dgamma, dbeta = bn.bn_relu_bwd_plain(x2d, y, dy, gamma, mean, rstd, relu)
+    return dx.to(torch.bfloat16).to(dx.dtype), dgamma, dbeta
+
+
+def zoo_step_gate(name: str) -> dict:
+    """(b) one f32 forward and backward of ``name`` on one batch of 64
+    through K1/K2 against the plain BN, from the same weights, under cuDNN's
+    deterministic algorithms: the parameters' gradients and the BN
+    statistics' update (after - before), each as the norm of the difference
+    over the plain BN's, within ZOO_GRAD_GATE. Beside it: the plain BN again,
+    the one-pass plain BN and the bf16-rounded plain BN, which must lie past
+    the bound. EfficientNet's dropout takes one fixed key in every arm."""
+    import torch
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    model, kw = _zoo_name(name)
+    rng = np.random.default_rng(SEED + 18)
+    dev = torch.device("cuda")
+    x = torch.tensor(rng.normal(size=(64, 32, 32, 3)).astype(np.float32), device=dev)
+    y = torch.tensor(rng.integers(0, 10, 64), device=dev)
+    key = torch.tensor(18, dtype=torch.int64, device=dev)
+    plain = create_model(model, 10, input_shape=(32, 32, 3), bn_impl="xla", **kw)
+    init = plain.init(SEED, dev)
+    stats = [k for k in init if k.endswith((".mean", ".var"))]
+    # arm -> (bn_impl, the wrapper's forward and backward, None for K1/K2)
+    arms = {"plain": ("xla", None), "plain_again": ("xla", None), "kernels": ("pallas", None),
+            "onepass": ("pallas", (bn_fwd_onepass_plain, bn.bn_relu_bwd_plain)),
+            "bf16": ("pallas", (bn_fwd_bf16_plain, bn_bwd_bf16_plain))}
+    kernels = (bn.bn_fwd_cuda, bn.bn_bwd_cuda)
+    got = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for arm, (impl, swap) in arms.items():
+            bundle = create_model(model, 10, input_shape=(32, 32, 3), bn_impl=impl, **kw)
+            m = bundle.module.to(dev)
+            m.load_state_dict({k.replace("BatchNorm", "PallasBatchNorm") if impl != "xla"
+                               else k: v for k, v in init.items()})
+            if swap is not None:
+                bn.bn_fwd_cuda, bn.bn_bwd_cuda = swap
+            try:
+                m.train()
+                out = m(x, dropout_key=key) if bundle.uses_dropout else m(x)
+                F.cross_entropy(out, y).backward()
+                torch.cuda.synchronize()
+            finally:
+                bn.bn_fwd_cuda, bn.bn_bwd_cuda = kernels
+            after = {k.replace("PallasBatchNorm", "BatchNorm"): v
+                     for k, v in m.state_dict().items()}
+            got[arm] = {**{f"grad/{k.replace('PallasBatchNorm', 'BatchNorm')}":
+                           p.grad.detach().clone() for k, p in m.named_parameters()},
+                        **{f"stat/{k}": (after[k] - init[k]).detach().clone() for k in stats}}
+            del bundle, m
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ref = got["plain"]
+    grads = [k for k in ref if k.startswith("grad/")]
+    deltas = [k for k in ref if k.startswith("stat/")]
+
+    def dist(arm):
+        return {"grads": _rel_dicts(got[arm], ref, grads),
+                "bn_stat_update": _rel_dicts(got[arm], ref, deltas)}
+
+    rec = {"model": name, "bound": ZOO_GRAD_GATE,
+           **{arm: dist(arm) for arm in arms if arm != "plain"}}
+    log(f"[zoo (b) gradient gate {name}] against the plain BN: K1/K2 {rec['kernels']}; "
+        f"the plain BN again {rec['plain_again']}, the one-pass plain BN {rec['onepass']}, "
+        f"the bf16-rounded plain BN {rec['bf16']}; bound {ZOO_GRAD_GATE}")
+    if not all(rec["kernels"][k] <= bound < rec["bf16"][k]
+               for k, bound in ZOO_GRAD_GATE.items()):
+        raise AssertionError(f"[zoo (b) gradient gate {name}] K1/K2 must lie within "
+                             f"{ZOO_GRAD_GATE} and the bf16-rounded BN past it: {rec}")
+    return rec
+
+
+def dropout_capture_gate(name: str) -> dict:
+    """(b) captured = eager with dropout on, f32 under cuDNN's deterministic
+    algorithms: the step of ``name`` (``cnn_dropout``, or ``efficientnet-b0``
+    with its stochastic depth and head dropout) captured once and replayed
+    CAPTURE_REPLAYS times, each under a new key and from the same state,
+    against the eager step under that key: bit for bit (or no farther than
+    a second eager run). The masks themselves: ``keep_mask`` of a key input
+    captured and replayed under each key equals the eager mask, and the
+    masks of the replays differ."""
+    import torch
+
+    from fedml_tpu_torch.core.tasks import get_task
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops.dropout import keep_mask
+    from fedml_tpu_torch.parallel.capture import CapturedStep
+    from fedml_tpu_torch.parallel.local import make_batch_sgd_step, make_optimizer, module_state
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 19)
+    shape = (28, 28, 1) if name == "cnn_dropout" else (32, 32, 3)
+    classes = 62 if name == "cnn_dropout" else 10
+    bundle = create_model(name, classes, input_shape=shape, bn_impl="pallas")
+    bundle.init(SEED, dev)
+    module = bundle.module
+    opt = make_optimizer("sgd", 0.05, 0.9)(module.parameters())
+    opt.zero_grad(set_to_none=False)
+    step = make_batch_sgd_step(bundle, get_task("classification", classes))
+    inputs = [torch.tensor(rng.normal(size=(32, *shape)).astype(np.float32), device=dev),
+              torch.tensor(rng.integers(0, classes, 32), device=dev),
+              torch.ones(32, device=dev), torch.zeros((), dtype=torch.int64, device=dev)]
+    prog = CapturedStep(lambda bx, by, bm, k: step(module, opt, bx, by, bm, None, k), inputs,
+                        lambda: module_state(module, opt))
+    saved = [t.detach().clone() for t in prog.state()]
+
+    def run(fn, key):
+        with torch.no_grad():
+            for t, v in zip(prog.state(), saved):
+                t.copy_(v)
+        inputs[3].fill_(key)
+        loss = fn()
+        torch.cuda.synchronize()
+        return {"loss": loss.detach().clone(),
+                **{f"state/{i}": t.detach().clone() for i, t in enumerate(prog.state())}}
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    verdicts = []
+    try:
+        for i, key in enumerate(range(101, 101 + CAPTURE_REPLAYS)):
+            captured = run(prog, key)
+            e1 = run(lambda: prog.body(*prog.inputs), key)
+            e2 = run(lambda: prog.body(*prog.inputs), key)
+            verdicts.append(_capture_verdict(f"[dropout capture {name} key {key}]", e1, e2,
+                                             captured))
+        run(lambda: torch.zeros((), device=dev), 0)          # the state back
+    finally:
+        torch.backends.cudnn.deterministic = det
+    # the masks: keep_mask of a key input inside a captured graph
+    kin = torch.zeros((), dtype=torch.int64, device=dev)
+    mshape = (32, 12, 12, 64)
+    mprog = CapturedStep(lambda k: keep_mask(k, 0, mshape, 0.25), [kin], lambda: [])
+    masks = []
+    for key in range(101, 101 + CAPTURE_REPLAYS):
+        kin.fill_(key)
+        got = mprog().clone()
+        if not torch.equal(got, keep_mask(kin.clone(), 0, mshape, 0.25)):
+            raise AssertionError(f"[dropout capture {name}] the replayed mask under key {key} "
+                                 "differs from the eager one")
+        masks.append(got)
+    if mprog.replays != CAPTURE_REPLAYS or any(torch.equal(a, b) for i, a in enumerate(masks)
+                                               for b in masks[i + 1:]):
+        raise AssertionError(f"[dropout capture {name}] the replays' masks repeat")
+    keep = [float(m.float().mean()) for m in masks]
+    log(f"[dropout capture {name}] {CAPTURE_REPLAYS} replays under keys 101..: "
+        f"{[v['verdict'] for v in verdicts]}; replayed masks equal the eager ones, differ "
+        f"from each other, keep shares {keep}")
+    return {"model": name, "verdicts": verdicts, "keep_shares": keep}
+
+
+def dropout_packed_gate() -> dict:
+    """(b) the packed ``cnn_dropout`` round (2 lanes, ``packed_conv`` off
+    and blockdiag; f32) lane by lane against its clients' plain local
+    training from the same orders: each lane's variables (the packed
+    round with the other lane's weight 0) within DROPOUT_PACKED_TOL of its
+    client's, the masks coming from the same step keys."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+    from fedml_tpu_torch.models import create_model
+
+    ds = make_synthetic_classification("femnist-gate", (28, 28, 1), 62, 2,
+                                       records_per_client=48, batch_size=16, seed=SEED)
+    rtol, atol = DROPOUT_PACKED_TOL
+    out = {}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for impl in ("off", "blockdiag"):
+            cfg = FedConfig(model="cnn_dropout", client_num_in_total=2, client_num_per_round=2,
+                            comm_round=1, batch_size=16, epochs=2, lr=0.05, momentum=0.9,
+                            pack_lanes=2, packed_conv=impl, device_data="on", seed=SEED)
+            api = FedAvgAPI(ds, cfg, create_model("cnn_dropout", 62))
+            init = {k: v.clone() for k, v in api.variables.items()}
+            sampled = api.sample(0)
+            orders, keys = api._round_orders(0, len(sampled)), api._round_keys(0, len(sampled))
+            plan = api._masked_packed_plan(sampled, None)
+            tx, ty, tm = api._dev_train
+            worst = 0.0
+            for pos in range(2):        # the cohort position whose lane is kept
+                w = np.zeros(2, np.float32)
+                w[pos] = 1.0
+                packed = api._packed_train(init, tx, ty, tm, sampled, w, orders, plan,
+                                           keys).variables
+                c = int(sampled[pos])
+                plain = api._local_train(init, tx[c], ty[c], tm[c], int(ds.train_counts[c]),
+                                         orders=orders[pos], key=int(keys[pos])).variables
+                for k, v in plain.items():
+                    a, b = packed[k].float(), v.float()
+                    err = float(((a - b).abs() - atol - rtol * b.abs()).max())
+                    worst = max(worst, float((a - b).abs().max()))
+                    if err > 0:
+                        raise AssertionError(f"[dropout packed {impl}] client {c} {k}: "
+                                             f"max |diff| {float((a - b).abs().max()):.3g} "
+                                             f"outside rtol {rtol} / atol {atol}")
+            out[impl] = {"max_abs_diff": worst, "packed_conv": api._packed_train.packed_conv}
+            log(f"[dropout packed {impl}] 2 lanes of cnn_dropout against their clients' plain "
+                f"training: max |diff| {worst:.3g} (bound rtol {rtol} / atol {atol})")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+# (c) FedML's cross-device baselines: (model, dataset, loader kwargs, config)
+BASELINES = (
+    ("resnet18_gn", "fed_cifar100", dict(client_num_in_total=8), dict(batch_size=20)),
+    ("rnn", "shakespeare", dict(client_num_in_total=8), dict(batch_size=4)),
+    ("rnn_stackoverflow", "stackoverflow_nwp", dict(client_num_in_total=8),
+     dict(batch_size=16)),
+    ("lr", "stackoverflow_lr", dict(client_num_in_total=8), dict(batch_size=10, lr=0.3)),
+    ("cnn_dropout", "femnist", dict(client_num_in_total=8),
+     dict(batch_size=20, pack_lanes=2, packed_conv="blockdiag")),
+)
+
+
+def baseline_arm(model: str, dataset: str, load_kw: dict, cfg_kw: dict, smi: str) -> dict:
+    """(c) one FedML baseline: the stand-in federation, 4 clients a round,
+    round 0 with its captures, then one timed round ending in a sync, and
+    an evaluation; finite loss and metrics."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    tag = f"[baseline (c) {model} on {dataset}]"
+    ds = load_dataset(dataset, seed=SEED, batch_size=cfg_kw["batch_size"], **load_kw)
+    kw = dict(lr=0.05, momentum=0.9)
+    kw.update(cfg_kw)
+    cfg = FedConfig(model=model, dataset=dataset, client_num_in_total=ds.num_clients,
+                    client_num_per_round=4, comm_round=2, frequency_of_the_test=10_000,
+                    seed=SEED, device_data="on", **kw)
+    api = FedAvgAPI(ds, cfg, create_model(model, ds.class_num,
+                                          input_shape=ds.train_x.shape[2:] or None))
+    t = time.perf_counter()
+    loss0, _ = _rounds(api, 0, 1)
+    round0_s = time.perf_counter() - t
+    loss1, seconds = _rounds(api, 1, 1)
+    metrics = api.evaluate_global()
+    torch.cuda.synchronize()
+    if not (np.isfinite(loss0 + loss1).all() and np.isfinite(metrics["loss"])):
+        raise AssertionError(f"{tag} losses {loss0 + loss1}, eval {metrics}")
+    real = api.round_counts(1)[0]
+    status = api.packed_status()
+    log(f"{tag} round 0 {loss0[0]:.4f} ({round0_s:.1f} s with the captures), round 1 "
+        f"{loss1[0]:.4f} in {seconds:.2f} s ({real / seconds:.1f} real records/s), eval "
+        f"{metrics}; packed {status}; {smi}")
+    return {"model": model, "dataset": dataset, "losses": loss0 + loss1, "round0_s": round0_s,
+            "seconds": seconds, "real_records_per_s": real / seconds, "eval": metrics,
+            "packed": status}
+
+
+def phase_train_zoo_bn(smi: str) -> dict:
+    """Phase 18: (a) the BN zoo through K1/K2 in bf16, (b) the f32 gates
+    (K1/K2 past C = 1024 and at every BN shape of the zoo, the gradients of
+    four zoo nets against the plain BN's, captured = eager with dropout, the
+    packed cnn_dropout lanes), (c) the FedML baselines."""
+    import gc
+
+    import torch
+
+    out = {"arms": {}, "one_step": {}}
+    launches = {"bn_fwd": 0, "bn_bwd": 0}
+    for name in ZOO_TIMED:
+        rec = out["arms"][name] = zoo_bn_arm(name, smi)
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name in ZOO_BNS:
+        if name not in ZOO_TIMED:
+            rec = out["one_step"][name] = zoo_one_step(name, smi)
+            for k in launches:
+                launches[k] += rec["launches"][k]
+            gc.collect()
+    out["launches"] = launches
+    out["wide_err"], out["wide_cases"] = bn_wide_check()
+    shapes = {(n, C, relu) for rec in [*out["arms"].values(), *out["one_step"].values()]
+              for n, C, relu, _ in rec["bn_shapes"]}
+    out["zoo_shape_err"], out["zoo_shape_cases"] = bn_zoo_check(shapes)
+    out["step_gates"] = {n: zoo_step_gate(n) for n in ZOO_STEP_NAMES}
+    out["dropout_capture"] = {n: dropout_capture_gate(n)
+                              for n in ("cnn_dropout", "efficientnet-b0")}
+    out["dropout_packed"] = dropout_packed_gate()
+    out["baselines"] = {m: baseline_arm(m, d, lk, ck, smi) for m, d, lk, ck in BASELINES}
+    log("[zoo] real images/s: " + ", ".join(
+        f"{k} {v['real_images_per_s']:.1f}" for k, v in out["arms"].items())
+        + f"; K1/K2 launches {launches}; {smi}")
+    return out
+
+
 def phase_check_lm():
     """K6 and K5 against their plain versions on the same card tensors, then
     a small TransformerLM through both kernels on the card against the same
@@ -5329,7 +5959,8 @@ def main() -> int:
     zoo_gossip = timed("train_zoo_gossip", phase_train_zoo_gossip, smi)
     gkt_seg = timed("train_gkt_seg", phase_train_gkt_seg, smi)
     fednas = timed("train_fednas_split_vfl", phase_train_fednas_split_vfl, smi)
-    for k, v in fednas["darts_bn"]["max_abs_err"].items():
+    zoo_bn = timed("train_zoo_bn", phase_train_zoo_bn, smi)
+    for k, v in (*fednas["darts_bn"]["max_abs_err"].items(), *zoo_bn["wide_err"].items()):
         err[k] = max(err[k], v)
     err.update(conv_err)
     err.update(lm_err)
@@ -5359,7 +5990,7 @@ def main() -> int:
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
             # lowering A/B's, the cross-silo arms' and the cross-device
             # flagship arms' timed rounds, phase 13's train() runs and the
-            # arms of phases 14, 15, 16 and 17, each counted from 0 just before it
+            # arms of phases 14, 15, 16, 17 and 18, each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -5370,7 +6001,8 @@ def main() -> int:
                        "robust_hier_silo": robust["launches"][name],
                        "zoo_gossip_stream_turbo": zoo_gossip["launches"][name],
                        "gkt_seg": gkt_seg["launches"][name],
-                       "fednas_split_vfl": fednas["launches"][name]}
+                       "fednas_split_vfl": fednas["launches"][name],
+                       "zoo_bn": zoo_bn["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -5457,7 +6089,7 @@ def main() -> int:
         "train": train, "train_packed": train_packed,
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
-        "train_gkt_seg": gkt_seg, "train_fednas_split_vfl": fednas,
+        "train_gkt_seg": gkt_seg, "train_fednas_split_vfl": fednas, "train_zoo_bn": zoo_bn,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

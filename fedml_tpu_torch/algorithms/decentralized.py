@@ -95,9 +95,11 @@ class DecentralizedFedAPI(OwnRoundMixin, FedAvgAPI):
             self._node_data = self._to_device(x, y, m)
         x, y, m = self._node_data
         counts = np.asarray(ds.train_counts, np.int64)
-        orders = self._round_orders(round_idx, N)
+        orders, keys = self._round_orders(round_idx, N), self._round_keys(round_idx, N)
         results = [self._local_train({k: v[i] for k, v in self.node_vars.items()}, x[i], y[i],
-                                     m[i], int(counts[i]), orders=orders[i]) for i in range(N)]
+                                     m[i], int(counts[i]), orders=orders[i],
+                                     key=keys[i])
+                   for i in range(N)]
         self.node_vars = mix_stacked(tree_stack([r.variables for r in results]), self.W)
         if self.mode == "pushsum":
             self.ps_weights = mix_mass(self.W, self.ps_weights)
@@ -167,7 +169,8 @@ class MeshDecentralizedFedAPI(DecentralizedFedAPI):
         blk = self.mesh.block(N)
         counts = np.asarray(ds.train_counts, np.int64)[blk]
         orders = self._round_orders(round_idx, range(blk.start, blk.stop))
-        work = [SiloWork(x[i], y[i], m[i], int(c), float(c), orders[i])
+        keys = self._round_keys(round_idx, range(blk.start, blk.stop))
+        work = [SiloWork(x[i], y[i], m[i], int(c), float(c), orders[i], keys[i])
                 for i, c in enumerate(counts)]
         self.node_vars, self.ps_weights, loss = self._round(self.node_vars, self.ps_weights,
                                                             W_cols, work)

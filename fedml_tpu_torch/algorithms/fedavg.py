@@ -111,6 +111,7 @@ from fedml_tpu_torch.data import FedDataset
 from fedml_tpu_torch.data.pipeline import CohortPrefetcher, materialize_cohort, receive, ship
 from fedml_tpu_torch.data.sched import CohortScheduler
 from fedml_tpu_torch.models import ModelBundle, create_model
+from fedml_tpu_torch.ops.dropout import client_key
 from fedml_tpu_torch.parallel.crosssilo import (SiloWork, apply_server_and_rollback,
                                                 make_crosssilo_round)
 from fedml_tpu_torch.parallel.local import (LocalResult, finalize_metrics, local_train_kwargs,
@@ -399,6 +400,18 @@ class FedAvgAPI:
             out.append(torch.stack([torch.as_tensor(o, dtype=torch.int64) for o in orders]))
         return torch.stack(out)
 
+    def _round_keys(self, round_idx: int, positions: "int | Sequence[int]",
+                    group_round: Optional[int] = None) -> list:
+        """The dropout keys of the cohort positions that ``_round_orders``
+        takes, each ``client_key`` of (seed, round, position, group round);
+        None each for a model without dropout."""
+        if isinstance(positions, (int, np.integer)):
+            positions = range(int(positions))
+        if not self.bundle.uses_dropout:
+            return [None] * len(positions)
+        return [client_key(self.config.seed, round_idx, int(p), group_round or 0)
+                for p in positions]
+
     def _server_rng(self, round_idx: int):
         """The round's server randomness (``rng`` of ``aggregate`` and of
         ``server_update``): ``server_generator(seed, round, device)``, or the
@@ -474,7 +487,8 @@ class FedAvgAPI:
             counts = counts * live
         tx, ty, tm = self._dev_train
         return self._packed_train(self.variables, tx, ty, tm, sampled, counts,
-                                  self._round_orders(round_idx, len(sampled)), plan)
+                                  self._round_orders(round_idx, len(sampled)), plan,
+                                  self._round_keys(round_idx, len(sampled)))
 
     def sample(self, round_idx: int) -> np.ndarray:
         return self._cohort_sched.sample(round_idx)
@@ -596,8 +610,9 @@ class FedAvgAPI:
         live clients), so it trains the steps of the records it has."""
         n = cx.shape[1]
         orders = self._round_orders(round_idx, positions, n)
+        keys = self._round_keys(round_idx, positions)
         return [self._local_train(self.variables, cx[j], cy[j], cm[j],
-                                  min(int(counts[j]), n), orders=orders[j])
+                                  min(int(counts[j]), n), orders=orders[j], key=keys[j])
                 for j in range(len(positions))]
 
     # -- the host round and its pipeline (data/pipeline.py) -------------------
@@ -804,7 +819,8 @@ class FedAvgAPI:
                 if plan is not None:
                     sums = self._stream_packed_chunk().sums(
                         self.variables, cx, cy, cm, np.arange(size), meta["wn"],
-                        self._round_orders(round_idx, positions), plan)
+                        self._round_orders(round_idx, positions), plan,
+                        self._round_keys(round_idx, positions))
                     torch._foreach_add_(list(acc.values()), [sums.acc[k] for k in acc])
                     acc_loss = acc_loss + sums.loss_sum
                     total += sums.total
@@ -1184,8 +1200,9 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
         ``positions`` in the cohort."""
         pos = rows if positions is None else positions
         orders = self._round_orders(round_idx, pos, x.shape[1])
+        keys = self._round_keys(round_idx, pos)
         counts = self.dataset.train_counts
-        return [SiloWork(x[i], y[i], m[i], int(counts[r]), float(weights[p]), orders[i])
+        return [SiloWork(x[i], y[i], m[i], int(counts[r]), float(weights[p]), orders[i], keys[i])
                 for i, (r, p) in enumerate(zip(rows, pos))]
 
     def _run_round_inner(self, round_idx: int) -> "float | torch.Tensor":
@@ -1207,7 +1224,7 @@ class CrossSiloFedAvgAPI(FedAvgAPI):
             out = pm["round_fn"](self.variables, self.server_state, tx, ty, tm, w[rows],
                                  self._round_orders(round_idx, rows),
                                  rank_plan(plan, self.mesh.world_size, self.mesh.rank), total,
-                                 self._server_rng(round_idx))
+                                 self._server_rng(round_idx), self._round_keys(round_idx, rows))
         else:
             blocks = self._dev_groups or [self._dev_sharded]
             work = [wk for rows, *rest in blocks

@@ -60,8 +60,10 @@ class HierarchicalFedAvgAPI(OwnRoundMixin, FedAvgAPI):
         group_vars = [self.variables] * G
         for gr in range(self.group_comm_round):
             orders = self._round_orders(round_idx, range(C), n, group_round=gr)
+            keys = self._round_keys(round_idx, range(C), group_round=gr)
             results = [self._local_train(group_vars[gids[j]], cx[j], cy[j], cm[j],
-                                         min(int(counts[j]), n), orders=orders[j])
+                                         min(int(counts[j]), n), orders=orders[j],
+                                         key=keys[j])
                        for j in range(C)]
             # the global model: after the last group round, the group models
             # weighted by group mass
@@ -119,8 +121,10 @@ class CrossSiloHierarchicalFedAvgAPI(HierarchicalFedAvgAPI):
         work = []
         for gr in range(self.group_comm_round):
             orders = self._round_orders(round_idx, mine, n, group_round=gr)
+            keys = self._round_keys(round_idx, mine, group_round=gr)
             work.append([SiloWork(cx[p], cy[p], cm[p], min(int(counts[p]), n), float(wn[p]),
-                                  orders[i]) for i, p in enumerate(mine)])
+                                  orders[i], keys[i])
+                         for i, p in enumerate(mine)])
         self.variables, loss = self._round(self.variables, work, float(wn[row].sum()),
                                            float(wn.astype(np.float64).sum()))
         return loss if self.config.async_rounds else float(loss)

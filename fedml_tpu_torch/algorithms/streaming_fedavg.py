@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -107,10 +107,12 @@ class StreamingFedAvgAPI(FedAvgAPI):
         rows = {p: (x[0], y[0], m[0]) for p, (x, y, m, _c) in zip(keep, parts)}
         return rows, {"materialize_ms": (time.perf_counter() - t0) * 1e3, "h2d_ms": 0.0}
 
-    def _train_client_streaming(self, k: int, orders: torch.Tensor, data=None) -> LocalResult:
+    def _train_client_streaming(self, k: int, orders: torch.Tensor, data=None,
+                                key: Optional[int] = None) -> LocalResult:
         """Client ``k``'s local run on its streamed batches; ``orders`` its
         ``[epochs, n_pad]`` permutations, ``data`` its prefetched host
-        ``(x, y, mask)`` (None: ``client_arrays`` now)."""
+        ``(x, y, mask)`` (None: ``client_arrays`` now), ``key`` its dropout
+        key (``_round_keys``)."""
         bs = self.config.batch_size
         x, y, mask = data if data is not None else self.dataset.client_arrays(int(k))
         steps = -(-int(self.dataset.train_counts[k]) // bs)
@@ -124,7 +126,7 @@ class StreamingFedAvgAPI(FedAvgAPI):
             stream = device_stream(pipe, n_batches=order.shape[0] * steps, device=self.device,
                                    stream=self._h2d_stream)
             return self._local_train.stream(self.variables, (bx for bx, _ in stream), *labels,
-                                            order.to(self.device))
+                                            order.to(self.device), key)
         finally:
             pipe.close()
 
@@ -134,11 +136,12 @@ class StreamingFedAvgAPI(FedAvgAPI):
         if live is not None:
             counts = counts * live
         orders = self._round_orders(round_idx, len(sampled))
+        keys = self._round_keys(round_idx, len(sampled))
         pf = self._host_prefetcher()
         cohort, stages, wait_ms = pf.pop(round_idx) if pf is not None else (None, None, 0.0)
         t0 = time.perf_counter()
         if self._stream_mode() != "off":
-            out = self._run_round_streamed(sampled, counts, orders, cohort)
+            out = self._run_round_streamed(sampled, counts, orders, cohort, keys)
         else:
             results = []
             for i, k in enumerate(sampled):
@@ -149,15 +152,15 @@ class StreamingFedAvgAPI(FedAvgAPI):
                                                torch.zeros((), device=self.device), 0.0))
                     continue
                 data = None if cohort is None else cohort[i]
-                results.append(self._train_client_streaming(int(k), orders[i], data))
+                results.append(self._train_client_streaming(int(k), orders[i], data, keys[i]))
             out = self._finish_clients(round_idx, results, counts)
         if stages is not None:
             self._stage_row(round_idx, stages, wait_ms, (time.perf_counter() - t0) * 1e3)
         return out
 
     def _run_round_streamed(self, sampled: np.ndarray, counts: np.ndarray,
-                            orders: torch.Tensor, cohort: Optional[dict]
-                            ) -> "float | torch.Tensor":
+                            orders: torch.Tensor, cohort: Optional[dict],
+                            keys: Sequence[Optional[int]]) -> "float | torch.Tensor":
         """The client loop folding each result into one f32 accumulator
         with normalize-first weights (the round's total is known from the
         plan); a round whose total weight is 0 keeps the weights."""
@@ -171,7 +174,7 @@ class StreamingFedAvgAPI(FedAvgAPI):
             if counts[i] <= 0:
                 continue        # zero weight: its term of the mean is 0
             data = None if cohort is None else cohort[i]
-            res = self._train_client_streaming(int(k), orders[i], data)
+            res = self._train_client_streaming(int(k), orders[i], data, keys[i])
             for name, a in acc.items():
                 a.add_(res.variables[name].to(torch.float32) * w_norm[i])
             acc_loss = acc_loss + res.train_loss * w[i]

@@ -6,6 +6,7 @@ the index maps are bit-equal. Returns ``dict[client_idx -> indices]``.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -88,17 +89,51 @@ def hetero_partition(labels: np.ndarray, client_num: int, classes: int,
         labels, client_num, classes, alpha, seed=seed)
 
 
+def hetero_fix_partition(labels: np.ndarray, client_num: int, classes: int, alpha: float,
+                         map_path: str, seed: int = 0) -> dict[int, np.ndarray]:
+    """'hetero-fix': a precomputed partition map, so every run and every
+    rank sees the same non-IID split (reference cifar10/data_loader.py:
+    150-158 reads the map files shipped with it). The map is the JAX
+    package's ``.npz`` of ``client_<i>`` index arrays. A missing file is
+    made once with the Dirichlet split and saved (atomically), so the first
+    run fixes the split for the later ones. A map for another client count,
+    or one that does not cover exactly this dataset's records (a stale map
+    of another snapshot), raises."""
+    if os.path.exists(map_path):
+        with np.load(map_path) as z:
+            m = {int(k.split("_", 1)[1]): z[k] for k in z.files}
+        if len(m) != client_num:
+            raise ValueError(f"partition map {map_path!r} has {len(m)} clients, expected "
+                             f"{client_num}; delete it to regenerate")
+        allidx = np.concatenate([m[i] for i in range(client_num)])
+        if len(allidx) != len(labels) or (len(allidx) and int(allidx.max()) >= len(labels)):
+            raise ValueError(
+                f"partition map {map_path!r} covers {len(allidx)} records (max index "
+                f"{int(allidx.max()) if len(allidx) else -1}) but the dataset has "
+                f"{len(labels)}; delete it to regenerate")
+        return {i: m[i].astype(np.int64) for i in range(client_num)}
+    m = hetero_partition(labels, client_num, classes, alpha, seed=seed)
+    os.makedirs(os.path.dirname(map_path) or ".", exist_ok=True)
+    tmp = map_path + ".tmp.npz"
+    np.savez(tmp, **{f"client_{i}": v for i, v in m.items()})
+    os.replace(tmp, map_path)
+    return m
+
+
 def partition(method: str, labels: np.ndarray, client_num: int, classes: int,
-              alpha: Optional[float] = None, seed: int = 0) -> dict[int, np.ndarray]:
-    """Dispatch on --partition_method (homo | hetero). The JAX package's
-    hetero-fix (a precomputed map file) is not ported and raises."""
-    if method == "hetero-fix":
-        raise ValueError("partition_method='hetero-fix' (a precomputed map file) is not "
-                         "ported yet (ROADMAP §1 item 6)")
+              alpha: Optional[float] = None, seed: int = 0,
+              map_path: Optional[str] = None) -> dict[int, np.ndarray]:
+    """Dispatch on --partition_method (homo | hetero | hetero-fix)."""
     if method == "homo":
         return homo_partition(len(labels), client_num, seed=seed)
     if method == "hetero":
         if alpha is None:
             raise ValueError("hetero partition requires alpha (--partition_alpha)")
         return hetero_partition(labels, client_num, classes, alpha, seed=seed)
-    raise ValueError(f"unknown or unported partition method: {method!r}")
+    if method == "hetero-fix":
+        if alpha is None:
+            raise ValueError("hetero-fix partition requires alpha for first-run generation")
+        if map_path is None:
+            raise ValueError("hetero-fix partition requires a map_path")
+        return hetero_fix_partition(labels, client_num, classes, alpha, map_path, seed=seed)
+    raise ValueError(f"unknown partition method: {method!r}")

@@ -21,15 +21,6 @@ import numpy as np
 
 _LOADERS: dict[str, Callable[..., "FedDataset"]] = {}
 
-#: the JAX package's dataset names whose loaders are not ported yet
-UNPORTED_DATASETS = {
-    **{n: "ROADMAP §1 item 10 (loaders: stackoverflow)"
-       for n in ("stackoverflow_lr", "stackoverflow_nwp")},
-    **{n: "ROADMAP §1 item 10 (loaders: imagenet)"
-       for n in ("ILSVRC2012", "imagenet", "gld23k", "gld160k")},
-}
-
-
 def register_dataset(*names: str):
     def deco(fn):
         for n in names:
@@ -116,18 +107,18 @@ class FedDataset:
 
 
 def _register_all() -> None:
-    from fedml_tpu_torch.data import (cifar, crossdevice, femnist, mnist,  # noqa: F401
-                                      segmentation, shakespeare, synthetic)
+    from fedml_tpu_torch.data import (cifar, crossdevice, femnist, imagenet,  # noqa: F401
+                                      mnist, segmentation, shakespeare, stackoverflow,
+                                      synthetic)
 
 
 def load_dataset(name: str, **kw) -> FedDataset:
     """Dispatch on the reference's ``--dataset`` values (synthetic_1_1,
     mnist, femnist, fed_cifar100, cifar10, cifar100, cinic10, shakespeare,
-    fed_shakespeare, stackoverflow_lr_full, pascal_voc, ...). Loaders ignore keyword
+    fed_shakespeare, stackoverflow_lr, stackoverflow_nwp, stackoverflow_lr_full,
+    ILSVRC2012, gld23k, pascal_voc, ...). Loaders ignore keyword
     arguments they do not take."""
     _register_all()
-    if name in UNPORTED_DATASETS:
-        raise NotImplementedError(f"dataset {name!r} is not ported yet ({UNPORTED_DATASETS[name]})")
     if name not in _LOADERS:
         raise KeyError(f"unknown dataset {name!r}; known: {sorted(_LOADERS)}")
     return _LOADERS[name](**kw)

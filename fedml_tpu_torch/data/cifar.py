@@ -7,7 +7,7 @@ The files: torchvision's pickled batches (``cifar-10-batches-py``,
 ``test/<class>/*.png``; PIL is imported only to read one) under
 ``data_dir``. Images are normalized with the reference's per-channel mean and
 std and split over the clients by ``core/partition.py`` (``hetero-fix``
-raises there). When the files are absent, the loaders return the JAX
+keeps its map file in ``data_dir``). When the files are absent, the loaders return the JAX
 package's synthetic stand-in: 32x32x3 class blobs, 160 records a client,
 under the same partition. Numpy only, bit-equal to the JAX package.
 """
@@ -129,16 +129,21 @@ def _normalize(u8: np.ndarray, mean=_CIFAR_MEAN, std=_CIFAR_STD) -> np.ndarray:
 
 def _build(name: str, loaded, classes: int, client_num_in_total: int, partition_method: str,
            partition_alpha: float, batch_size: int, seed: int, mean=_CIFAR_MEAN,
-           std=_CIFAR_STD) -> FedDataset:
+           std=_CIFAR_STD, data_dir: str = "./data") -> FedDataset:
     if loaded is None:
         return make_synthetic_classification(
             f"{name}(synthetic)", (32, 32, 3), classes, client_num_in_total,
             records_per_client=160, partition_method=partition_method,
-            partition_alpha=partition_alpha, batch_size=batch_size, seed=seed)
+            partition_alpha=partition_alpha, batch_size=batch_size, seed=seed,
+            data_dir=data_dir)
     x, y, test_x, test_y = loaded
     x, test_x = _normalize(x, mean, std), _normalize(test_x, mean, std)
+    # hetero-fix: the map lives next to the data, keyed on the client count
+    # and alpha (the JAX package's file name)
     idx_map = partition_fn(partition_method, y, client_num_in_total, classes, partition_alpha,
-                           seed=seed)
+                           seed=seed, map_path=os.path.join(
+                               data_dir, f"{name}_partition_{client_num_in_total}"
+                               f"_a{partition_alpha}.npz"))
     xs = [x[idx_map[i]] for i in range(client_num_in_total)]
     ys = [y[idx_map[i]].astype(np.int32) for i in range(client_num_in_total)]
     tx, ty, tm, tc = pad_and_stack_clients(xs, ys, batch_size)
@@ -154,7 +159,7 @@ def load_cifar10(data_dir: str = "./data/cifar10", client_num_in_total: int = 10
                  partition_method: str = "hetero", partition_alpha: float = 0.5,
                  batch_size: int = 64, seed: int = 0, **_) -> FedDataset:
     return _build("cifar10", _load_cifar10_files(data_dir), 10, client_num_in_total,
-                  partition_method, partition_alpha, batch_size, seed)
+                  partition_method, partition_alpha, batch_size, seed, data_dir=data_dir)
 
 
 @register_dataset("cifar100")
@@ -162,7 +167,7 @@ def load_cifar100(data_dir: str = "./data/cifar100", client_num_in_total: int = 
                   partition_method: str = "hetero", partition_alpha: float = 0.5,
                   batch_size: int = 64, seed: int = 0, **_) -> FedDataset:
     return _build("cifar100", _load_cifar100_files(data_dir), 100, client_num_in_total,
-                  partition_method, partition_alpha, batch_size, seed)
+                  partition_method, partition_alpha, batch_size, seed, data_dir=data_dir)
 
 
 @register_dataset("cinic10")
@@ -171,4 +176,4 @@ def load_cinic10(data_dir: str = "./data/cinic10", client_num_in_total: int = 10
                  batch_size: int = 64, seed: int = 0, **_) -> FedDataset:
     return _build("cinic10", _load_cinic10_files(data_dir), 10, client_num_in_total,
                   partition_method, partition_alpha, batch_size, seed,
-                  mean=_CINIC_MEAN, std=_CINIC_STD)
+                  mean=_CINIC_MEAN, std=_CINIC_STD, data_dir=data_dir)

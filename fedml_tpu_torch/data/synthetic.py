@@ -13,6 +13,8 @@ arrays are bit-equal.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from fedml_tpu_torch.core.partition import partition as partition_fn
@@ -89,6 +91,7 @@ def make_synthetic_classification(
     dtype=np.float32,
     separation: float = 1.0,
     label_noise: float = 0.0,
+    data_dir: str = "./data",
 ) -> FedDataset:
     rng = np.random.default_rng(seed)
     n_total = num_clients * records_per_client + test_records
@@ -104,8 +107,12 @@ def make_synthetic_classification(
         y = np.where(flip, rng.integers(0, classes, n_total), y).astype(np.int32)
     train_x, train_y = x[:-test_records], y[:-test_records]
     test_x, test_y = x[-test_records:], y[-test_records:]
+    # hetero-fix: synthetic labels depend on the seed, so the fixed map is
+    # keyed on alpha and seed (the JAX package's file name)
     idx_map = partition_fn(partition_method, train_y, num_clients, classes,
-                           partition_alpha, seed=seed)
+                           partition_alpha, seed=seed,
+                           map_path=os.path.join(data_dir, f"{name}_partition_{num_clients}"
+                                                 f"_a{partition_alpha}_s{seed}.npz"))
     xs = [train_x[idx_map[i]] for i in range(num_clients)]
     ys = [train_y[idx_map[i]] for i in range(num_clients)]
     tx, ty, tm, tc = pad_and_stack_clients(xs, ys, batch_size)

@@ -11,8 +11,11 @@ flat, keyed by the same module path joined with dots. The map is:
   ``var`` in batch_stats)  <->  the tensor of the same name. The BN
   modules are ``BatchNorm_i`` or ``PallasBatchNorm_i``.
 
-A depthwise conv's kernel (HWIO ``[k, k, 1, C]``, DARTS) maps like any
-conv's, to ``[C, 1, k, k]``. An affine-free BN (flax ``use_scale=False,
+A depthwise conv's kernel (HWIO ``[k, k, 1, C]``: DARTS, MobileNet,
+EfficientNet) maps like any conv's, to ``[C, 1, k, k]``; conv biases,
+GroupNorm's ``scale`` / ``bias``, ``Embed_0.embedding`` and the eight
+leaves of an ``OptimizedLSTMCell_i`` (``ii/if/ig/io`` kernels, ``hi/hf/hg/ho``
+kernels and biases) map by name like any other leaf. An affine-free BN (flax ``use_scale=False,
 use_bias=False``) has no ``scale``/``bias`` leaves, and the port's
 ``PallasBatchNorm(affine=False)`` keeps them out of its state dict. DARTS'
 architecture weights are no flax variables: :func:`alphas_to_torch` /

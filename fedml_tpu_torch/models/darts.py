@@ -14,11 +14,10 @@ outside the parameter tree); the stem's is affine. ``bn_impl="pallas"``
 runs every one through K1/K2 (``ops/batchnorm.py``) with ``relu=False``;
 ``"xla"`` is the plain BN.
 
-flax ``padding="SAME"`` pads ``max((out - 1) * s + d * (k - 1) + 1 - in, 0)``
-in all, the larger half at the end: at stride 2 on an even size that is
-asymmetric ((0, 1) for a 3x3 on 32 x 32, (1, 2) for a 5x5 or a dilated
-3x3, (3, 4) for a dilated 5x5), which torch's symmetric ``padding=`` does
-not give, so :class:`SameConv` and the pools pad explicitly there.
+flax ``padding="SAME"`` is asymmetric at stride 2 on an even size ((0, 1)
+for a 3x3 on 32 x 32, (1, 2) for a 5x5 or a dilated 3x3, (3, 4) for a
+dilated 5x5), so :class:`SameConv` and the pools pad explicitly there
+(``models/layers.same_pads``).
 ``max_pool`` pads with -inf; ``_avg_pool_3x3`` divides by the count of
 real elements under each window. Submodules carry the flax paths
 (``SearchCell_3.MixedOp_5.SepConv_1.Conv_2``), so ``models/convert.py``
@@ -35,7 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.models.initializers import lecun_normal_, reset_submodules
-from fedml_tpu_torch.models.layers import Dense
+from fedml_tpu_torch.models.layers import Dense, same_pads  # noqa: F401
+from fedml_tpu_torch.models.layers import pad_same_nchw as _pad_nchw
 from fedml_tpu_torch.models.norm import PallasBatchNorm
 
 PRIMITIVES = (
@@ -59,27 +59,6 @@ class Genotype(NamedTuple):
 
 def num_edges(steps: int) -> int:
     return sum(2 + i for i in range(steps))
-
-
-# -- SAME padding -----------------------------------------------------------------------
-
-def same_pads(size: int, k_eff: int, stride: int) -> tuple[int, int]:
-    """flax's SAME padding of one spatial axis: (before, after)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k_eff - size, 0)
-    return total // 2, total - total // 2
-
-
-def _pad_nchw(x: torch.Tensor, k_eff: int, stride: int, value: float = 0.0):
-    """``x`` [N, C, H, W] padded as flax SAME pads it, and the symmetric
-    padding left for the op itself: ``(x, p)`` with ``p`` the op's own
-    ``padding=`` when both axes pad symmetrically, else ``x`` padded
-    explicitly and ``p = 0``."""
-    ph = same_pads(x.shape[2], k_eff, stride)
-    pw = same_pads(x.shape[3], k_eff, stride)
-    if ph[0] == ph[1] == pw[0] == pw[1]:
-        return x, ph[0]
-    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value), 0
 
 
 def _transpose_padding(size: int, out: int, k_eff: int, stride: int) -> int:

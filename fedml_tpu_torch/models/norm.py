@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from fedml_tpu_torch.models.layers import add_flax
 from fedml_tpu_torch.ops.batchnorm import fused_bn_relu
 
 
@@ -90,3 +91,23 @@ def _bn_plain(x, gamma, beta, eps: float, relu: bool, shape: list):
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y.to(x.dtype), mean, var
+
+
+def batch_norm(features: int, bn_impl: str, fuse_relu: bool = False, axis: int = -1,
+               momentum: float = 0.9) -> tuple[str, PallasBatchNorm]:
+    """(flax class name, module) of one train-mode BatchNorm: ``BatchNorm``
+    (the plain BN) or, for ``bn_impl="pallas"``, ``PallasBatchNorm`` (the
+    kernel pair K1/K2)."""
+    if bn_impl not in ("xla", "pallas"):
+        raise ValueError(f"bn_impl must be 'xla' or 'pallas', got {bn_impl!r}")
+    name = "PallasBatchNorm" if bn_impl == "pallas" else "BatchNorm"
+    return name, PallasBatchNorm(features, momentum=momentum, fuse_relu=fuse_relu,
+                                 use_kernel=bn_impl == "pallas", axis=axis)
+
+
+def add_batch_norm(parent: nn.Module, features: int, bn_impl: str, fuse_relu: bool = False,
+                   momentum: float = 0.9) -> PallasBatchNorm:
+    """Register the next train-mode BatchNorm of ``parent`` under its flax
+    name (``BatchNorm_i`` or ``PallasBatchNorm_i``, :func:`batch_norm`) and
+    return it."""
+    return add_flax(parent, *batch_norm(features, bn_impl, fuse_relu, momentum=momentum))

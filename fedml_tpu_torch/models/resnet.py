@@ -12,6 +12,10 @@ paths (``Conv_0``, ``PallasBatchNorm_0`` or ``BatchNorm_0``,
 ``BasicBlock_3``, ``Dense_0``), so weight conversion is a path map
 (``models/convert.py``).
 
+``use_norm=False`` (``resnet56_nonorm``) has no BatchNorm: the ReLU that
+followed a norm stays. ``resnet56_w64`` / ``resnet56_w128`` are uniform
+widths at depth 56.
+
 ``conv_impl="lanes"`` runs the stages of width <= 32 on the lanes layout
 ``[N, C, H*W]`` (``ops/conv_lanes.py``): their 3x3 convs go through the
 hand-written kernels K3/K4 and their BatchNorms are the plain
@@ -47,7 +51,7 @@ from torch import nn
 from fedml_tpu_torch.models import ModelBundle, register_model
 from fedml_tpu_torch.models.initializers import lecun_normal_, reset_submodules
 from fedml_tpu_torch.models.layers import Dense
-from fedml_tpu_torch.models.norm import PallasBatchNorm
+from fedml_tpu_torch.models.norm import batch_norm as _norm
 from fedml_tpu_torch.ops import conv_lanes
 from fedml_tpu_torch.ops.packed_conv import resolve_impl
 
@@ -75,59 +79,54 @@ class Conv(nn.Module):
         return self.conv(x, self.weight, self.n_lanes, self.stride)
 
 
-def _norm(features: int, bn_impl: str, fuse_relu: bool = False,
-          axis: int = -1) -> tuple[str, PallasBatchNorm]:
-    """(flax class name, module) of one train-mode BatchNorm."""
-    if bn_impl not in ("xla", "pallas"):
-        raise ValueError(f"bn_impl must be 'xla' or 'pallas', got {bn_impl!r}")
-    name = "PallasBatchNorm" if bn_impl == "pallas" else "BatchNorm"
-    return name, PallasBatchNorm(features, momentum=0.9, fuse_relu=fuse_relu,
-                                 use_kernel=bn_impl == "pallas", axis=axis)
-
-
 class BasicBlock(nn.Module):
     """NHWC body, or with ``conv_impl="lanes"`` the lanes body
     (``fedml_tpu/models/resnet.py:_call_lanes``), whose ``forward`` also
     takes the input's (H, W)."""
 
     def __init__(self, in_features: int, filters: int, strides: int = 1, bn_impl: str = "xla",
-                 conv_impl: str = "xla", n_lanes: int = 0, packed_impl: str = "off"):
+                 conv_impl: str = "xla", n_lanes: int = 0, packed_impl: str = "off",
+                 use_norm: bool = True):
         super().__init__()
         lanes = conv_impl == "lanes"
         conv = conv_lanes.Conv if lanes else functools.partial(Conv, n_lanes=n_lanes,
                                                                packed_impl=packed_impl)
         axis = 1 if lanes else -1
         width = max(n_lanes, 1) * filters     # the lane-folded channels
-        bn, n0 = _norm(width, bn_impl, fuse_relu=True, axis=axis)
-        _, n1 = _norm(width, bn_impl, axis=axis)
-        self.Conv_0 = conv(in_features, filters, 3, strides)
-        self.add_module(f"{bn}_0", n0)
-        self.Conv_1 = conv(filters, filters, 3)
-        self.add_module(f"{bn}_1", n1)
+        bn = _norm(width, bn_impl)[0] if use_norm else None
         self.project = strides != 1 or in_features != filters
-        if self.project:
-            self.Conv_2 = conv(in_features, filters, 1, strides)
-            self.add_module(f"{bn}_2", _norm(width, bn_impl, axis=axis)[1])
+        for i, (cin, k, s) in enumerate(((in_features, 3, strides), (filters, 3, 1),
+                                         (in_features, 1, strides))[:3 if self.project else 2]):
+            self.add_module(f"Conv_{i}", conv(cin, filters, k, s))
+            if use_norm:
+                self.add_module(f"{bn}_{i}", _norm(width, bn_impl, fuse_relu=i == 0, axis=axis)[1])
         self._bn = bn
+        self.use_norm = use_norm
         self.lanes = lanes
         self.strides = strides
 
+    def _normed(self, i: int, y: torch.Tensor) -> torch.Tensor:
+        """BatchNorm ``i`` (the first with its ReLU fused), or without norms
+        (``use_norm=False``) that ReLU alone."""
+        if self.use_norm:
+            return getattr(self, f"{self._bn}_{i}")(y)
+        return torch.relu(y) if i == 0 else y
+
     def forward(self, x: torch.Tensor, hw: Optional[tuple] = None) -> torch.Tensor:
-        bn = self._bn
         if self.lanes:
             h, w = hw
             s = self.strides
-            y = getattr(self, f"{bn}_0")(self.Conv_0(x, (h, w)))      # BN + fused ReLU
-            y = getattr(self, f"{bn}_1")(self.Conv_1(y, (h // s, w // s)))
+            y = self._normed(0, self.Conv_0(x, (h, w)))      # BN + fused ReLU
+            y = self._normed(1, self.Conv_1(y, (h // s, w // s)))
             residual = x
             if self.project:
-                residual = getattr(self, f"{bn}_2")(self.Conv_2(x, (h, w)))
+                residual = self._normed(2, self.Conv_2(x, (h, w)))
             return torch.relu(y + residual)
-        y = getattr(self, f"{bn}_0")(self.Conv_0(x))      # BN + fused ReLU
-        y = getattr(self, f"{bn}_1")(self.Conv_1(y))
+        y = self._normed(0, self.Conv_0(x))      # BN + fused ReLU
+        y = self._normed(1, self.Conv_1(y))
         residual = x
         if self.project:
-            residual = getattr(self, f"{bn}_2")(self.Conv_2(x))
+            residual = self._normed(2, self.Conv_2(x))
         return torch.relu(y + residual)
 
 
@@ -137,7 +136,7 @@ class CifarResNet(nn.Module):
     def __init__(self, blocks_per_stage: int, output_dim: int = 10,
                  dtype: torch.dtype = torch.float32, widths: tuple = (16, 32, 64),
                  bn_impl: str = "xla", conv_impl: str = "xla", n_lanes: int = 0,
-                 packed_impl: str = "off"):
+                 packed_impl: str = "off", use_norm: bool = True):
         super().__init__()
         if conv_impl == "packed":
             raise NotImplementedError("conv_impl='packed' (the JAX package's lane-major body) "
@@ -155,15 +154,17 @@ class CifarResNet(nn.Module):
                                       "(the packed schedule takes conv_impl='xla')")
         self._config = dict(blocks_per_stage=blocks_per_stage, output_dim=output_dim,
                             dtype=dtype, widths=tuple(widths), bn_impl=bn_impl,
-                            conv_impl=conv_impl)
+                            conv_impl=conv_impl, use_norm=use_norm)
         self.dtype = dtype
         self.n_lanes = n_lanes
         #: the lane-stacked twin takes the joint lowerings (ModelBundle.packed_twin)
         self.packed_twin = conv_impl == "xla"
         self.Conv_0 = Conv(3, widths[0], 3, n_lanes=n_lanes, packed_impl=packed_impl)  # RGB
-        bn, stem_norm = _norm(max(n_lanes, 1) * widths[0], bn_impl, fuse_relu=True)
-        self.add_module(f"{bn}_0", stem_norm)
-        self._stem_norm = f"{bn}_0"
+        self._stem_norm = None
+        if use_norm:
+            bn, stem_norm = _norm(max(n_lanes, 1) * widths[0], bn_impl, fuse_relu=True)
+            self.add_module(f"{bn}_0", stem_norm)
+            self._stem_norm = f"{bn}_0"
         # lanes: the stages of width <= 32 run on the lanes layout
         blocks, cin, i = [], widths[0], 0
         for stage, filters in enumerate(widths):
@@ -172,7 +173,7 @@ class CifarResNet(nn.Module):
                 strides = 2 if stage > 0 and block == 0 else 1
                 self.add_module(f"BasicBlock_{i}", BasicBlock(
                     cin, filters, strides, bn_impl, "lanes" if lanes else "xla", n_lanes,
-                    packed_impl))
+                    packed_impl, use_norm))
                 blocks.append(f"BasicBlock_{i}")
                 cin, i = filters, i + 1
         self._blocks = blocks
@@ -198,7 +199,8 @@ class CifarResNet(nn.Module):
         x = x.to(self.dtype)
         if self.n_lanes:        # [L, N, H, W, C] -> [N, H, W, L*C]
             x = x.permute(1, 2, 3, 0, 4).reshape(*x.shape[1:4], -1)
-        x = getattr(self, self._stem_norm)(self.Conv_0(x))
+        x = self.Conv_0(x)
+        x = getattr(self, self._stem_norm)(x) if self._stem_norm else torch.relu(x)
         h, w = x.shape[1], x.shape[2]
         in_lanes = False
         for name in self._blocks:
@@ -241,4 +243,24 @@ def _register_resnet(name: str, depth: int):
 _register_resnet("resnet56", 56)
 _register_resnet("resnet110", 110)
 _register_resnet("resnet20", 20)
+
+
+def _register_variant(name: str, widths: tuple = (16, 32, 64), use_norm: bool = True):
+    """The depth-56 measurement variants of the JAX package
+    (``docs/mfu_experiments.md``): uniform widths, or no BatchNorm at all.
+    Like the JAX bundles they have no joint packed lowering
+    (``ModelBundle.packed_twin`` is False)."""
+
+    @register_model(name)
+    def _factory(output_dim: int, dtype=torch.float32, bn_impl: str = "xla", **_):
+        module = CifarResNet(9, output_dim, dtype=dtype, widths=widths, bn_impl=bn_impl,
+                             use_norm=use_norm)
+        module.packed_twin = False
+        return ModelBundle(name=name, module=module, input_shape=(32, 32, 3))
+    return _factory
+
+
+_register_variant("resnet56_w64", (64, 64, 64))
+_register_variant("resnet56_w128", (128, 128, 128))
+_register_variant("resnet56_nonorm", use_norm=False)
 

@@ -14,8 +14,15 @@ so the logits are f32. ``remat=True`` recomputes each block's activations
 during the backward (``torch.utils.checkpoint``, non-reentrant), as
 ``nn.remat`` does; the attention kernel then runs twice per block and step.
 
+``dropout > 0`` drops each block's attention output and MLP output in
+train mode (flax ``nn.Dropout`` there, explicit-key ``seed_dropout`` here:
+block i's call sites are 2i and 2i + 1, ``ops/dropout.py``);
+``forward(x, dropout_key=...)`` takes the step's key, and the recomputed
+block under ``remat`` draws the same masks again. The dropout is outside
+the attention kernel, as in the JAX package.
+
 Not ported yet, and refused with ``NotImplementedError``: sequence
-parallelism (``ring_size > 1``) and dropout (``dropout > 0``).
+parallelism (``ring_size > 1``).
 """
 
 from __future__ import annotations
@@ -30,13 +37,12 @@ from torch.utils.checkpoint import checkpoint
 from fedml_tpu_torch.models import ModelBundle, register_model
 from fedml_tpu_torch.models.layers import Dense, Embed, LayerNorm
 from fedml_tpu_torch.ops.attention import attention
+from fedml_tpu_torch.ops.dropout import seed_dropout
 
 
-def _check_unported(ring_size: int, dropout: float) -> None:
+def _check_unported(ring_size: int) -> None:
     if ring_size > 1:
         raise NotImplementedError("ring_size > 1: sequence parallelism is not ported yet")
-    if dropout > 0:
-        raise NotImplementedError("dropout > 0: dropout is not ported yet")
 
 
 class SelfAttention(nn.Module):
@@ -44,7 +50,7 @@ class SelfAttention(nn.Module):
                  ring_axis: Optional[str] = None, ring_size: int = 1, sp_mode: str = "ring",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_unported(ring_size, 0.0)
+        _check_unported(ring_size)
         self.dim, self.heads, self.attn_impl = dim, heads, attn_impl
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.out = Dense(dim, dim, dtype=dtype)
@@ -67,17 +73,22 @@ class Block(nn.Module):
                  attn_impl: str = "auto", ring_axis: Optional[str] = None, ring_size: int = 1,
                  sp_mode: str = "ring", dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_unported(ring_size, dropout)
+        _check_unported(ring_size)
+        self.dropout = dropout
+        self.site = 0        # the attention output's call site; the MLP's is site + 1
         self.attn = SelfAttention(dim, heads, attn_impl, ring_axis, ring_size, sp_mode, dtype)
         self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
         self.LayerNorm_1 = LayerNorm(dim, dtype=dtype)
         self.Dense_0 = Dense(dim, mlp_ratio * dim, dtype=dtype)
         self.Dense_1 = Dense(mlp_ratio * dim, dim, dtype=dtype)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        h = h + self.attn(self.LayerNorm_0(h))
+    def forward(self, h: torch.Tensor, dropout_key: Optional[torch.Tensor] = None):
+        off = not self.training
+        a = seed_dropout(self.attn(self.LayerNorm_0(h)), dropout_key, self.dropout, self.site,
+                         off)
+        h = h + a
         m = F.gelu(self.Dense_0(self.LayerNorm_1(h)), approximate="tanh")
-        return h + self.Dense_1(m)
+        return h + seed_dropout(self.Dense_1(m), dropout_key, self.dropout, self.site + 1, off)
 
 
 class TransformerLM(nn.Module):
@@ -86,7 +97,7 @@ class TransformerLM(nn.Module):
                  attn_impl: str = "auto", ring_axis: Optional[str] = None, ring_size: int = 1,
                  sp_mode: str = "ring", remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_unported(ring_size, dropout)
+        _check_unported(ring_size)
         self.remat = remat
         self.tok_embed = Embed(vocab_size, dim, dtype=dtype)
         self.pos_embed = Embed(max_len, dim, dtype=dtype)
@@ -94,6 +105,7 @@ class TransformerLM(nn.Module):
         for i in range(layers):
             self.add_module(f"block{i}", Block(dim, heads, mlp_ratio, dropout, attn_impl,
                                                ring_axis, ring_size, sp_mode, dtype))
+            getattr(self, f"block{i}").site = 2 * i
         self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
         self.lm_head = Dense(dim, vocab_size, dtype=torch.float32)
 
@@ -103,8 +115,10 @@ class TransformerLM(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, pos_offset: int = 0) -> torch.Tensor:
-        """x: [B, T] token ids -> [B, T, vocab] f32 logits."""
+    def forward(self, x: torch.Tensor, pos_offset: int = 0,
+                dropout_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: [B, T] token ids -> [B, T, vocab] f32 logits; ``dropout_key``
+        the step's key (train mode with ``dropout > 0``)."""
         t = x.shape[1]
         h = self.tok_embed(x)
         pos = pos_offset + torch.arange(t, device=x.device)
@@ -112,9 +126,9 @@ class TransformerLM(nn.Module):
         for i in range(self.layers):
             block = getattr(self, f"block{i}")
             if self.remat and torch.is_grad_enabled():
-                h = checkpoint(block, h, use_reentrant=False)
+                h = checkpoint(block, h, dropout_key, use_reentrant=False)
             else:
-                h = block(h)
+                h = block(h, dropout_key)
         return self.lm_head(self.LayerNorm_0(h))
 
 
@@ -129,7 +143,8 @@ def _bundle(name: str, vocab: int, seq_len: int, **kw) -> ModelBundle:
                            sp_mode=kw.pop("sp_mode", "ring"),
                            remat=kw.pop("remat", False),
                            dtype=kw.pop("dtype", torch.float32), **sizes)
-    return ModelBundle(name=name, module=module, input_shape=(seq_len,))
+    return ModelBundle(name=name, module=module, input_shape=(seq_len,),
+                       uses_dropout=sizes["dropout"] > 0)
 
 
 @register_model("transformer")

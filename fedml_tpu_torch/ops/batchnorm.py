@@ -32,7 +32,6 @@ LAUNCHES = {"bn_fwd": 0, "bn_bwd": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -77,6 +76,8 @@ def _lib():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fedml_bn_plan_ints.argtypes = []
     lib.fedml_bn_plan_ints.restype = i
+    lib.fedml_bn_max_channels.argtypes = []
+    lib.fedml_bn_max_channels.restype = i
     lib.fedml_bn_plan.argtypes = [i, ll, i, i, i, p]
     lib.fedml_bn_plan.restype = i
     lib.fedml_bn_fwd.argtypes = [p, p, p, p, p, p, p, p, p, ll, i, ctypes.c_float, i, i, p, p]
@@ -117,8 +118,12 @@ def _check_x(x2d: torch.Tensor) -> None:
         raise ValueError(f"x must be a contiguous float32 or bfloat16 [n, C] tensor; "
                          f"got {tuple(x2d.shape)} {x2d.dtype}")
     n, C = x2d.shape
-    if n < 1 or not 1 <= C <= 1024:
-        raise ValueError(f"the kernel takes n >= 1 rows and 1 <= C <= 1024; got {n}, {C}")
+    # the widest row, csrc/batchnorm.cu kBnMaxC; rows wider than 1024 scalar
+    # or 2048 bf16 channels run the kernels' wide instantiation
+    widest = _lib().fedml_bn_max_channels()
+    if n < 1 or not 1 <= C <= widest:
+        raise ValueError(f"the kernel takes n >= 1 rows and 1 <= C <= {widest}; "
+                         f"got {n}, {C}")
 
 
 #: the plan fields of K1 and K2 (csrc/batchnorm.cu Geom), in order

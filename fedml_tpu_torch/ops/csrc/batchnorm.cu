@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernels in fedml_tpu/ops/batchnorm.py:
 //   K1 _fwd_kernel (launched by _fwd), K2 _bwd_kernel (launched by _fused_bwd).
 //
-// The activation is the row-major [n, C] view of an NHWC tensor (C <= 1024;
-// ResNet-56 has C = 16, 32, 64). Both passes do a handful of flops per
+// The activation is the row-major [n, C] view of an NHWC tensor (C <= 4096;
+// ResNet-56 has C = 16, 32, 64, EfficientNet-b7 up to 3840). Both passes do a handful of flops per
 // element, so they are bound by device-memory bytes: K1 must read x and
 // write y, K2 must read x, dy (and y for the ReLU mask) and write dx. At
 // ResNet-56's shapes that is 0.3-2.5 us of bytes a call, so what a call
@@ -31,6 +31,16 @@
 //     per-channel coefficients sit in its registers: no per-element
 //     division or modulo.
 // No float atomics: two calls on the same inputs give the same bits.
+//
+// Wide rows. A thread owns up to kBnMaxCols scalar columns, or one vector
+// column, in its registers (1024 channels at 256 threads, 2048 bf16); a row
+// wider than that (EfficientNet's 1152-3840 channels) takes the kernels'
+// Wide instantiation, which owns up to kBnWideCols columns a thread with
+// one row of loads in flight, as a wide row already gives each thread that
+// many loads a row. The plan picks it from the columns a thread needs, so
+// every narrower shape runs the same code and plan as before; the sums keep
+// their fixed order. The f64 sums of the partials, two f32 coefficients and
+// at least one row a block on chip bound C to kBnMaxC in shared memory.
 //
 // K1 (bn_fwd_onepass) sums x and x^2 and keeps only x on chip, so a block
 // holds twice K2's rows per byte; the f64 sums give mean, var = E[x^2] -
@@ -69,6 +79,7 @@ constexpr int kBnThreads = 256;
 constexpr int kBnBlocksPerSm = 1;
 constexpr int kBnMaxCols = 1024 / kBnThreads;  // vector columns a thread owns, scalar loads
 constexpr int kBnUnroll = 4;                    // rows of loads in flight per thread
+constexpr int kBnMaxC = 4096;                   // channels the kernels take
 constexpr int kBnSumLoads = 8;                  // partials in flight per thread in the sum
 constexpr size_t kBnStageBudget = 88 * 1024;    // bytes of rows a block keeps on chip
 
@@ -97,6 +108,12 @@ struct Geom {
                     // K2: dbeta / n, dgamma / n)
 };
 constexpr int kPlanInts = sizeof(Geom) / sizeof(int);
+
+// Vector columns a thread owns: narrow, at most kBnMaxCols scalar or one
+// vector column; wide, enough for kBnMaxC channels at kBnThreads threads.
+__host__ __device__ constexpr int max_cols(int V, bool wide) {
+  return wide ? (kBnMaxC / V + kBnThreads - 1) / kBnThreads : (V == 1 ? kBnMaxCols : 1);
+}
 
 template <typename T, int V>
 struct alignas(V * sizeof(T)) Pack {
@@ -201,14 +218,15 @@ __device__ __forceinline__ int sum_all_partials(const float* partial, int C, dou
 // block 0 writes out; pass 1 writes y from the rows on chip (re-reading the
 // rows past `cap` from device memory). Thread t owns the same vector columns
 // in every row, so its channels' mean, rstd, gamma and beta sit in registers.
-template <typename T, int V>
+template <typename T, int V, bool Wide>
 __global__ void __launch_bounds__(kBnThreads, kBnBlocksPerSm)
 bn_fwd_onepass(const T* __restrict__ x, const float* __restrict__ gamma,
                const float* __restrict__ beta, T* __restrict__ y, float* __restrict__ mean,
                float* __restrict__ rstd, float* __restrict__ var, float* __restrict__ partial,
                unsigned int* bar, long long n, int C, float eps, int relu, Geom g) {
   using P = Pack<T, V>;
-  constexpr int MC = V == 1 ? kBnMaxCols : 1;  // V > 1 gives vpr <= 256: one column
+  constexpr int MC = max_cols(V, Wide);
+  constexpr int UN = Wide ? 1 : kBnUnroll;  // rows of loads in flight
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   P* sx = reinterpret_cast<P*>(smem);  // [cap][vpr]
@@ -233,17 +251,17 @@ bn_fwd_onepass(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 
   // pass 0: kBnUnroll rows of loads in flight, then sums and the stage
-  for (long long rr = ro; rr < rows; rr += kBnUnroll * g.R) {
-    P xv[kBnUnroll][MC];
+  for (long long rr = ro; rr < rows; rr += UN * g.R) {
+    P xv[UN][MC];
 #pragma unroll
-    for (int u = 0; u < kBnUnroll; ++u) {
+    for (int u = 0; u < UN; ++u) {
       const long long r = rr + (long long)u * g.R;
 #pragma unroll
       for (int k = 0; k < MC; ++k)
         if (r < rows && live[k]) xv[u][k] = load_pack<T, V>(x, (r0 + r) * vpr + col[k]);
     }
 #pragma unroll
-    for (int u = 0; u < kBnUnroll; ++u) {
+    for (int u = 0; u < UN; ++u) {
       const long long r = rr + (long long)u * g.R;
 #pragma unroll
       for (int k = 0; k < MC; ++k) {
@@ -335,7 +353,7 @@ bn_fwd_onepass(const T* __restrict__ x, const float* __restrict__ gamma,
 // `cap` from device memory). Thread t owns the same vector columns in every
 // row, so its channels, their mean / rstd and the coefficients of pass 1
 // sit in registers.
-template <typename T, int V>
+template <typename T, int V, bool Wide>
 __global__ void __launch_bounds__(kBnThreads, kBnBlocksPerSm)
 bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ dy,
                const float* __restrict__ gamma, const float* __restrict__ mean,
@@ -343,7 +361,8 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
                float* __restrict__ dbeta, float* __restrict__ partial, unsigned int* bar,
                long long n, int C, int relu, Geom g) {
   using P = Pack<T, V>;
-  constexpr int MC = V == 1 ? kBnMaxCols : 1;  // V > 1 gives vpr <= 256: one column
+  constexpr int MC = max_cols(V, Wide);
+  constexpr int UN = Wide ? 1 : kBnUnroll;  // rows of loads in flight
   extern __shared__ float4 smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   P* sx = reinterpret_cast<P*>(smem);                 // [cap][vpr]
@@ -374,10 +393,10 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
   }
 
   // pass 0: kBnUnroll rows of loads in flight, then sums and the stage
-  for (long long rr = ro; rr < rows; rr += kBnUnroll * g.R) {
-    P xv[kBnUnroll][MC], dv[kBnUnroll][MC], yv[kBnUnroll][MC];
+  for (long long rr = ro; rr < rows; rr += UN * g.R) {
+    P xv[UN][MC], dv[UN][MC], yv[UN][MC];
 #pragma unroll
-    for (int u = 0; u < kBnUnroll; ++u) {
+    for (int u = 0; u < UN; ++u) {
       const long long r = rr + (long long)u * g.R;
 #pragma unroll
       for (int k = 0; k < MC; ++k) {
@@ -390,7 +409,7 @@ bn_bwd_onepass(const T* __restrict__ x, const T* __restrict__ y, const T* __rest
       }
     }
 #pragma unroll
-    for (int u = 0; u < kBnUnroll; ++u) {
+    for (int u = 0; u < UN; ++u) {
       const long long r = rr + (long long)u * g.R;
 #pragma unroll
       for (int k = 0; k < MC; ++k) {
@@ -531,10 +550,18 @@ cudaError_t plan_t(Kernel kernel, int kept, long long n, int C, Geom* g) {
   return cudaSuccess;
 }
 
+// Whether a plan's threads own more columns than the narrow kernels hold.
+__host__ __device__ constexpr bool wide_plan(const Geom& g) { return g.cols > max_cols(g.V, false); }
+
 template <typename T, int V>
 cudaError_t plan_v(int backward, long long n, int C, Geom* g) {
-  return backward ? plan_t<T, V>(bn_bwd_onepass<T, V>, 2, n, C, g)
-                  : plan_t<T, V>(bn_fwd_onepass<T, V>, 1, n, C, g);
+  const int vpr = C / V;
+  const bool wide = vpr > kBnThreads * max_cols(V, false);
+  if (wide)
+    return backward ? plan_t<T, V>(bn_bwd_onepass<T, V, true>, 2, n, C, g)
+                    : plan_t<T, V>(bn_fwd_onepass<T, V, true>, 1, n, C, g);
+  return backward ? plan_t<T, V>(bn_bwd_onepass<T, V, false>, 2, n, C, g)
+                  : plan_t<T, V>(bn_fwd_onepass<T, V, false>, 1, n, C, g);
 }
 
 cudaError_t plan(int backward, long long n, int C, int dtype, int aligned, Geom* g) {
@@ -562,7 +589,9 @@ int fwd_launch(const void* x, const float* gamma, const float* beta, void* y, fl
   void* args[] = {(void*)&xt,   (void*)&gamma,   (void*)&beta, (void*)&yt,  (void*)&mean,
                   (void*)&rstd, (void*)&var,     (void*)&partial, (void*)&bar, (void*)&n,
                   (void*)&C,    (void*)&eps,     (void*)&relu, (void*)&gg};
-  return (int)launch((const void*)bn_fwd_onepass<T, V>, g, C, args, stream);
+  const void* kernel = wide_plan(g) ? (const void*)bn_fwd_onepass<T, V, true>
+                                     : (const void*)bn_fwd_onepass<T, V, false>;
+  return (int)launch(kernel, g, C, args, stream);
 }
 
 template <typename T, int V>
@@ -578,7 +607,9 @@ int bwd_launch(const void* x, const void* y, const void* dy, const float* gamma,
   void* args[] = {(void*)&xt,     (void*)&yt,     (void*)&dyt,   (void*)&gamma, (void*)&mean,
                   (void*)&rstd,   (void*)&dxt,    (void*)&dgamma, (void*)&dbeta, (void*)&partial,
                   (void*)&bar,    (void*)&n,      (void*)&C,     (void*)&relu,  (void*)&gg};
-  return (int)launch((const void*)bn_bwd_onepass<T, V>, g, C, args, stream);
+  const void* kernel = wide_plan(g) ? (const void*)bn_bwd_onepass<T, V, true>
+                                     : (const void*)bn_bwd_onepass<T, V, false>;
+  return (int)launch(kernel, g, C, args, stream);
 }
 
 }  // namespace
@@ -593,8 +624,11 @@ extern "C" {
 // error code.
 int fedml_bn_plan_ints() { return kPlanInts; }
 
+// The widest row (channels) the kernels take.
+int fedml_bn_max_channels() { return kBnMaxC; }
+
 int fedml_bn_plan(int backward, long long n, int C, int dtype, int aligned, int* plan_out) {
-  if (n < 1 || C < 1 || C > 1024) return (int)cudaErrorInvalidValue;
+  if (n < 1 || C < 1 || C > kBnMaxC) return (int)cudaErrorInvalidValue;
   Geom g;
   cudaError_t e = plan(backward, n, C, dtype, aligned, &g);
   if (e == cudaSuccess) *reinterpret_cast<Geom*>(plan_out) = g;
@@ -609,7 +643,7 @@ int fedml_bn_plan(int backward, long long n, int C, int dtype, int aligned, int*
 int fedml_bn_fwd(const void* x, const float* gamma, const float* beta, void* y, float* mean,
                  float* rstd, float* var, float* partial, unsigned int* barrier, long long n,
                  int C, float eps, int relu, int dtype, const int* plan, void* stream) {
-  if (n < 1 || C < 1 || C > 1024) return (int)cudaErrorInvalidValue;
+  if (n < 1 || C < 1 || C > kBnMaxC) return (int)cudaErrorInvalidValue;
   const Geom& g = *reinterpret_cast<const Geom*>(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -634,7 +668,7 @@ int fedml_bn_bwd(const void* x, const void* y, const void* dy, const float* gamm
                  const float* mean, const float* rstd, void* dx, float* dgamma, float* dbeta,
                  float* partial, unsigned int* barrier, long long n, int C, int relu, int dtype,
                  const int* plan, void* stream) {
-  if (n < 1 || C < 1 || C > 1024) return (int)cudaErrorInvalidValue;
+  if (n < 1 || C < 1 || C > kBnMaxC) return (int)cudaErrorInvalidValue;
   const Geom& g = *reinterpret_cast<const Geom*>(plan);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {

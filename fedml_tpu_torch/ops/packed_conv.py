@@ -53,6 +53,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from fedml_tpu_torch.models.layers import same_pads
+
 
 def stack_variables(variables: dict, k: int) -> dict:
     """Standard state dict -> lane-stacked state dict holding ``k``
@@ -112,14 +114,6 @@ def block_diag_unstack(wbd: torch.Tensor, k: int, kh: int, kw: int, ci: int,
 
 
 # -- the lowerings --------------------------------------------------------------
-
-def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
-    """flax padding='SAME': (low, high) pads of one spatial dim. At k=3,
-    s=2 on an even size this is (0, 1), not PyTorch's symmetric (1, 1)."""
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
 
 def _pads(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str) -> tuple:
     """((top, bottom), (left, right)) of NHWC ``x`` under ``padding``."""

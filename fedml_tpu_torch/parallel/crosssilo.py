@@ -91,13 +91,16 @@ def mesh_finish(mesh, variables0: dict, acc: dict, loss_sum: torch.Tensor,
 class SiloWork(NamedTuple):
     """One client of a rank's share of a mesh round: its records (on the
     rank's device, the record axis possibly cut to a group's scan length),
-    its real count, its aggregation weight and its per-epoch orders."""
+    its real count, its aggregation weight, its per-epoch orders and its
+    dropout key (``ops/dropout.client_key``; None for a model without
+    dropout)."""
     x: torch.Tensor
     y: torch.Tensor
     mask: torch.Tensor
     count: int
     weight: float
     orders: torch.Tensor
+    key: Optional[int] = None
 
 
 def make_crosssilo_round(local_train: Callable, mesh, *,
@@ -123,7 +126,7 @@ def make_crosssilo_round(local_train: Callable, mesh, *,
         loss_sum = torch.zeros((), device=dev)
         extras = None
         for c in work:
-            res = local_train(variables, c.x, c.y, c.mask, c.count, orders=c.orders)
+            res = local_train(variables, c.x, c.y, c.mask, c.count, orders=c.orders, key=c.key)
             one = {k: v.unsqueeze(0) for k, v in res.variables.items()}
             out = one if client_transform is None else client_transform(variables, one)
             torch._foreach_add_(list(acc.values()), [out[k][0].to(torch.float32) for k in acc],
@@ -170,7 +173,8 @@ def make_hierarchical_round(local_train: Callable, mesh, group_rounds: int = 1) 
             acc = [torch.zeros_like(variables[k], dtype=torch.float32) for k in names]
             loss_sum = torch.zeros((), device=dev)
             for c in clients:
-                res = local_train(gvars, c.x, c.y, c.mask, c.count, orders=c.orders)
+                res = local_train(gvars, c.x, c.y, c.mask, c.count, orders=c.orders,
+                                  key=c.key)
                 torch._foreach_add_(acc, [res.variables[k].to(torch.float32) for k in names],
                                     alpha=c.weight)
                 loss_sum = loss_sum + res.train_loss * c.weight

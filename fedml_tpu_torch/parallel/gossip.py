@@ -76,7 +76,8 @@ def make_gossip_round(local_train: Callable, mesh, pushsum: bool = False) -> Cal
             raise ValueError(f"{len(work)} nodes of work for {n_local} columns of W")
         start = mesh.rank * n_local
         results = [local_train({k: v[start + i] for k, v in node_vars.items()}, c.x, c.y,
-                               c.mask, c.count, orders=c.orders) for i, c in enumerate(work)]
+                               c.mask, c.count, orders=c.orders, key=c.key)
+                   for i, c in enumerate(work)]
         part = mix_flat(W_cols, flatten_nodes(tree_stack([r.variables for r in results])))
         dev = part.device
         w = torch.tensor([c.weight for c in work], dtype=torch.float32, device=dev)

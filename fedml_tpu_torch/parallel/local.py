@@ -13,6 +13,13 @@ CUDA each live step is a replay of one captured CUDA graph per step shape
 term, the clip, the optimizer update and the gradients' reset. The
 permutation, the real-first sort and the gather of each batch into the
 step's static inputs stay eager, as do evaluation and aggregation.
+
+A dropout model (``ModelBundle.uses_dropout``) takes the step's key as one
+more static input, an int64 scalar written before each step
+(``ops/dropout.step_keys`` of the client's key, the epoch and the step), so
+replay k draws the masks of eager step k. The client's key,
+``ops/dropout.client_key`` of (seed, round, cohort position), comes with
+its orders from the schedule.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.tasks import Task, segmentation_scores
 from fedml_tpu_torch.models import ModelBundle
+from fedml_tpu_torch.ops.dropout import step_keys
 from fedml_tpu_torch.parallel.capture import CapturedStep
 
 
@@ -79,8 +87,9 @@ def prox_term(params: list, anchor: list, prox_mu: float, n_lanes: int = 0) -> t
 def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
                         grad_clip: Optional[float] = None, prox_mu: float = 0.0):
     """ONE minibatch step on ``bundle.module``:
-    ``step(module, opt, bx, by, bm, anchor=None) -> loss``, ``opt`` a bound
-    optimizer (``make_optimizer(...)(params)``). The gradients are zeroed
+    ``step(module, opt, bx, by, bm, anchor=None, key=None) -> loss``, ``opt``
+    a bound optimizer (``make_optimizer(...)(params)``), ``key`` the step's
+    dropout key (a dropout model's ``dropout_key``). The gradients are zeroed
     in place first (``opt.zero_grad(set_to_none=False)``), so they keep
     their addresses. With ``prox_mu`` the loss gains
     ``0.5 * prox_mu * ||w - anchor||^2`` over the parameters (``anchor``:
@@ -88,10 +97,11 @@ def make_batch_sgd_step(bundle: ModelBundle, task: Task, *,
     (:func:`clip_grads_`). Syncs nothing with the host, so it can be
     captured."""
 
-    def batch_step(module, opt, bx, by, bm, anchor=None):
+    def batch_step(module, opt, bx, by, bm, anchor=None, key=None):
         module.train()
         opt.zero_grad(set_to_none=False)
-        loss = task.loss(module(bx), by, bm)
+        out = module(bx) if key is None else module(bx, dropout_key=key)
+        loss = task.loss(out, by, bm)
         loss.backward()
         loss = loss.detach()
         if prox_mu:
@@ -145,7 +155,7 @@ def make_local_train_fn(
     capture: bool = True,
 ):
     """Build ``local_train(variables, x, y, mask, count, generator=None,
-    orders=None) -> LocalResult``. ``optimizer``: any name of
+    orders=None, key=None) -> LocalResult``. ``optimizer``: any name of
     :func:`make_optimizer`; ``prox_mu``: FedProx's term, anchored at
     ``variables``.
 
@@ -154,7 +164,9 @@ def make_local_train_fn(
     its real record count. Each epoch draws a permutation of n_pad (from
     ``generator``, or ``orders[e]`` when given — the hook parity tests use
     to inject the JAX package's permutations) and stable-sorts it so the
-    real records lead.
+    real records lead. A dropout model's steps take ``step_keys`` of
+    ``key``, the client's key (``ops/dropout.client_key``), which such a
+    model requires.
 
     The optimizer is bound to ``bundle.module`` once, at the first call,
     and reset for every client; FedProx's anchor is a static copy of the
@@ -185,11 +197,23 @@ def make_local_train_fn(
         if prog is None:
             inputs = [torch.empty((batch_size, *t.shape[1:]), dtype=t.dtype, device=t.device)
                       for t in (x, y, mask)]
+            if bundle.uses_dropout:      # the step's dropout key
+                inputs.append(torch.zeros((), dtype=torch.int64, device=x.device))
             anchor = bound.get("anchor")
             prog = programs[key] = CapturedStep(
-                lambda bx, by, bm: batch_step(module, opt, bx, by, bm, anchor), inputs,
-                lambda: module_state(module, opt), capture)
+                lambda bx, by, bm, k=None: batch_step(module, opt, bx, by, bm, anchor, k),
+                inputs, lambda: module_state(module, opt), capture)
         return prog
+
+    def check_key(key: Optional[int]) -> None:
+        if bundle.uses_dropout and key is None:
+            raise ValueError(f"model {bundle.name!r} drops out: local training needs the "
+                             "client's dropout key (ops/dropout.client_key)")
+
+    def set_key(step: CapturedStep, key: Optional[int], epoch: int, s: int) -> None:
+        """Write the step's dropout key into its static input."""
+        if bundle.uses_dropout:
+            step.inputs[3].fill_(int(step_keys(key, epoch, s)))
 
     def begin(variables: dict, x, y, mask) -> CapturedStep:
         """Load ``variables``, reset the optimizer (and FedProx's anchor) and
@@ -210,7 +234,9 @@ def make_local_train_fn(
 
     def local_train(variables: dict, x, y, mask, count: int,
                     generator: Optional[torch.Generator] = None,
-                    orders: Optional[Sequence[torch.Tensor]] = None) -> LocalResult:
+                    orders: Optional[Sequence[torch.Tensor]] = None,
+                    key: Optional[int] = None) -> LocalResult:
+        check_key(key)
         n_pad = x.shape[0]
         if n_pad % batch_size:
             raise ValueError(f"n_pad={n_pad} is not a multiple of batch_size={batch_size}")
@@ -227,12 +253,13 @@ def make_local_train_fn(
                 idx = order[s * batch_size:(s + 1) * batch_size]
                 for src, dst in zip((x, y, mask), step.inputs):
                     torch.index_select(src, 0, idx, out=dst)
+                set_key(step, key, e, s)
                 total = total + step()
             ep_losses.append(total / max(steps_real, 1))
         return end(ep_losses, steps_real)
 
     def stream_train(variables: dict, batches: Iterator[torch.Tensor], y, mask,
-                     orders: torch.Tensor) -> LocalResult:
+                     orders: torch.Tensor, key: Optional[int] = None) -> LocalResult:
         """``local_train`` of one client whose records stream in: ``orders``
         ``[epochs, steps * batch_size]`` holds each epoch's real-first order
         (:func:`real_first`) cut to its live steps' records, ``batches``
@@ -240,7 +267,8 @@ def make_local_train_fn(
         device, epoch after epoch, and ``y``/``mask`` are the client's
         labels and mask on the device, gathered once an epoch. Each batch is
         copied into the same step program ``local_train`` runs, so with the
-        same orders both give the same result bit for bit."""
+        same orders and ``key`` both give the same result bit for bit."""
+        check_key(key)
         steps_real = orders.shape[1] // batch_size
         first = next(batches)
         spec = (first.to(compute_dtype)
@@ -256,6 +284,7 @@ def make_local_train_fn(
                 rows = slice(s * batch_size, (s + 1) * batch_size)
                 for src, dst in zip((next(batches), ye[rows], me[rows]), step.inputs):
                     dst.copy_(src)
+                set_key(step, key, e, s)
                 total = total + step()
             ep_losses.append(total / max(steps_real, 1))
         return end(ep_losses, steps_real)

@@ -59,6 +59,7 @@ from fedml_tpu_torch.core.optim import state_tensors
 from fedml_tpu_torch.core.pytree import tree_add
 from fedml_tpu_torch.core.tasks import Task
 from fedml_tpu_torch.models import ModelBundle
+from fedml_tpu_torch.ops.dropout import step_keys
 from fedml_tpu_torch.ops.packed_conv import stack_variables
 from fedml_tpu_torch.parallel.capture import CapturedStep
 from fedml_tpu_torch.parallel.crosssilo import mesh_finish
@@ -234,14 +235,17 @@ def packed_fallback_reason(bundle: ModelBundle, packed_conv: str) -> Optional[st
     """Why the joint lowering does NOT apply (None = it does), the JAX
     package's reasons word for word: the flag is off; the model has no twin
     that takes the lowerings (``ModelBundle.packed_twin``: ``lr``,
-    ``transformer``, the lanes body). No client optimizer disqualifies (its
-    state is folded per lane). JAX's third reason, dropout without an
-    explicit per-lane key stream, cannot arise: no ported model has dropout
-    (ROADMAP §1 item 8)."""
+    ``transformer``, EfficientNet, the lanes body); the model drops out and
+    its twin has no explicit per-lane key stream
+    (``ModelBundle.explicit_dropout``; ``cnn_dropout`` has one). No client
+    optimizer disqualifies (its state is folded per lane)."""
     if packed_conv in (None, "", "off"):
         return "packed_conv=off"
     if not bundle.packed_twin:
         return f"model {bundle.name!r} has no packed conv variant"
+    if bundle.uses_dropout and not bundle.explicit_dropout:
+        return (f"model {bundle.name!r} uses flax-rng dropout and its "
+                "packed twin has no explicit per-lane key stream")
     return None
 
 
@@ -335,7 +339,7 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
                              reduce_extras: Optional[Callable] = None,
                              packed_conv: str = "off", capture: bool = True):
     """Build ``packed_train(variables, tx, ty, tm, sampled_rows, weights_pos,
-    orders, plan) -> PackedResult``; the trainer arguments are
+    orders, plan, keys=None) -> PackedResult``; the trainer arguments are
     ``make_local_train_fn``'s (``local.local_train_kwargs``), the hooks the
     JAX lane program's, ``packed_conv`` the twin's conv lowering ("off",
     "grouped", "blockdiag"; a model whose twin does not take it runs "off",
@@ -353,7 +357,11 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
     ``orders`` [cohort, epochs, n_pad] each position's per-epoch
     permutations of n_pad (the plain path's draws, or injected ones; a
     chunk's position j takes the order of its position in the whole
-    cohort).
+    cohort). ``keys`` [cohort] are the positions' dropout keys
+    (``ops/dropout.client_key``), which a dropout model requires: its lanes
+    take each step's ``[L]`` keys, ``step_keys`` of their members' keys,
+    epochs and steps, the keys of the plain trainer's steps, so lane l drops
+    as its client's plain step does.
 
     Every executed step runs the lane program's step program for its shape:
     on CUDA a replay of the captured step, unless ``capture=False`` asks for
@@ -391,12 +399,12 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
                 for a in (pos, plan.epoch[:, steps], plan.sie[:, steps]))
         return flat[tuple(pick)].view(len(steps), -1)                 # [S, L*bs]
 
-    def lane_step(lanes: _Lanes, bx, by, bm, live) -> torch.Tensor:
+    def lane_step(lanes: _Lanes, bx, by, bm, live, keys=None) -> torch.Tensor:
         """One packed step of every lane; returns the lanes' losses [L]."""
         L, module, opt = lanes.n_lanes, lanes.module, lanes.opt
         module.train()
         opt.zero_grad(set_to_none=False)
-        logits = module(bx)
+        logits = module(bx) if keys is None else module(bx, dropout_key=keys)
         lane_loss = torch.stack([task.loss(logits[lane], by[lane], bm[lane])
                                  for lane in range(L)])
         live_loss(lane_loss, live).backward()
@@ -416,8 +424,11 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
             inputs = [torch.empty((L, bs, *t.shape[1:]), dtype=t.dtype, device=t.device)
                       for t in (x_flat, y_flat, m_flat)]
             inputs.append(torch.ones(L, dtype=torch.float32, device=x_flat.device))
+            if bundle.uses_dropout:      # the lanes' dropout keys
+                inputs.append(torch.zeros(L, dtype=torch.int64, device=x_flat.device))
             prog = lanes.programs[key] = CapturedStep(
-                lambda bx, by, bm, live: lane_step(lanes, bx, by, bm, live), inputs,
+                lambda bx, by, bm, live, keys=None: lane_step(lanes, bx, by, bm, live, keys),
+                inputs,
                 lambda: module_state(lanes.module, lanes.opt), capture)
         return prog
 
@@ -450,8 +461,19 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         return reduce_extras(variables, res, torch.full((1,), w, dtype=torch.float32,
                                                         device=dev))
 
+    def lane_keys(keys, plan, steps, dev) -> torch.Tensor:
+        """Each executed step's [L] dropout keys, [S, L] on the device."""
+        if keys is None:
+            raise ValueError(f"model {bundle.name!r} drops out: the packed round needs its "
+                             "positions' dropout keys (ops/dropout.client_key)")
+        ck = np.asarray(keys, np.int64)
+        lanes = np.arange(plan.n_lanes)[:, None]
+        pos = plan.member_pos[lanes, plan.slot[:, steps]]                # [L, S]
+        keys = step_keys(ck[pos], plan.epoch[:, steps], plan.sie[:, steps])
+        return torch.as_tensor(keys.T.copy(), device=dev)
+
     def packed_sums(variables: dict, tx, ty, tm, sampled_rows, weights_pos,
-                    orders: torch.Tensor, plan: PackPlan) -> PackedSums:
+                    orders: torch.Tensor, plan: PackPlan, keys=None) -> PackedSums:
         L = plan.n_lanes
         lanes = cache.get(L)
         if lanes is None:
@@ -467,7 +489,7 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
             x_flat = x_flat.to(compute_dtype)
         y_flat, m_flat = ty.reshape((C * n_pad,) + tuple(ty.shape[2:])), tm.reshape(-1)
         step = program(lanes, x_flat, y_flat, m_flat)
-        bx, by, bm, live_in = step.inputs
+        bx, by, bm, live_in = step.inputs[:4]
         rows = torch.as_tensor(np.asarray(sampled_rows, np.int64), device=dev)
         steps = executed_steps(plan.live)
         acc_loss = torch.zeros((), device=dev)
@@ -485,6 +507,7 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         last = torch.as_tensor(((plan.live * (plan.epoch == epochs - 1))[:, steps]).T.copy(),
                                device=dev)
         loss_acc = torch.zeros(L, device=dev)
+        key_table = lane_keys(keys, plan, steps, dev) if bundle.uses_dropout else None
         for i, t in enumerate(steps):
             reset = np.nonzero(plan.reset[:, t] > 0)[0]
             if reset.size:
@@ -502,6 +525,8 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
             for src, dst in ((x_flat, bx), (y_flat, by), (m_flat, bm)):
                 torch.index_select(src, 0, ix, out=dst.view(L * bs, *dst.shape[2:]))
             live_in.copy_(live_steps[i])
+            if key_table is not None:
+                step.inputs[4].copy_(key_table[i])
             lane_loss = step()
             with torch.no_grad():
                 for lane, saved in frozen.items():
@@ -519,8 +544,9 @@ def make_packed_cohort_train(bundle: ModelBundle, task: Task, n_pad: int, *,
         return PackedSums(dict(zip(lanes.names, acc)), acc_loss, acc_extras, acc_w)
 
     def packed_train(variables: dict, tx, ty, tm, sampled_rows, weights_pos,
-                     orders: torch.Tensor, plan: PackPlan) -> PackedResult:
-        sums = packed_sums(variables, tx, ty, tm, sampled_rows, weights_pos, orders, plan)
+                     orders: torch.Tensor, plan: PackPlan, keys=None) -> PackedResult:
+        sums = packed_sums(variables, tx, ty, tm, sampled_rows, weights_pos, orders, plan,
+                           keys)
         denom = max(sums.total, 1e-12)
         agg = {k: (a / denom).to(variables[k].dtype) for k, a in sums.acc.items()}
         return PackedResult(agg, sums.loss_sum / denom, sums.extras, sums.total)
@@ -634,21 +660,22 @@ def make_crosssilo_packed_round(bundle: ModelBundle, task: Task, n_pad: int, mes
     ``apply_server_and_rollback`` (``crosssilo.mesh_finish``).
 
     Returns ``round_fn(variables, server_state, tx, ty, tm, weights, orders,
-    plan, total, rng=None) -> (variables, server_state, loss)``: ``tx/ty/tm`` this
-    rank's block of the clients in plan order (``perm``) on its device,
-    ``weights`` [block] their aggregation weights, ``orders`` [block,
-    epochs, n_pad] their per-epoch orders (each client's by its original
-    index), ``plan`` this rank's lanes (:func:`rank_plan`), ``total`` the
-    total weight over every rank, known on the host, ``rng`` the round's
-    server randomness. ``round_fn.lanes`` is
+    plan, total, rng=None, keys=None) -> (variables, server_state, loss)``:
+    ``tx/ty/tm`` this rank's block of the clients in plan order (``perm``)
+    on its device, ``weights`` [block] their aggregation weights,
+    ``orders`` [block, epochs, n_pad] their per-epoch orders and ``keys``
+    [block] their dropout keys (each client's by its original index),
+    ``plan`` this rank's lanes (:func:`rank_plan`), ``total`` the total
+    weight over every rank, known on the host, ``rng`` the round's server
+    randomness. ``round_fn.lanes`` is
     the lane program (its ``.lanes`` cache)."""
     lanes_fn = make_packed_cohort_train(bundle, task, n_pad, client_transform=client_transform,
                                         reduce_extras=reduce_extras, **lane_kwargs)
 
     def round_fn(variables, server_state, tx, ty, tm, weights, orders, plan, total: float,
-                 rng=None):
+                 rng=None, keys=None):
         sums = lanes_fn.sums(variables, tx, ty, tm, np.arange(tx.shape[0]), weights, orders,
-                             plan)
+                             plan, keys)
         return mesh_finish(mesh, variables, sums.acc, sums.loss_sum, sums.extras, total,
                            server_state, server_update, rng)
 

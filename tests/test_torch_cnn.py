@@ -81,5 +81,10 @@ def test_packed_round_replays_the_plain_round():
 
 
 def test_cnn_dropout_raises():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        create_model("cnn_dropout", 62)
+    """``cnn_dropout`` builds; a train-mode forward without the step's
+    dropout key raises, as the JAX package's ``seed_dropout`` does."""
+    bundle = create_model("cnn_dropout", 62)
+    bundle.init(0, "cpu")
+    bundle.module.train()
+    with pytest.raises(ValueError, match="dropout key"):
+        bundle.module(torch.zeros(2, 28, 28, 1))

@@ -65,7 +65,10 @@ def test_new_modules_are_covered():
                 "models/darts.py", "algorithms/fednas.py", "models/split.py",
                 "algorithms/split_nn.py", "data/vertical.py", "algorithms/vfl.py",
                 "experiments/main_fednas.py", "experiments/main_crosssilo_fednas.py",
-                "experiments/main_splitnn.py", "experiments/main_vfl.py"):
+                "experiments/main_splitnn.py", "experiments/main_vfl.py",
+                "models/mobilenet.py", "models/efficientnet.py", "models/vgg.py",
+                "models/resnet_gn.py", "models/rnn.py", "ops/dropout.py",
+                "data/stackoverflow.py", "data/imagenet.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
@@ -86,6 +89,10 @@ def test_the_launcher_loads_no_jax_at_run_time():
         "fedml_tpu_torch.data.vertical.load_vertical('lending_club', 'no-such-dir')\n"
         "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
         "load_dataset('pascal_voc', num_clients=2)\n"
+        "load_dataset('stackoverflow_nwp', client_num_in_total=2)\n"
+        "load_dataset('gld23k', num_clients=2); load_dataset('imagenet', num_clients=2)\n"
+        "from fedml_tpu_torch.models import known_models, create_model\n"
+        "[create_model(n, 10) for n in known_models()]\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

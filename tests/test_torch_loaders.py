@@ -16,8 +16,7 @@ import numpy as np
 import pytest
 
 import fedml_tpu.data as jax_data
-from fedml_tpu_torch.data import (UNPORTED_DATASETS, known_datasets, load_dataset,
-                                  register_dataset)
+from fedml_tpu_torch.data import known_datasets, load_dataset, register_dataset
 
 FIELDS = ("train_x", "train_y", "train_mask", "train_counts", "test_x", "test_y", "test_mask")
 
@@ -55,20 +54,17 @@ def test_cifar_stand_ins_are_bit_equal(name, method):
     assert got.train_x.shape[2:] == (32, 32, 3)
 
 
-def test_registry(monkeypatch):
+def test_registry(monkeypatch, tmp_path):
     import fedml_tpu_torch.data as data
 
     names = known_datasets()
-    ported = set(jax_data.known_datasets()) - set(UNPORTED_DATASETS)
-    assert set(names) == ported
-    for name in UNPORTED_DATASETS:
-        assert name in jax_data.known_datasets()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            load_dataset(name)
+    assert set(names) == set(jax_data.known_datasets())   # every name loads
     with pytest.raises(KeyError):
         load_dataset("no-such-dataset")
-    with pytest.raises(ValueError, match="hetero-fix"):
-        load_dataset("cifar10", partition_method="hetero-fix", client_num_in_total=4)
+    # hetero-fix keeps its map file in data_dir (the stand-in's name)
+    ds = load_dataset("cifar10", partition_method="hetero-fix", client_num_in_total=4,
+                      data_dir=str(tmp_path))
+    assert ds.num_clients == 4 and len(list(tmp_path.glob("*_partition_4_a0.5_s0.npz"))) == 1
 
     monkeypatch.setattr(data, "_LOADERS", dict(data._LOADERS))
 

@@ -522,14 +522,19 @@ def test_fallback_reasons_equal_jax(model, shape, kw, impl):
 
 
 def test_dropout_models_are_refused_naming_their_roadmap_item():
-    """JAX's third fallback reason (dropout without an explicit per-lane key
-    stream) cannot arise in the port: its dropout model is refused at
-    construction, so the port's ``packed_fallback_reason`` has no such
-    branch; JAX's dropout model packs."""
+    """Dropout models since the port has dropout: ``cnn_dropout`` (explicit
+    per-lane keys) packs, as JAX's does; a dropout model whose twin has no
+    explicit key stream gets JAX's third fallback reason word for word (the
+    port has no such model with a twin, so the bundle is made here)."""
     assert jax_packed.packed_fallback_reason(jax_create_model("cnn_dropout", 4),
                                              "blockdiag") is None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        create_model("cnn_dropout", 4)
+    assert packed.packed_fallback_reason(create_model("cnn_dropout", 4), "blockdiag") is None
+    jb, pb = jax_create_model("cnn", 4), create_model("cnn", 4)
+    jb.uses_dropout = pb.uses_dropout = True
+    assert (packed.packed_fallback_reason(pb, "blockdiag")
+            == jax_packed.packed_fallback_reason(jb, "blockdiag", "sgd")
+            == "model 'cnn' uses flax-rng dropout and its packed twin has no explicit "
+               "per-lane key stream")
 
 
 @pytest.mark.parametrize("model,shape", [("cnn", (12, 12, 1)), ("lr", (6,))])

@@ -3,8 +3,9 @@ port against its own host round and the JAX package.
 
 - The streamed round (``stream_aggregate="off"``) equals the port's host
   FedAvg round bit for bit with the same orders, with and without
-  zero-weight failures, on ``lr`` and on a narrow CifarResNet with
-  ``bn_impl="pallas"`` (the host round on the whole record axis,
+  zero-weight failures, on ``lr``, on a narrow CifarResNet with
+  ``bn_impl="pallas"`` and on ``cnn_dropout`` (both rounds key a client's
+  masks by its cohort position) (the host round on the whole record axis,
   ``bucket_quantum_batches=0``, which is the axis whose orders the
   streamed clients take, as in the JAX package).
 - Against JAX's ``StreamingFedAvgAPI`` with JAX's orders injected: losses
@@ -65,6 +66,11 @@ RES_RUN = dict(model="cifar-small", client_num_in_total=4, client_num_per_round=
                comm_round=2, batch_size=8, epochs=EPOCHS, lr=0.05, momentum=0.9,
                frequency_of_the_test=100, seed=SEED, device_data="off",
                bucket_quantum_batches=0)
+DROP_DATA = dict(name="stream-drop", input_shape=(28, 28, 1), classes=62, num_clients=4,
+                 records_per_client=12, partition_method="hetero", partition_alpha=0.5,
+                 batch_size=4, seed=1)
+DROP_RUN = dict(LR_RUN, model="cnn_dropout", client_num_in_total=4, client_num_per_round=3,
+                lr=0.05)
 XDEV_CLIENTS, XDEV_DIM = 150, 8
 
 
@@ -77,14 +83,15 @@ def _one_torch_thread():
 
 
 def _port_bundle(model: str, ds):
-    if model == "lr":
-        return create_model("lr", ds.class_num, input_shape=ds.train_x.shape[2:])
+    if model in ("lr", "cnn_dropout"):
+        return create_model(model, ds.class_num, input_shape=ds.train_x.shape[2:])
     return ModelBundle("cifar-small", CifarResNet(1, 10, widths=(8, 16, 16), bn_impl="pallas"),
                        (8, 8, 3))
 
 
 def _pair(model: str, cls=StreamingFedAvgAPI, **kw):
-    data, run = (LR_DATA, LR_RUN) if model == "lr" else (RES_DATA, RES_RUN)
+    data, run = {"lr": (LR_DATA, LR_RUN), "cnn_dropout": (DROP_DATA, DROP_RUN)}.get(
+        model, (RES_DATA, RES_RUN))
     ds = make_synthetic_classification(**data)
     cfg = FedConfig(**{**run, **kw})
     host = FedAvgAPI(ds, cfg, _port_bundle(model, ds), device="cpu")
@@ -94,7 +101,8 @@ def _pair(model: str, cls=StreamingFedAvgAPI, **kw):
 
 
 @pytest.mark.parametrize("model, failure_prob", [("lr", 0.0), ("lr", 0.4),
-                                                 ("cifar-small", 0.0), ("cifar-small", 0.4)])
+                                                 ("cifar-small", 0.0), ("cifar-small", 0.4),
+                                                 ("cnn_dropout", 0.0), ("cnn_dropout", 0.4)])
 def test_streamed_round_equals_the_host_round_bit_for_bit(model, failure_prob):
     host, streamed = _pair(model, failure_prob=failure_prob)
     for r in range(2):

@@ -260,10 +260,10 @@ def test_bf16_model_computes_in_bf16_with_f32_logits():
 
 @pytest.mark.parametrize("build", [
     lambda: TransformerLM(50, dim=32, heads=2, ring_axis="sp", ring_size=2),
-    lambda: TransformerLM(50, dim=32, heads=2, dropout=0.1),
+    lambda: TransformerLM(50, dim=32, heads=2, dropout=0.1, ring_size=2),
     lambda: Block(32, 2, ring_size=4),
     lambda: SelfAttention(32, 2, ring_size=2),
-    lambda: create_model("transformer", 90, dropout=0.1),
+    lambda: create_model("transformer", 90, dropout=0.1, ring_size=2),
     lambda: tseq.sp_mesh(1, 2),
     lambda: tseq.make_sp_lm_train_step(TransformerLM(**SMALL), (2, 1)),
     lambda: tseq.ring_attention(None, None, None, axis_name="sp", axis_size=2),
