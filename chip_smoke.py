@@ -260,6 +260,23 @@ Phases (any failure raises and the script exits non-zero):
    (``BASELINES``): ``resnet18_gn`` on fed_cifar100, ``rnn`` on
    shakespeare, ``rnn_stackoverflow`` on stackoverflow_nwp, ``lr`` on
    stackoverflow_lr and ``cnn_dropout`` on femnist packed in 2 lanes.
+19. The mesh axes beyond clients, after phase 18. (a) Path (B)'s q/k/v
+   (T = 8192) through ring attention of 4 virtual ranks on one card
+   (``ring_attention``'s ``hop`` seam, Tl = 2048): 16 K6 a forward, bf16
+   against dense K6 at ``RING_TOL``, f32 output and q/k/v gradients against
+   the plain ring's, the ring's time beside dense K6's; Ulysses' layout of
+   4 virtual ranks (the all-to-all done by hand on the card, K6 on H/4
+   heads of the whole sequence, the inverse reshard) against dense K6. Then under a world-size-1 NCCL group:
+   (b) the sp, tp and pp builders and (c) ``MoeTransformerLM`` (4 experts,
+   top-2) on a one-rank ep mesh, each at ``transformer_nwp``'s widths, T =
+   8192, batch 2, bf16: 5 steps with a falling loss, ``MESH_K6`` K6 and 1 K5
+   a step, ms/step, tokens/s, peak memory, device ms by family of one
+   profiled step, and each builder's f32 step at T = 512 within
+   ``MESH_GATE`` of the single-device step; (d) the streaming centralized
+   trainer on a one-rank batch mesh, bf16 ResNet-56 through K1/K2 (57 a
+   step), and in f32 under cuDNN's deterministic algorithms that trainer and
+   a FedGKT round with ``server_mesh`` within ``MESH_GATE`` of their
+   mesh-less runs.
 
 Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15, 16, 17 and 18 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
@@ -5892,6 +5909,412 @@ def phase_train_lm_step(smi: str, steps: int = 5):
             "device_ms_per_step_by_family": dict(sorted(by_family.items(), key=lambda kv: -kv[1]))}
 
 
+# -- phase 19: the mesh axes beyond clients (sp, tp, ep, pp, dp) -------------------------
+
+MESH_SP = 4                 # virtual ranks of the ring on one card (phase 19a)
+MESH_STEPS = 5
+MESH_N_MICRO = 2
+# K6 and K5 launches a step of each builder at one rank, path (B)'s shapes:
+# sp runs path (B)'s remat module (each block's K6 twice), tp and the MoE
+# LM no remat (once), the pipeline layers x n_micro forwards; K5 once
+MESH_K6 = {"sp": 8, "tp": 4, "pp": 4 * MESH_N_MICRO, "moe": 4}
+MESH_GATE_T = 512           # the f32 gate's sequence (batch 2, transformer_nwp widths)
+MESH_GATE = 1e-5            # relative norm of any tensor against the single-device step
+# the ring's bf16 output against dense K6: both round an f32 value that
+# differs in its last bits (the ring merges 4 partials), so one bf16 ulp may
+# flip; f32 output against the plain ring as K6's o/l (atol 2e-5), the
+# gradients (the plain recompute behind cotangents of m and l) rtol 1e-4
+RING_TOL = {"bf16": (1e-2, 1e-2), "out": (0.0, 2e-5), "grad": (1e-4, 1e-4)}
+DP_DATA = dict(num_clients=4, records_per_client=256, batch_size=64)
+
+
+class VirtualRing:
+    """Virtual rank ``index`` of a ring whose every shard lies on this card
+    (``ring_attention``'s ``hop`` seam): hop i hands over the shard of rank
+    ``index - i``, as the ring's i-th ``ppermute`` would."""
+
+    def __init__(self, ks, vs, index):
+        self.ks, self.vs, self.index, self.hops = ks, vs, index, 0
+
+    def __call__(self, k, v):
+        self.hops += 1
+        src = (self.index - self.hops) % len(self.ks)
+        return self.ks[src], self.vs[src]
+
+
+def virtual_ring(q, k, v, impl: str):
+    """Ring attention of ``MESH_SP`` virtual ranks, one after the other,
+    their outputs concatenated back along T."""
+    import torch
+
+    from fedml_tpu_torch.parallel.sequence import ring_attention
+
+    qs, ks, vs = (torch.chunk(t, MESH_SP, dim=2) for t in (q, k, v))
+    return torch.cat([ring_attention(qs[i], ks[i], vs[i], axis_name="sp", axis_size=MESH_SP,
+                                     impl=impl, hop=VirtualRing(ks, vs, i))
+                      for i in range(MESH_SP)], dim=2)
+
+
+def virtual_all_to_all(shards: list, split: int, concat: int) -> list:
+    """The tiled all-to-all of ``parallel/collectives.all_to_all`` over
+    virtual ranks whose shards all lie on this card: chunk j of rank i's
+    ``split`` axis goes to rank j, which concatenates what it receives along
+    ``concat`` in rank order."""
+    import torch
+
+    parts = [torch.chunk(s, len(shards), dim=split) for s in shards]
+    return [torch.cat([p[j] for p in parts], dim=concat) for j in range(len(shards))]
+
+
+def virtual_ulysses(q, k, v, impl: str):
+    """Ulysses' layout over ``MESH_SP`` virtual ranks: each rank's sequence
+    shard resharded to its H / n heads of the whole sequence, K6 there (one
+    launch a rank), and the inverse reshard; the outputs concatenated back
+    along T."""
+    import torch
+
+    from fedml_tpu_torch.ops.attention import attention
+
+    qs, ks, vs = (virtual_all_to_all(list(torch.chunk(t, MESH_SP, dim=2)), 1, 2)
+                  for t in (q, k, v))
+    outs = [attention(a.contiguous(), b.contiguous(), c.contiguous(), impl=impl)
+            for a, b, c in zip(qs, ks, vs)]
+    return torch.cat(virtual_all_to_all(outs, 2, 1), dim=2)
+
+
+def ring_check(smi: str) -> dict:
+    """Phase 19a: path (B)'s q/k/v (T = 8192, Tl = 2048) through the ring of
+    4 virtual ranks: bf16 K6 against dense K6, its launches, its time; in
+    f32 the ring's output and q/k/v gradients against the plain ring's;
+    Ulysses' layout of 4 virtual ranks (K6 on H/4 heads of the whole
+    sequence) against dense K6."""
+    import torch
+
+    from fedml_tpu_torch.ops import attention as att
+
+    b, h, t, _, d = ATTN_B
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    q, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda") for _ in range(3))
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    att.reset_launches()
+    ring = virtual_ring(qb, kb, vb, "pallas")
+    launches = att.LAUNCHES["attention"]
+    if launches != MESH_SP * MESH_SP:
+        raise AssertionError(f"[mesh ring] {launches} K6 launches a ring forward; expected "
+                             f"{MESH_SP * MESH_SP}")
+    dense = att.attention(qb, kb, vb, impl="pallas")
+    err_bf16 = assert_close("[mesh ring] bf16 ring vs dense K6", ring, dense, *RING_TOL["bf16"])
+    ring_ms = cuda_time_ms(lambda: virtual_ring(qb, kb, vb, "pallas"), iters=3, repeats=3,
+                           warmup=1)
+    dense_ms = cuda_time_ms(lambda: att.attention(qb, kb, vb, impl="pallas"), iters=3,
+                            repeats=3, warmup=1)
+    att.reset_launches()
+    uly = virtual_ulysses(qb, kb, vb, "pallas")
+    uly_launches = att.LAUNCHES["attention"]
+    if uly_launches != MESH_SP:
+        raise AssertionError(f"[mesh ring] {uly_launches} K6 launches a Ulysses forward; "
+                             f"expected {MESH_SP}")
+    err_uly = assert_close("[mesh ring] bf16 Ulysses vs dense K6", uly, dense,
+                           *RING_TOL["bf16"])
+    uly_ms = cuda_time_ms(lambda: virtual_ulysses(qb, kb, vb, "pallas"), iters=3, repeats=3,
+                          warmup=1)
+    ct = torch.randn((b, h, t, d), generator=g, device="cuda")
+    outs, grads = [], []
+    for impl in ("pallas", "xla"):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = virtual_ring(*leaves, impl)
+        (out * ct).sum().backward()
+        outs.append(out.detach())
+        grads.append([x.grad for x in leaves])
+    err_out = assert_close("[mesh ring] f32 ring K6 vs plain", outs[0], outs[1], *RING_TOL["out"])
+    err_grad = max(assert_close(f"[mesh ring] f32 d{n} K6 vs plain", a, p, *RING_TOL["grad"])
+                   for n, a, p in zip("qkv", *grads))
+    rec = {"shape": [b, h, t, d], "virtual_ranks": MESH_SP, "k6_launches_a_forward": launches,
+           "bf16_vs_dense_max_abs_err": err_bf16, "f32_out_max_abs_err": err_out,
+           "f32_grad_max_abs_err": err_grad, "ring_ms": ring_ms, "dense_ms": dense_ms,
+           "ulysses_k6_launches_a_forward": uly_launches,
+           "ulysses_bf16_vs_dense_max_abs_err": err_uly,
+           "ulysses_bit_identical": bool(torch.equal(uly, dense)), "ulysses_ms": uly_ms}
+    log(f"[mesh ring] sp={MESH_SP} virtual ranks on one card, [B,H,T,D]={rec['shape']} bf16: "
+        f"{launches} K6 a forward, {ring_ms:.3f} ms (dense K6 {dense_ms:.3f} ms), max|err| vs "
+        f"dense {err_bf16:.3g}; f32 vs the plain ring: out {err_out:.3g}, grads {err_grad:.3g}; "
+        f"Ulysses' layout: {uly_launches} K6 on [B,H/{MESH_SP},T,D] a forward, {uly_ms:.3f} ms, "
+        f"max|err| vs dense {err_uly:.3g} (bit for bit: {rec['ulysses_bit_identical']}); {smi}")
+    return rec
+
+
+def _lm_batch(t: int, b: int = LM_BATCH):
+    import torch
+
+    from fedml_tpu_torch.data.shakespeare import _synthetic_nwp
+
+    ds = _synthetic_nwp("lm-stream", 1, XENT_B[1], t, b, SEED)
+    x = torch.from_numpy(ds.train_x[0, :b]).cuda()
+    y = torch.from_numpy(ds.train_y[0, :b]).cuda()
+    return x, y, torch.ones((b, t), dtype=torch.float32, device=x.device)
+
+
+def mesh_builder(kind: str, t: int, dtype):
+    """``(run, params)`` of one builder at one rank over the bound NCCL
+    group: ``run()`` is one step of ``kind`` (sp, tp, pp or moe) on a
+    fresh ``transformer_nwp``-wide model from seed ``SEED``; ``params()``
+    its whole state dict."""
+    import torch
+
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.moe import MoeTransformerLM
+    from fedml_tpu_torch.parallel import pipeline as pp
+    from fedml_tpu_torch.parallel import tensor as tp
+    from fedml_tpu_torch.parallel.local import make_optimizer
+    from fedml_tpu_torch.parallel.sequence import make_sp_lm_train_step, sp_mesh
+
+    x, y, m = _lm_batch(t)
+    if kind == "moe":
+        module = MoeTransformerLM(XENT_B[1], max_len=max(4096, t), attn_impl="pallas",
+                                  dtype=dtype)
+        module.reset_parameters(torch.Generator().manual_seed(SEED))
+        module.cuda()
+    else:
+        module = create_model("transformer_nwp", XENT_B[1], seq_len=t, attn_impl="pallas",
+                              remat=kind == "sp", dtype=dtype).module
+        module.reset_parameters(torch.Generator().manual_seed(SEED))
+        module.cuda()
+    sgd = make_optimizer("sgd", 0.1)
+    if kind == "sp":
+        step, opt = make_sp_lm_train_step(module, sp_mesh(1, 1), attn_impl="pallas"), \
+            sgd(module.parameters())
+        return (lambda: step(opt, x, y, m)), module.state_dict
+    if kind == "pp":
+        mesh = pp.pp_mesh(1, 1)
+        params = pp.place_pp_params(pp.stack_pipeline_params(module.state_dict(),
+                                                             module.layers), mesh)
+        opt = sgd(pp.pipeline_parameters(params))
+        step = pp.make_pp_lm_train_step(module, mesh, n_micro=MESH_N_MICRO, attn_impl="pallas")
+        return (lambda: step(params, opt, x, y, m)), \
+            (lambda: pp.unstack_pipeline_params(params, module.layers))
+    mesh = (tp.ep_mesh if kind == "moe" else tp.tp_mesh)(1, 1)
+    twin = (tp.shard_params_ep if kind == "moe" else tp.shard_params_tp)(module, mesh)
+    step, opt = tp.make_tp_lm_train_step(twin, mesh), sgd(twin.parameters())
+    return (lambda: step(opt, x, y, m)), (lambda: tp.gather_params(twin, mesh))
+
+
+def plain_lm_step(kind: str, t: int) -> dict:
+    """The single-device step (no mesh, no collective) of ``kind``'s model
+    from seed ``SEED``, f32: the module's state dict after one SGD step."""
+    import torch
+
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.models.moe import MoeTransformerLM
+    from fedml_tpu_torch.ops.xent import masked_cross_entropy
+    from fedml_tpu_torch.parallel.local import make_optimizer
+
+    x, y, m = _lm_batch(t)
+    if kind == "moe":
+        module = MoeTransformerLM(XENT_B[1], max_len=max(4096, t), attn_impl="pallas")
+    else:
+        module = create_model("transformer_nwp", XENT_B[1], seq_len=t, attn_impl="pallas",
+                              remat=kind == "sp").module
+    module.reset_parameters(torch.Generator().manual_seed(SEED))
+    module.cuda()
+    opt = make_optimizer("sgd", 0.1)(module.parameters())
+    per = masked_cross_entropy(module(x), y, m, impl="pallas")
+    (per.sum() / m.sum()).backward()
+    opt.step()
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def _rel_state(a: dict, b: dict) -> float:
+    import torch
+
+    if set(a) != set(b):
+        raise AssertionError(f"state dicts differ in keys: {sorted(set(a) ^ set(b))[:6]}")
+    a = {k: v.detach().float() for k, v in a.items()}
+    return max(float(torch.linalg.vector_norm(a[k] - b[k].float()))
+               / max(float(torch.linalg.vector_norm(b[k].float())), 1e-30) for k in b)
+
+
+def mesh_builder_arm(kind: str, smi: str) -> dict:
+    """Phase 19b/c: ``kind``'s builder at path (B)'s shapes, bf16: 5 steps
+    with a falling loss, its K6/K5 launches a step, ms/step, tokens/s, peak
+    memory, device ms by family of one profiled step; then the f32 gate at
+    T = ``MESH_GATE_T``: one step against the single-device step."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from fedml_tpu_torch.ops import attention as att
+    from fedml_tpu_torch.ops import xent as xe
+
+    tag = f"[mesh {kind}]"
+    run, _ = mesh_builder(kind, LM_SEQ, torch.bfloat16)
+    torch.cuda.synchronize()
+    att.reset_launches()
+    xe.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(MESH_STEPS):
+        t1 = time.perf_counter()
+        losses.append(float(run()))
+        secs.append(time.perf_counter() - t1)
+    launches = {**att.LAUNCHES, **xe.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"attention": MESH_K6[kind] * MESH_STEPS, "xent": MESH_STEPS}
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}; expected {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag} loss must be finite and fall: {losses}")
+    ms = float(np.mean(secs[1:])) * 1e3
+    tokens = LM_BATCH * LM_SEQ
+    _, events = profiled(run, f"{tag} step")
+    by_family = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            fam = kernel_family(e.name)
+            by_family[fam] = by_family.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3
+    total = sum(by_family.values())
+    del run
+    gate_run, gate_params = mesh_builder(kind, MESH_GATE_T, torch.float32)
+    gate_run()
+    rel = _rel_state(gate_params(), plain_lm_step(kind, MESH_GATE_T))
+    if not rel <= MESH_GATE:
+        raise AssertionError(f"{tag} f32 step at T={MESH_GATE_T} is {rel:.3g} (relative norm) "
+                             f"from the single-device step; bound {MESH_GATE}")
+    rec = {"losses": losses, "seconds": secs, "ms_per_step": ms, "tokens_per_s": tokens / ms * 1e3,
+           "peak_memory_bytes": peak, "launches": launches,
+           "k6_per_step": MESH_K6[kind], "k5_per_step": 1, "device_ms_per_step": total,
+           "device_ms_per_step_by_family": dict(sorted(by_family.items(),
+                                                       key=lambda kv: -kv[1])),
+           "f32_gate_rel": rel}
+    log(f"{tag} T={LM_SEQ} batch {LM_BATCH} bf16 at one rank over NCCL: losses "
+        f"{[round(v, 4) for v in losses]}; {ms:.1f} ms/step, {rec['tokens_per_s']:.1f} tokens/s, "
+        f"peak {peak / 2**30:.2f} GiB; {MESH_K6[kind]} K6 + 1 K5 a step; device "
+        f"{total:.2f} ms a profiled step: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in rec["device_ms_per_step_by_family"].items())
+        + f"; f32 gate at T={MESH_GATE_T}: {rel:.3g} from the single-device step; {smi}")
+    return rec
+
+
+def dp_data():
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+
+    return make_synthetic_classification(
+        "cifar10-dp", (32, 32, 3), 10, DP_DATA["num_clients"],
+        records_per_client=DP_DATA["records_per_client"], partition_method="homo",
+        batch_size=DP_DATA["batch_size"], seed=SEED)
+
+
+def streaming_trainer(ds, dtype: str, mesh):
+    import torch
+
+    from fedml_tpu_torch.algorithms.centralized import StreamingCentralizedTrainer
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.models import create_model
+
+    cfg = FedConfig(model="resnet56", dataset="cifar10", client_num_in_total=ds.num_clients,
+                    client_num_per_round=ds.num_clients, comm_round=1,
+                    batch_size=DP_DATA["batch_size"], epochs=1, lr=0.1, momentum=0.9,
+                    dtype=dtype, frequency_of_the_test=1, seed=SEED)
+    bundle = create_model("resnet56", 10, input_shape=(32, 32, 3), bn_impl="pallas",
+                          dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+    return StreamingCentralizedTrainer(ds, cfg, bundle, mesh=mesh)
+
+
+def dp_arm(smi: str) -> dict:
+    """Phase 19d: data parallelism at one rank over the NCCL group. The
+    streaming trainer with a one-rank batch mesh on the bf16 ResNet-56
+    flagship (K1/K2 57 a step, images/s); then, f32 under cuDNN's
+    deterministic algorithms, the streaming trainer and one FedGKT round
+    with ``server_mesh``, each against its mesh-less run."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.models.gkt import create_gkt_pair
+    from fedml_tpu_torch.ops import batchnorm as bnk
+    from fedml_tpu_torch.parallel.dataparallel import batch_mesh
+
+    ds = dp_data()
+    mesh = batch_mesh(1)
+    steps = ds.train_counts.sum() // DP_DATA["batch_size"]
+    tr = streaming_trainer(ds, "bfloat16", mesh)
+    torch.cuda.synchronize()
+    bnk.reset_launches()
+    t0 = time.perf_counter()
+    hist = tr.train()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(bnk.LAUNCHES)
+    if launches != {"bn_fwd": BNS_PER_STEP * steps, "bn_bwd": BNS_PER_STEP * steps}:
+        raise AssertionError(f"[mesh dp] K1/K2 {launches} over {steps} steps; expected "
+                             f"{BNS_PER_STEP} each a step")
+    if not np.isfinite(hist["Test/Loss"][-1]):
+        raise AssertionError(f"[mesh dp] non-finite evaluation: {hist}")
+    del tr
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for m in (None, mesh):
+            tr = streaming_trainer(ds, "float32", m)
+            tr.train()
+            runs.append(tr.variables)
+        stream_rel = _rel_state(runs[1], runs[0])
+        gds = dp_data()
+        cfg = FedConfig(model="resnet56", dataset="cifar10", client_num_in_total=4,
+                        client_num_per_round=4, comm_round=1, batch_size=64, epochs=1,
+                        epochs_server=1, lr=0.1, frequency_of_the_test=10_000, seed=SEED)
+        gkt = []
+        for m in (None, mesh):
+            pair = create_gkt_pair(10, (32, 32, 3), 3, 9, dtype=torch.float32, bn_impl="pallas")
+            api = FedGKTAPI(gds, cfg, pair, server_mesh=m)
+            api.run_round(0)
+            gkt.append({**api.server_vars, "server_logits": api.server_logits})
+        gkt_rel = _rel_state(gkt[1], gkt[0])
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    if not (stream_rel <= MESH_GATE and gkt_rel <= MESH_GATE):
+        raise AssertionError(f"[mesh dp] one-rank mesh vs no mesh, f32: streaming {stream_rel:.3g}"
+                             f", GKT server {gkt_rel:.3g}; bound {MESH_GATE}")
+    images = steps * DP_DATA["batch_size"]
+    rec = {"steps": int(steps), "seconds": secs, "images_per_s": images / secs,
+           "launches": launches, "test": {k: v[-1] for k, v in hist.items()},
+           "f32_streaming_rel": stream_rel, "f32_gkt_server_rel": gkt_rel}
+    log(f"[mesh dp] StreamingCentralizedTrainer on a one-rank NCCL batch mesh, bf16 ResNet-56: "
+        f"{steps} steps in {secs:.2f} s ({images / secs:.1f} images/s, eval included), K1/K2 "
+        f"{launches}; f32 against the mesh-less runs: streaming {stream_rel:.3g}, FedGKT "
+        f"server {gkt_rel:.3g}; {smi}")
+    return rec
+
+
+def phase_train_mesh_axes(smi: str) -> dict:
+    """Phase 19: the ring of 4 virtual ranks on one card, then under a
+    world-size-1 NCCL group (a ``file://`` store in a temporary directory)
+    the sp, tp and pp builders, the MoE LM on a one-rank ep mesh and data
+    parallelism (streaming trainer, FedGKT's server)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.parallel.mesh import init_multihost
+
+    ring = ring_check(smi)
+    tmp = tempfile.mkdtemp(prefix="mesh-store-")
+    try:
+        init_multihost(f"file://{tmp}/store", 1, 0, timeout_s=120)
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"[mesh] the one-rank group runs {backend}, not NCCL")
+        arms = {kind: mesh_builder_arm(kind, smi) for kind in ("sp", "tp", "pp", "moe")}
+        dp = dp_arm(smi)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {"attention": sum(a["launches"]["attention"] for a in arms.values()),
+                "xent": sum(a["launches"]["xent"] for a in arms.values()), **dp["launches"]}
+    return {"ring": ring, "builders": arms, "dp": dp, "backend": backend, "launches": launches}
+
+
 def sm_clock() -> float:
     """The card's maximum SM clock in MHz (``nvidia-smi clocks.max.sm``)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -5960,6 +6383,7 @@ def main() -> int:
     gkt_seg = timed("train_gkt_seg", phase_train_gkt_seg, smi)
     fednas = timed("train_fednas_split_vfl", phase_train_fednas_split_vfl, smi)
     zoo_bn = timed("train_zoo_bn", phase_train_zoo_bn, smi)
+    mesh_axes = timed("train_mesh_axes", phase_train_mesh_axes, smi)
     for k, v in (*fednas["darts_bn"]["max_abs_err"].items(), *zoo_bn["wide_err"].items()):
         err[k] = max(err[k], v)
     err.update(conv_err)
@@ -5990,7 +6414,8 @@ def main() -> int:
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
             # lowering A/B's, the cross-silo arms' and the cross-device
             # flagship arms' timed rounds, phase 13's train() runs and the
-            # arms of phases 14, 15, 16, 17 and 18, each counted from 0 just before it
+            # arms of phases 14, 15, 16, 17, 18 and 19 (the data-parallel
+            # streaming trainer), each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -6002,7 +6427,8 @@ def main() -> int:
                        "zoo_gossip_stream_turbo": zoo_gossip["launches"][name],
                        "gkt_seg": gkt_seg["launches"][name],
                        "fednas_split_vfl": fednas["launches"][name],
-                       "zoo_bn": zoo_bn["launches"][name]}
+                       "zoo_bn": zoo_bn["launches"][name],
+                       "mesh_axes": mesh_axes["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -6051,14 +6477,19 @@ def main() -> int:
         "per_call": probe,
     })
     # K6 and K5: one path (B) step's calls at its shapes (8 K6, 1 K5);
-    # K6's launches count both transformer paths, K5's path (B)'s
+    # K6's launches count both transformer paths and phase 19's builders,
+    # K5's path (B)'s and phase 19's builders'
     k6_launches = {"fedavg_transformer": train_lm["launches"]["attention"],
-                   "lm_step": lm_step["launches"]["attention"]}
-    for rec, replaces, launches in (
+                   "lm_step": lm_step["launches"]["attention"],
+                   "mesh_axes": mesh_axes["launches"]["attention"]}
+    k5_launches = {"lm_step": lm_step["launches"]["xent"],
+                   "mesh_axes": mesh_axes["launches"]["xent"]}
+    for rec, replaces, by_path in (
             (lm_timing[0], "fedml_tpu/ops/attention.py:63 (_flash_kernel, pallas_call at :158)",
-             sum(k6_launches.values())),
+             k6_launches),
             (lm_timing[1], "fedml_tpu/ops/xent.py:31 (_xent_kernel, pallas_call at :81)",
-             lm_step["launches"]["xent"])):
+             k5_launches)):
+        launches = sum(by_path.values())
         name, calls = rec["kernel"], rec["calls_per_step"]
 
         def step_ms(key, rec=rec, calls=calls):
@@ -6076,7 +6507,7 @@ def main() -> int:
             "queued_ms": step_ms("queued_ms"), "plain_queued_ms": step_ms("plain_queued_ms"),
             "library_queued_ms": step_ms("library_queued_ms"),
             "per_call": {k: v for k, v in rec.items() if k != "kernel"},
-            **({"launches_by_path": k6_launches} if name == "attention" else {}),
+            "launches_by_path": by_path,
         })
     out = ROOT / "results"
     out.mkdir(exist_ok=True)
@@ -6090,6 +6521,7 @@ def main() -> int:
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
         "train_gkt_seg": gkt_seg, "train_fednas_split_vfl": fednas, "train_zoo_bn": zoo_bn,
+        "train_mesh_axes": mesh_axes,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

@@ -28,11 +28,23 @@ The JAX package draws its orders from threefry keys (``fold_in(round_key,
 2)`` split over the server epochs). The port draws them from
 ``core/rng`` generators, or takes them from ``order_hook(round, client)`` /
 ``server_order_hook(round)``, which the parity tests use to inject the
-reference's. ``server_mesh`` (JAX's data-parallel server) is not ported.
+reference's.
+
+``server_mesh`` (a 1-D ``('batch',)`` mesh,
+``parallel/dataparallel.batch_mesh``; the reference's ``nn.DataParallel``
+server) makes each server step data parallel: every rank runs the same
+rounds, and in a server step takes its rows of the batch, with BatchNorm
+synchronized over the mesh, each rank's loss weighted by its share of the
+batch's real records before the backward
+(``parallel/dataparallel.count_share``) and the gradients all-reduced, so
+the step differentiates the global mean, as the JAX package's sharded
+server phase does. A mesh with a process group steps eagerly: its collectives
+stay outside captured graphs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from typing import Callable, Optional, Sequence, Union
 
@@ -48,8 +60,12 @@ from fedml_tpu_torch.core.rng import client_generator, init_generator, server_ge
 from fedml_tpu_torch.core.tasks import int_cross_entropy
 from fedml_tpu_torch.data import FedDataset
 from fedml_tpu_torch.models.gkt import GKTPair, create_gkt_pair, gkt_blocks_from_names
+from fedml_tpu_torch.models.norm import sync_batch_norm
 from fedml_tpu_torch.parallel.capture import CapturedStep
+from fedml_tpu_torch.parallel.collectives import all_reduce_sum_
+from fedml_tpu_torch.parallel.dataparallel import count_share
 from fedml_tpu_torch.parallel.local import clip_grads_, module_state, real_first
+from fedml_tpu_torch.parallel.mesh import bound_axes
 
 log = logging.getLogger(__name__)
 
@@ -93,16 +109,13 @@ class FedGKTAPI:
                  order_hook: Optional[Callable] = None,
                  server_order_hook: Optional[Callable] = None):
         check_ported(config)
-        if server_mesh is not None:
-            raise NotImplementedError("server_mesh (the data-parallel GKT server) is not ported "
-                                      "yet (ROADMAP §1 item 8b: parallel/dataparallel.py)")
         if client_blocks is None or server_blocks_per_stage is None:
             derived = gkt_blocks_from_names(config.model_client, config.model_server)
             client_blocks = derived[0] if client_blocks is None else client_blocks
             if server_blocks_per_stage is None:
                 server_blocks_per_stage = derived[1]
-        self.dataset, self.config = dataset, config
-        self.device = default_device(device)
+        self.dataset, self.config, self.server_mesh = dataset, config, server_mesh
+        self.device = server_mesh.device if server_mesh is not None else default_device(device)
         self.order_hook, self.server_order_hook = order_hook, server_order_hook
         dtype = torch.bfloat16 if config.dtype == "bfloat16" else torch.float32
         self.pair = pair or create_gkt_pair(dataset.class_num, tuple(dataset.train_x.shape[2:]),
@@ -185,21 +198,37 @@ class FedGKTAPI:
         T, clip = c.temperature, c.grad_clip
         if kind == "client":
             inputs.append(torch.zeros((), device=dev))
+        mesh = self.server_mesh if kind == "server" else None
+        line = mesh.line(mesh.axis_names[0]) if mesh is not None else None
+        rows = mesh.block(bs, mesh.axis_names[0]) if mesh is not None else slice(None)
 
         def step(bx, by, bm, bt, kl_w=c.alpha_distill):
             module.train()
             opt.zero_grad(set_to_none=False)
-            out = module(bx)
-            logits = out[0] if kind == "client" else out
-            loss = masked_ce(logits, by, bm) + kl_w * kl_distill(logits, bt, bm, T)
-            loss.backward()
+            bx, by, bm, bt = bx[rows], by[rows], bm[rows], bt[rows]
+            with contextlib.ExitStack() as ctx:
+                if mesh is not None:
+                    ctx.enter_context(bound_axes(mesh))
+                    ctx.enter_context(sync_batch_norm(mesh.axis_names[0]))
+                out = module(bx)
+                logits = out[0] if kind == "client" else out
+                loss = masked_ce(logits, by, bm) + kl_w * kl_distill(logits, bt, bm, T)
+                if line is not None:
+                    loss = loss * count_share(line, bm.sum())
+                loss.backward()
+            loss = loss.detach()
+            if line is not None:
+                loss = loss.reshape(1)
+                all_reduce_sum_(line, [p.grad for p in opt.params if p.grad is not None] + [loss])
+                loss = loss[0]
             if clip and kind == "client":
                 clip_grads_(opt.params, clip)
             opt.step()
-            return loss.detach()
+            return loss
 
-        prog = self.programs[kind] = CapturedStep(step, inputs,
-                                                  lambda: module_state(module, opt))
+        prog = self.programs[kind] = CapturedStep(
+            step, inputs, lambda: module_state(module, opt),
+            capture=line is None or line.group is None)
         return prog
 
     # -- the orders ----------------------------------------------------------

@@ -115,6 +115,7 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
     from fedml_tpu_torch.algorithms.streaming_fedavg import StreamingFedAvgAPI
     from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
     from fedml_tpu_torch.models.gkt import gkt_blocks_from_names
+    from fedml_tpu_torch.parallel.mesh import client_mesh
 
     apis = {
         "fedavg": FedAvgAPI, "fedopt": FedOptAPI, "fedprox": FedProxAPI,
@@ -165,8 +166,18 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
         # blocks (1, 2) under --ci; the model flag is not read
         blocks = (1, 2) if config.ci else gkt_blocks_from_names(config.model_client,
                                                                 config.model_server)
+        # several card ranks: the server phase data parallel over all of
+        # them, as the JAX launcher shards it over its accelerators
+        server_mesh = None
+        world = client_mesh(device=device)
+        if (world.world_size > 1 and ds.num_clients % world.world_size == 0
+                and world.device.type == "cuda"):
+            from fedml_tpu_torch.parallel.dataparallel import batch_mesh
+
+            server_mesh = batch_mesh(world.world_size, device=device)
         result = FedGKTAPI(ds, config, client_blocks=blocks[0],
-                           server_blocks_per_stage=blocks[1], device=device).train()
+                           server_blocks_per_stage=blocks[1], server_mesh=server_mesh,
+                           device=device).train()
         log.info("result %s", json.dumps(result))
         return result
     bundle = _bundle_for(config, ds)

@@ -38,6 +38,11 @@ per-lane Dense. It takes ``[L, N, H, W, 3]`` and gives ``[L, N, out]``; its
 state dict has the plain model's keys, each leaf folded as
 ``ops/packed_conv.stack_variables`` folds it. Only the NHWC body
 (``conv_impl="xla"``) has a lane-stacked twin.
+
+``bn_axis`` (the JAX package's sync-BN over a mapped axis) makes every
+BatchNorm the plain ``BatchNorm`` synchronized over that axis of the bound
+mesh (``models/norm.py``), whatever ``bn_impl`` says: such a model runs no
+K1/K2.
 """
 
 from __future__ import annotations
@@ -86,20 +91,21 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_features: int, filters: int, strides: int = 1, bn_impl: str = "xla",
                  conv_impl: str = "xla", n_lanes: int = 0, packed_impl: str = "off",
-                 use_norm: bool = True):
+                 use_norm: bool = True, bn_axis: Optional[str] = None):
         super().__init__()
         lanes = conv_impl == "lanes"
         conv = conv_lanes.Conv if lanes else functools.partial(Conv, n_lanes=n_lanes,
                                                                packed_impl=packed_impl)
         axis = 1 if lanes else -1
         width = max(n_lanes, 1) * filters     # the lane-folded channels
-        bn = _norm(width, bn_impl)[0] if use_norm else None
+        bn = _norm(width, bn_impl, bn_axis=bn_axis)[0] if use_norm else None
         self.project = strides != 1 or in_features != filters
         for i, (cin, k, s) in enumerate(((in_features, 3, strides), (filters, 3, 1),
                                          (in_features, 1, strides))[:3 if self.project else 2]):
             self.add_module(f"Conv_{i}", conv(cin, filters, k, s))
             if use_norm:
-                self.add_module(f"{bn}_{i}", _norm(width, bn_impl, fuse_relu=i == 0, axis=axis)[1])
+                self.add_module(f"{bn}_{i}", _norm(width, bn_impl, fuse_relu=i == 0, axis=axis,
+                                                   bn_axis=bn_axis)[1])
         self._bn = bn
         self.use_norm = use_norm
         self.lanes = lanes
@@ -136,7 +142,8 @@ class CifarResNet(nn.Module):
     def __init__(self, blocks_per_stage: int, output_dim: int = 10,
                  dtype: torch.dtype = torch.float32, widths: tuple = (16, 32, 64),
                  bn_impl: str = "xla", conv_impl: str = "xla", n_lanes: int = 0,
-                 packed_impl: str = "off", use_norm: bool = True):
+                 packed_impl: str = "off", use_norm: bool = True,
+                 bn_axis: Optional[str] = None):
         super().__init__()
         if conv_impl == "packed":
             raise NotImplementedError("conv_impl='packed' (the JAX package's lane-major body) "
@@ -146,7 +153,7 @@ class CifarResNet(nn.Module):
             raise ValueError(f"conv_impl must be 'xla', 'lanes' or 'packed', got {conv_impl!r}")
         if bn_impl not in ("xla", "pallas"):
             raise ValueError(f"bn_impl must be 'xla' or 'pallas', got {bn_impl!r}")
-        if conv_impl == "lanes" and bn_impl == "pallas":
+        if conv_impl == "lanes" and bn_impl == "pallas" and bn_axis is None:
             raise ValueError("conv_impl='lanes' uses the plain BatchNorm on its own layout; "
                              "combine it with bn_impl='xla'")
         if n_lanes and conv_impl != "xla":
@@ -154,7 +161,7 @@ class CifarResNet(nn.Module):
                                       "(the packed schedule takes conv_impl='xla')")
         self._config = dict(blocks_per_stage=blocks_per_stage, output_dim=output_dim,
                             dtype=dtype, widths=tuple(widths), bn_impl=bn_impl,
-                            conv_impl=conv_impl, use_norm=use_norm)
+                            conv_impl=conv_impl, use_norm=use_norm, bn_axis=bn_axis)
         self.dtype = dtype
         self.n_lanes = n_lanes
         #: the lane-stacked twin takes the joint lowerings (ModelBundle.packed_twin)
@@ -162,7 +169,8 @@ class CifarResNet(nn.Module):
         self.Conv_0 = Conv(3, widths[0], 3, n_lanes=n_lanes, packed_impl=packed_impl)  # RGB
         self._stem_norm = None
         if use_norm:
-            bn, stem_norm = _norm(max(n_lanes, 1) * widths[0], bn_impl, fuse_relu=True)
+            bn, stem_norm = _norm(max(n_lanes, 1) * widths[0], bn_impl, fuse_relu=True,
+                                  bn_axis=bn_axis)
             self.add_module(f"{bn}_0", stem_norm)
             self._stem_norm = f"{bn}_0"
         # lanes: the stages of width <= 32 run on the lanes layout
@@ -173,7 +181,7 @@ class CifarResNet(nn.Module):
                 strides = 2 if stage > 0 and block == 0 else 1
                 self.add_module(f"BasicBlock_{i}", BasicBlock(
                     cin, filters, strides, bn_impl, "lanes" if lanes else "xla", n_lanes,
-                    packed_impl, use_norm))
+                    packed_impl, use_norm, bn_axis))
                 blocks.append(f"BasicBlock_{i}")
                 cin, i = filters, i + 1
         self._blocks = blocks
@@ -221,20 +229,22 @@ class CifarResNet(nn.Module):
 
 
 def _make(depth: int, output_dim: int, dtype=torch.float32, bn_impl: str = "xla",
-          conv_impl: str = "xla", widths: tuple = (16, 32, 64)) -> CifarResNet:
+          conv_impl: str = "xla", widths: tuple = (16, 32, 64),
+          bn_axis: Optional[str] = None) -> CifarResNet:
     if (depth - 2) % 6:
         raise ValueError("CIFAR ResNet depth must be 6n+2")
     return CifarResNet((depth - 2) // 6, output_dim, dtype=dtype, widths=widths,
-                       bn_impl=bn_impl, conv_impl=conv_impl)
+                       bn_impl=bn_impl, conv_impl=conv_impl, bn_axis=bn_axis)
 
 
 def _register_resnet(name: str, depth: int):
     @register_model(name)
     def _factory(output_dim: int, dtype=torch.float32, bn_impl: str = "xla",
-                 conv_impl: str = "xla", widths: tuple = (16, 32, 64), **_):
+                 conv_impl: str = "xla", widths: tuple = (16, 32, 64),
+                 bn_axis: Optional[str] = None, **_):
         return ModelBundle(
             name=name,
-            module=_make(depth, output_dim, dtype, bn_impl, conv_impl, widths),
+            module=_make(depth, output_dim, dtype, bn_impl, conv_impl, widths, bn_axis),
             input_shape=(32, 32, 3),
         )
     return _factory
@@ -252,9 +262,10 @@ def _register_variant(name: str, widths: tuple = (16, 32, 64), use_norm: bool = 
     (``ModelBundle.packed_twin`` is False)."""
 
     @register_model(name)
-    def _factory(output_dim: int, dtype=torch.float32, bn_impl: str = "xla", **_):
+    def _factory(output_dim: int, dtype=torch.float32, bn_impl: str = "xla",
+                 bn_axis: Optional[str] = None, **_):
         module = CifarResNet(9, output_dim, dtype=dtype, widths=widths, bn_impl=bn_impl,
-                             use_norm=use_norm)
+                             use_norm=use_norm, bn_axis=bn_axis)
         module.packed_twin = False
         return ModelBundle(name=name, module=module, input_shape=(32, 32, 3))
     return _factory

@@ -21,8 +21,18 @@ block i's call sites are 2i and 2i + 1, ``ops/dropout.py``);
 block under ``remat`` draws the same masks again. The dropout is outside
 the attention kernel, as in the JAX package.
 
-Not ported yet, and refused with ``NotImplementedError``: sequence
-parallelism (``ring_size > 1``).
+With ``ring_axis`` set and ``ring_size > 1`` the module runs sequence
+parallel (``parallel/sequence.py``): each attention is
+``sequence_attention`` (``sp_mode`` ring or Ulysses) over that axis of
+the mesh the step binds (``parallel/mesh.bound_axes``), and ``pos_offset``
+places the rank's shard.
+
+``tp_axis`` (set by ``parallel/tensor.shard_params_tp``, None otherwise)
+makes a block Megatron tensor parallel over that bound axis: ``qkv`` and
+``Dense_0`` hold this rank's output rows (its heads of each of q, k and v;
+its slice of the MLP) behind ``f``, ``attn.out`` and ``Dense_1`` its input
+columns ahead of ``g`` (``parallel/collectives``), and their biases are
+added once, after the all-reduce.
 """
 
 from __future__ import annotations
@@ -38,11 +48,15 @@ from fedml_tpu_torch.models import ModelBundle, register_model
 from fedml_tpu_torch.models.layers import Dense, Embed, LayerNorm
 from fedml_tpu_torch.ops.attention import attention
 from fedml_tpu_torch.ops.dropout import seed_dropout
+from fedml_tpu_torch.parallel.collectives import copy_to_line, reduce_from_line
+from fedml_tpu_torch.parallel.mesh import axis_line
 
 
-def _check_unported(ring_size: int) -> None:
-    if ring_size > 1:
-        raise NotImplementedError("ring_size > 1: sequence parallelism is not ported yet")
+def row_parallel(dense: Dense, x: torch.Tensor, line) -> torch.Tensor:
+    """A row-parallel Dense: this rank's partial product over its input
+    columns, summed over the line (``g``), then the replicated bias."""
+    dt = dense.dtype or torch.promote_types(x.dtype, dense.weight.dtype)
+    return reduce_from_line(line, F.linear(x.to(dt), dense.weight.to(dt))) + dense.bias.to(dt)
 
 
 class SelfAttention(nn.Module):
@@ -50,22 +64,34 @@ class SelfAttention(nn.Module):
                  ring_axis: Optional[str] = None, ring_size: int = 1, sp_mode: str = "ring",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_unported(ring_size)
         self.dim, self.heads, self.attn_impl = dim, heads, attn_impl
+        self.ring_axis, self.ring_size, self.sp_mode = ring_axis, ring_size, sp_mode
+        self.tp_axis: Optional[str] = None
         self.qkv = Dense(dim, 3 * dim, dtype=dtype)
         self.out = Dense(dim, dim, dtype=dtype)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         b, t, _ = h.shape
         d = self.dim // self.heads
+        line = axis_line(self.tp_axis) if self.tp_axis else None
+        if line is not None:
+            h = copy_to_line(line, h)
         q, k, v = torch.chunk(self.qkv(h), 3, dim=-1)
+        width = q.shape[-1]                  # this rank's heads * d
 
         def heads_first(a):
-            return a.reshape(b, t, self.heads, d).transpose(1, 2)
+            return a.reshape(b, t, width // d, d).transpose(1, 2)
 
-        o = attention(heads_first(q), heads_first(k), heads_first(v), causal=True,
-                      impl=self.attn_impl)
-        return self.out(o.transpose(1, 2).reshape(b, t, self.dim))
+        q, k, v = heads_first(q), heads_first(k), heads_first(v)
+        if self.ring_axis is not None and self.ring_size > 1:
+            from fedml_tpu_torch.parallel.sequence import sequence_attention
+
+            o = sequence_attention(q, k, v, axis_name=self.ring_axis, axis_size=self.ring_size,
+                                   causal=True, impl=self.attn_impl, mode=self.sp_mode)
+        else:
+            o = attention(q, k, v, causal=True, impl=self.attn_impl)
+        o = o.transpose(1, 2).reshape(b, t, width)
+        return self.out(o) if line is None else row_parallel(self.out, o, line)
 
 
 class Block(nn.Module):
@@ -73,8 +99,8 @@ class Block(nn.Module):
                  attn_impl: str = "auto", ring_axis: Optional[str] = None, ring_size: int = 1,
                  sp_mode: str = "ring", dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_unported(ring_size)
         self.dropout = dropout
+        self.tp_axis: Optional[str] = None
         self.site = 0        # the attention output's call site; the MLP's is site + 1
         self.attn = SelfAttention(dim, heads, attn_impl, ring_axis, ring_size, sp_mode, dtype)
         self.LayerNorm_0 = LayerNorm(dim, dtype=dtype)
@@ -87,8 +113,13 @@ class Block(nn.Module):
         a = seed_dropout(self.attn(self.LayerNorm_0(h)), dropout_key, self.dropout, self.site,
                          off)
         h = h + a
-        m = F.gelu(self.Dense_0(self.LayerNorm_1(h)), approximate="tanh")
-        return h + seed_dropout(self.Dense_1(m), dropout_key, self.dropout, self.site + 1, off)
+        u = self.LayerNorm_1(h)
+        line = axis_line(self.tp_axis) if self.tp_axis else None
+        if line is not None:
+            u = copy_to_line(line, u)
+        m = F.gelu(self.Dense_0(u), approximate="tanh")
+        m = self.Dense_1(m) if line is None else row_parallel(self.Dense_1, m, line)
+        return h + seed_dropout(m, dropout_key, self.dropout, self.site + 1, off)
 
 
 class TransformerLM(nn.Module):
@@ -97,8 +128,10 @@ class TransformerLM(nn.Module):
                  attn_impl: str = "auto", ring_axis: Optional[str] = None, ring_size: int = 1,
                  sp_mode: str = "ring", remat: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_unported(ring_size)
         self.remat = remat
+        # the configuration the pipeline's stages and the sp step read
+        self.dim, self.heads, self.mlp_ratio, self.dropout = dim, heads, mlp_ratio, dropout
+        self.dtype, self.ring_axis, self.ring_size = dtype, ring_axis, ring_size
         self.tok_embed = Embed(vocab_size, dim, dtype=dtype)
         self.pos_embed = Embed(max_len, dim, dtype=dtype)
         self.layers = layers

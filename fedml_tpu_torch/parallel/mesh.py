@@ -20,6 +20,14 @@ Hierarchical FL's 2-D ``('group', 'clients')`` mesh
 group row ``r // clients_per_group`` at slot ``r % clients_per_group``, and
 each axis is a subgroup of the process group (a row's ranks for the
 ``clients`` all-reduce, a column's for the ``group`` one).
+
+The LM axes and the data-parallel batch axis take a :class:`NamedMesh`
+(:func:`named_mesh`): any axis names and sizes, ranks row-major as
+``np.reshape(devices, sizes)`` lays them out, and a subgroup for every line
+of every set of axes, which every rank creates in the same order. A step
+binds the mesh's names for its forward and backward (:class:`bound_axes`),
+as ``shard_map`` binds them, and a module built with an axis name finds its
+line with :func:`axis_line`.
 """
 
 from __future__ import annotations
@@ -164,3 +172,128 @@ def hierarchical_mesh(num_groups: int, clients_per_group: int,
     return HierarchicalMesh(base.world_size, base.rank, base.group, base.device, G, cpg,
                             ClientMesh(cpg, s, rows[g], base.device),
                             ClientMesh(G, g, cols[s], base.device))
+
+
+# -- named meshes (the LM axes and the data-parallel batch axis) ---------------------------
+
+
+@dataclass(frozen=True)
+class AxisLine:
+    """One rank's line of ranks along some axes of a :class:`NamedMesh`:
+    ``size`` ranks (global ``ranks``, in row-major order of those axes),
+    this rank at ``index``, and the process group the collectives over the
+    line take (None where there is none: a line of one rank that is not the
+    whole world, or no process group at all). The collective of a line
+    without a group is the identity."""
+
+    size: int
+    index: int
+    ranks: tuple
+    group: Optional[dist.ProcessGroup]
+
+
+@dataclass(frozen=True, eq=False)
+class NamedMesh:
+    """One rank's view of an n-D mesh of named axes over the process group
+    (the JAX package's ``Mesh(np.reshape(devices, sizes), names)``): rank r
+    sits at ``np.unravel_index(r, sizes)``, row-major, and ``line(*axes)``
+    is its :class:`AxisLine` along any set of the axes."""
+
+    axis_names: tuple
+    sizes: tuple
+    rank: int
+    world_size: int
+    device: torch.device
+    lines: dict
+
+    @property
+    def shape(self) -> dict:
+        """The JAX mesh's axis sizes."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    def coord(self, axis: str) -> int:
+        """This rank's position along ``axis``."""
+        return self.line(axis).index
+
+    def line(self, *axes: str) -> AxisLine:
+        """This rank's line along ``axes`` (any order; unknown names raise)."""
+        bad = [a for a in axes if a not in self.axis_names]
+        if bad or not axes:
+            raise ValueError(f"axes {axes} are not all axes of the mesh {self.axis_names}")
+        return self.lines[tuple(a for a in self.axis_names if a in axes)]
+
+    def block(self, n: int, axis: str) -> slice:
+        """This rank's block of ``n`` items split over ``axis``."""
+        ln = self.line(axis)
+        if n % ln.size:
+            raise ValueError(f"{n} does not split over the {ln.size} ranks of axis {axis!r}")
+        per = n // ln.size
+        return slice(ln.index * per, (ln.index + 1) * per)
+
+
+def named_mesh(axis_names: Sequence[str], sizes: Sequence[int],
+               device: Optional[Union[str, torch.device]] = None) -> NamedMesh:
+    """The mesh of named axes over the initialised process group, whose
+    world size must be the product of ``sizes``; without a group, a mesh of
+    one rank (every size 1). Every rank creates the subgroup of every line
+    of every set of axes, in the same order (``dist.new_group`` is
+    collective): a line of all ranks takes the world group, and a line of
+    one rank takes none."""
+    import itertools
+
+    base = client_mesh(device=device)
+    names, sizes = tuple(axis_names), tuple(int(s) for s in sizes)
+    need = int(np.prod(sizes))
+    if need != base.world_size:
+        raise ValueError(f"a {dict(zip(names, sizes))} mesh needs {need} ranks; the process "
+                         f"group has {base.world_size} (start it with init_multihost)")
+    grid = np.arange(need).reshape(sizes)
+    lines = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(range(len(names)), k):
+            rest = [d for d in range(len(names)) if d not in axes]
+            flat = grid.transpose(rest + list(axes)).reshape(-1, int(np.prod([sizes[d] for d in axes])))
+            for row in flat:
+                ranks = tuple(int(r) for r in row)
+                if base.group is None:
+                    group = None
+                elif len(ranks) == base.world_size:
+                    group = base.group
+                else:
+                    group = dist.new_group(list(ranks)) if len(ranks) > 1 else None
+                if base.rank in ranks:
+                    lines[tuple(names[d] for d in axes)] = AxisLine(
+                        len(ranks), ranks.index(base.rank), ranks, group)
+    return NamedMesh(names, sizes, base.rank, base.world_size, base.device, lines)
+
+
+#: the meshes whose axis names the running step binds (innermost last);
+#: process-wide, so a backward on autograd's device threads sees them too
+_BOUND: list = []
+
+
+class bound_axes:
+    """``with bound_axes(mesh):`` binds the mesh's axis names for the code
+    inside, as ``shard_map`` binds them for its body: modules built with an
+    axis name (``ring_axis``, ``bn_axis``, a tensor- or expert-parallel
+    axis) find their :class:`AxisLine` through :func:`axis_line`."""
+
+    def __init__(self, mesh: NamedMesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        _BOUND.append(self.mesh)
+        return self.mesh
+
+    def __exit__(self, *_exc):
+        _BOUND.pop()
+
+
+def axis_line(*axes: str) -> AxisLine:
+    """This rank's line along ``axes`` of the innermost bound mesh that has
+    them; an unbound name raises ``ValueError`` (JAX's unbound axis name)."""
+    for mesh in reversed(_BOUND):
+        if all(a in mesh.axis_names for a in axes):
+            return mesh.line(*axes)
+    raise ValueError(f"unbound axis name(s) {axes}: run inside a step over a mesh with them "
+                     "(parallel/mesh.bound_axes)")

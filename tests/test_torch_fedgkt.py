@@ -25,7 +25,7 @@
   rtol 1e-5 (its per-client test shards bit-equal to JAX's). Each round
   starts from JAX's state because chained BN rounds
   at batch 4 jump between outcomes at 1e-7 perturbations (ROADMAP §3).
-- ``server_mesh`` raises, naming the item that ports it.
+- a one-rank ``server_mesh`` trains the round of no mesh.
 """
 
 import jax
@@ -299,6 +299,19 @@ def test_train_history_and_shapes():
 
 
 def test_server_mesh_is_refused():
+    """The data-parallel server is ported: a mesh larger than the process
+    group is refused, and a one-rank server mesh trains the round of no
+    mesh (more ranks: tests/test_torch_dataparallel.py)."""
+    from fedml_tpu_torch.parallel.dataparallel import batch_mesh
+
     ds = make_synthetic_classification(**DATA)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        FedGKTAPI(ds, FedConfig(**RUN), server_mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="ranks"):
+        FedGKTAPI(ds, FedConfig(**RUN), server_mesh=batch_mesh(2, device="cpu"), device="cpu")
+    runs = []
+    for mesh in (None, batch_mesh(1, device="cpu")):
+        api = FedGKTAPI(ds, FedConfig(**RUN), client_blocks=1, server_blocks_per_stage=1,
+                        server_mesh=mesh, device="cpu")
+        runs.append((api.run_round(0), api.server_vars))
+    (l0, v0), (l1, v1) = runs
+    assert torch.equal(l0[0], l1[0]) and torch.equal(l0[1], l1[1])
+    assert all(torch.equal(v0[k], v1[k]) for k in v0)

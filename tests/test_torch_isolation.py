@@ -18,7 +18,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedml_tpu")
 FILES = (sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "tools").glob("torch_*.py"))
-         + [ROOT / "tests" / "torch_crosssilo_ranks.py"])
+         + [ROOT / "tests" / "torch_crosssilo_ranks.py", ROOT / "tests" / "torch_mesh_ranks.py"])
 
 
 def _imported_roots(path: Path):
@@ -68,7 +68,9 @@ def test_new_modules_are_covered():
                 "experiments/main_splitnn.py", "experiments/main_vfl.py",
                 "models/mobilenet.py", "models/efficientnet.py", "models/vgg.py",
                 "models/resnet_gn.py", "models/rnn.py", "ops/dropout.py",
-                "data/stackoverflow.py", "data/imagenet.py"):
+                "data/stackoverflow.py", "data/imagenet.py", "parallel/collectives.py",
+                "parallel/sequence.py", "parallel/tensor.py", "parallel/pipeline.py",
+                "parallel/dataparallel.py", "models/moe.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
@@ -86,6 +88,8 @@ def test_the_launcher_loads_no_jax_at_run_time():
         "import fedml_tpu_torch.algorithms.fedgkt, fedml_tpu_torch.algorithms.fedseg\n"
         "import fedml_tpu_torch.algorithms.fednas, fedml_tpu_torch.algorithms.split_nn\n"
         "import fedml_tpu_torch.algorithms.vfl, fedml_tpu_torch.data.vertical\n"
+        "import fedml_tpu_torch.parallel.pipeline, fedml_tpu_torch.parallel.tensor\n"
+        "import fedml_tpu_torch.parallel.dataparallel, fedml_tpu_torch.models.moe\n"
         "fedml_tpu_torch.data.vertical.load_vertical('lending_club', 'no-such-dir')\n"
         "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
         "load_dataset('pascal_voc', num_clients=2)\n"

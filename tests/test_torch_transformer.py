@@ -131,7 +131,7 @@ def test_world_size_one_lm_step_matches_jax():
     new_vars, _, loss_j = jstep(jax.tree.map(jnp.array, variables),
                                 tx.init(variables["params"]), x, y, mask, jax.random.key(1))
 
-    step = tseq.make_sp_lm_train_step(tm, tseq.sp_mesh(1, 1), attn_impl="auto")
+    step = tseq.make_sp_lm_train_step(tm, tseq.sp_mesh(1, 1, device="cpu"), attn_impl="auto")
     opt = make_optimizer("sgd", 0.1)(tm.parameters())
     loss_t = step(opt, torch.tensor(x), torch.tensor(y), torch.tensor(mask))
     assert loss_t.dim() == 0 and not loss_t.requires_grad
@@ -258,17 +258,25 @@ def test_bf16_model_computes_in_bf16_with_f32_logits():
     assert h.dtype == torch.bfloat16
 
 
+_TOKENS = torch.zeros(1, 4, dtype=torch.int64)
+_QKV = torch.zeros(1, 2, 4, 16)
+
+
 @pytest.mark.parametrize("build", [
-    lambda: TransformerLM(50, dim=32, heads=2, ring_axis="sp", ring_size=2),
-    lambda: TransformerLM(50, dim=32, heads=2, dropout=0.1, ring_size=2),
-    lambda: Block(32, 2, ring_size=4),
-    lambda: SelfAttention(32, 2, ring_size=2),
-    lambda: create_model("transformer", 90, dropout=0.1, ring_size=2),
-    lambda: tseq.sp_mesh(1, 2),
-    lambda: tseq.make_sp_lm_train_step(TransformerLM(**SMALL), (2, 1)),
-    lambda: tseq.ring_attention(None, None, None, axis_name="sp", axis_size=2),
-    lambda: tseq.ulysses_attention(None, None, None, axis_name="sp", axis_size=2),
+    lambda: TransformerLM(50, dim=32, heads=2, ring_axis="sp", ring_size=2)(_TOKENS),
+    lambda: TransformerLM(50, dim=32, heads=2, dropout=0.1, ring_size=2).train()(_TOKENS),
+    lambda: Block(32, 2, ring_axis="sp", ring_size=4)(torch.zeros(1, 4, 32)),
+    lambda: SelfAttention(32, 2, ring_axis="sp", ring_size=2)(torch.zeros(1, 4, 32)),
+    lambda: create_model("transformer", 90, dropout=0.1, ring_size=2).module.train()(_TOKENS),
+    lambda: tseq.sp_mesh(1, 2, device="cpu"),
+    lambda: tseq.make_sp_lm_train_step(TransformerLM(**SMALL), tseq.sp_mesh(2, 1, device="cpu")),
+    lambda: tseq.ring_attention(_QKV, _QKV, _QKV, axis_name="sp", axis_size=2),
+    lambda: tseq.ulysses_attention(_QKV, _QKV, _QKV, axis_name="sp", axis_size=2),
 ])
 def test_unported_sequence_parallelism_and_dropout_raise(build):
-    with pytest.raises(NotImplementedError):
+    """Sequence parallelism is ported (tests/test_torch_sequence_parallel.py);
+    what is left to refuse: an sp axis that no step binds (JAX's unbound
+    axis name), a mesh larger than the process group, and a dropout model
+    in train mode without its key."""
+    with pytest.raises(ValueError):
         build()
