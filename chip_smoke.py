@@ -277,6 +277,25 @@ Phases (any failure raises and the script exits non-zero):
    step), and in f32 under cuDNN's deterministic algorithms that trainer and
    a FedGKT round with ``server_mesh`` within ``MESH_GATE`` of their
    mesh-less runs.
+20. The FedAvg edge runtime (``distributed/fedavg_edge.py``), after phase
+   19, its ranks built through ``build_edge_rank(..., bundle=)`` and
+   ``comm.local.run_ranks``; every live step a replay of the workers'
+   shared captured step. (a) f32 ResNet-56 through K1/K2 under cuDNN's
+   deterministic algorithms in JAX's equivalence set-up (``EDGE_GATE``: 8
+   clients x 128 records, batch 128, 4 workers of one client, 2 rounds):
+   the edge over the local transport with the wire round trip against the
+   port's FedAvgAPI on the same bundle given the edge's orders within
+   ``EDGE_TOL`` (the distance with the simulation's own orders printed
+   beside), the same federation over the in-repo MQTT broker on loopback
+   bit for bit, and the streaming aggregator on round 0's uploads (arrival
+   orders bit for bit, the batch mean within ``EDGE_STREAM_TOL``). (b) The bf16
+   flagship federation (32 x 1562 records, 8 workers of one client, batch
+   64): FedAvgAPI, then the edge over the local transport (raw; q8 both
+   ways) and over MQTT, 1 warm and 2 timed rounds each: real
+   images/s, K1/K2 a round (57 x its live steps, exactly), encode / decode
+   ms and bytes a round, and the device-span share (CUDA events around each
+   worker's training over the round's wall). gRPC is not attempted on the
+   card.
 
 Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15, 16, 17 and 18 is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
@@ -319,6 +338,7 @@ from typing import Optional
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 SEED = 0
 EPS = 1e-5
 
@@ -6315,6 +6335,487 @@ def phase_train_mesh_axes(smi: str) -> dict:
     return {"ring": ring, "builders": arms, "dp": dp, "backend": backend, "launches": launches}
 
 
+# -- phase 20: the FedAvg edge runtime ------------------------------------------
+
+# (a) the f32 gate: JAX's equivalence set-up (tests/test_fedavg_edge.py:41-60)
+# at ResNet-56's full width and depth, full-batch epochs (128 records a
+# client, batch 128), one client a worker
+EDGE_GATE = dict(clients=8, records=128, workers=4, rounds=2)
+# JAX's tolerances of the edge against the simulation
+# (tests/test_fedavg_edge.py:70-77): weights rtol / atol, acc rtol, loss rtol
+EDGE_TOL = dict(rtol=1e-5, atol=1e-6, acc=1e-6, loss=1e-4)
+# the streaming aggregator against the batch one (tests/test_fedsched.py:35)
+EDGE_STREAM_TOL = dict(rtol=1e-6, atol=1e-7)
+# (b) the flagship federation over 8 workers: 1 warm round, then 2 timed
+EDGE_WORKERS = 8
+EDGE_ROUNDS = 3
+
+
+def edge_gate_data():
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+
+    g = EDGE_GATE
+    return make_synthetic_classification(
+        "edge-gate", (32, 32, 3), 10, g["clients"], records_per_client=g["records"],
+        partition_method="homo", batch_size=g["records"], seed=SEED)
+
+
+class EdgeRecorder:
+    """What phase 20 reads of an edge run without touching the port: the
+    aggregator's round closes (time, accepted weight, kernel launches and
+    codec totals at each), the workers' local training wrapped in CUDA
+    events, and the uploads of round 0 (``keep_uploads``)."""
+
+    def __init__(self, keep_uploads: bool = False, profile_round: Optional[int] = None):
+        self.closes = []
+        #: a round profiled whole (torch.profiler, CUDA activity only, from
+        #: the close of the round before to its own close) and its reading
+        self.profile_round = profile_round
+        self.profile = None
+        self._prof = None
+        self.spans = []
+        #: (round, what, host seconds): local_train_s, worker_call_s, aggregate_s
+        self.host = []
+        self.uploads = {} if keep_uploads else None
+        self.codec = {"encode_s": 0.0, "decode_s": 0.0, "bytes": 0, "messages": 0}
+        self.t0 = None
+
+    def aggregator_cls(self, base):
+        rec = self
+
+        class Recording(base):
+            def add_local_trained_result(self, index, model_params, sample_num):
+                if rec.uploads is not None and not rec.closes:
+                    rec.uploads[index] = ({k: v.copy() for k, v in model_params.items()},
+                                          float(sample_num))
+                super().add_local_trained_result(index, model_params, sample_num)
+
+            def aggregate(self):
+                from fedml_tpu_torch.ops import batchnorm as bn
+
+                rec.closes.append({"t": time.perf_counter(),
+                                   "weight": sum(self.sample_num_dict[i] for i in self.model_dict),
+                                   "launches": dict(bn.LAUNCHES), "codec": dict(rec.codec)})
+                rec.profile_step(len(rec.closes) - 1)
+                t = time.perf_counter()
+                out = super().aggregate()
+                rec.host.append((len(rec.closes), "aggregate_s", time.perf_counter() - t))
+                rec.closes[-1]["finite"] = all(bool(np.isfinite(v).all()) for v in out.values())
+                return out
+
+        return Recording
+
+    def profile_step(self, closed: int) -> None:
+        """At the close of round ``closed`` (on the server's thread): open
+        the profile window before the profiled round, close it at its end.
+        Every upload of a round follows its worker's copy out, so the
+        round's device work is done when it closes."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.profile_round is None:
+            return
+        if closed == self.profile_round - 1:
+            self._prof = profile(activities=[ProfilerActivity.CUDA])
+            self._prof.start()
+            self._prof_t0 = time.perf_counter()
+        elif closed == self.profile_round:
+            torch.cuda.synchronize()
+            self._prof.stop()
+            wall = time.perf_counter() - self._prof_t0
+            spans = sorted((e.start_ns(), e.end_ns())
+                           for e in self._prof.profiler.kineto_results.events()
+                           if e.device_type() == torch.autograd.DeviceType.CUDA)
+            busy, end = 0, None
+            for a, b in spans:          # the union of the device's intervals
+                if end is None or a > end:
+                    busy += b - a
+                    end = b
+                elif b > end:
+                    busy += b - end
+                    end = b
+            self.profile = {"round": closed, "wall_s": wall, "device_activities": len(spans),
+                            "device_busy_ms": busy / 1e6, "busy_share": busy / 1e9 / wall}
+            self._prof = None
+
+    def comm_cls(self):
+        from fedml_tpu_torch.comm import Message
+        from fedml_tpu_torch.comm.local import LocalCommunicationManager
+
+        rec = self
+
+        class TimedLocal(LocalCommunicationManager):
+            """The local transport's wire round trip, encode and decode
+            timed apart."""
+
+            def send_message(self, msg):
+                t = time.perf_counter()
+                buf = msg.to_bytes(msg.codec or self.codec)
+                t1 = time.perf_counter()
+                out = Message.from_bytes(buf)
+                t2 = time.perf_counter()
+                c = rec.codec
+                c["encode_s"] += t1 - t
+                c["decode_s"] += t2 - t1
+                c["bytes"] += len(buf)
+                c["messages"] += 1
+                self.router.post(msg.get_receiver_id(), out)
+
+        return TimedLocal
+
+    def wrap_trainer(self, trainer) -> None:
+        """CUDA events around each client's local training; host seconds of
+        it and of the worker's whole call on the device thread (the copies
+        in and out included)."""
+        import torch
+
+        fn, train, spans, host = trainer.local_train, trainer._train, self.spans, self.host
+
+        def timed(*a, **kw):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            spans.append((len(self.closes), s, e))
+            host.append((len(self.closes), "local_train_s", time.perf_counter() - t))
+            return out
+
+        def timed_train(*a, **kw):
+            t = time.perf_counter()
+            out = train(*a, **kw)
+            host.append((len(self.closes), "worker_call_s", time.perf_counter() - t))
+            return out
+
+        trainer.local_train = timed
+        trainer._train = timed_train
+
+
+def edge_run(ds, cfg, bundle, workers: int, rec: EdgeRecorder, comm_factory=None,
+             init: Optional[dict] = None, wire_roundtrip: bool = True):
+    """One edge federation built through the port's own seams
+    (``build_edge_rank(..., bundle=, aggregator=)`` and
+    ``comm.local.run_ranks``), recorded by ``rec``; returns the aggregator."""
+    from fedml_tpu_torch.comm.local import LocalRouter, run_ranks
+    from fedml_tpu_torch.distributed.fedavg_edge import (FedAVGAggregator,
+                                                         StreamingFedAVGAggregator,
+                                                         build_edge_rank)
+
+    base = StreamingFedAVGAggregator if cfg.stream_aggregate != "off" else FedAVGAggregator
+    agg = rec.aggregator_cls(base)(init if init is not None else bundle.init(cfg.seed), workers,
+                                   cfg, dataset=ds, bundle=bundle)
+    size = workers + 1
+    if comm_factory is None:
+        router = LocalRouter(size)
+        timed = rec.comm_cls()
+
+        def comm_factory(r):
+            return timed(router, r, wire_roundtrip=wire_roundtrip, codec=cfg.wire_codec)
+
+    def make(rank, comm):
+        m = build_edge_rank(ds, cfg, rank, size, comm, bundle=bundle, aggregator=agg)
+        if rank:
+            rec.wrap_trainer(m.trainer)
+        return m
+
+    rec.t0 = time.perf_counter()
+    run_ranks(make, size, comm_factory=comm_factory, timeout=600.0)
+    return agg
+
+
+def _max_rel(a: dict, b: dict) -> tuple:
+    """(max |a - b|, max |a - b| / (atol + rtol |b|) over EDGE_TOL) of two
+    state dicts."""
+    worst, ratio = 0.0, 0.0
+    for k in b:
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        d = np.abs(x - y)
+        worst = max(worst, float(d.max()))
+        ratio = max(ratio, float((d / (EDGE_TOL["atol"] + EDGE_TOL["rtol"] * np.abs(y))).max()))
+    return worst, ratio
+
+
+def edge_gate(smi: str) -> dict:
+    """(a) f32 through K1/K2 under cuDNN's deterministic algorithms: the
+    edge over the local transport with the wire round trip against the
+    port's FedAvgAPI on the same bundle (given the edge's orders, and on its
+    own), the same federation over the in-repo MQTT broker bit for bit, and
+    the streaming aggregator on round 0's uploads against the batch one."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.comm.mqtt_backend import MqttCommManager
+    from fedml_tpu_torch.comm.mqtt_broker import MqttBroker
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.core.rng import client_generator
+    from fedml_tpu_torch.distributed.fedavg_edge import (FedAVGAggregator,
+                                                         StreamingFedAVGAggregator)
+    from fedml_tpu_torch.models import create_model
+
+    tag = "[edge gate]"
+    g = EDGE_GATE
+    ds = edge_gate_data()
+    n_pad = int(ds.train_x.shape[1])
+    if n_pad != g["records"]:
+        raise AssertionError(f"{tag} n_pad {n_pad}: the gate needs full-batch epochs")
+    cfg = FedConfig(model="resnet56", dataset="edge-gate", client_num_in_total=g["clients"],
+                    client_num_per_round=g["workers"], comm_round=g["rounds"],
+                    batch_size=g["records"], epochs=1, lr=0.01, momentum=0.9,
+                    frequency_of_the_test=1, seed=SEED)
+    bundle = create_model("resnet56", 10, input_shape=(32, 32, 3), bn_impl="pallas")
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        init = bundle.init(cfg.seed)
+        local_rec = EdgeRecorder(keep_uploads=True)
+        local = edge_run(ds, cfg, bundle, g["workers"], local_rec, init=init)
+        with MqttBroker(0) as broker:
+            mqtt = edge_run(ds, cfg, bundle, g["workers"], EdgeRecorder(), init=init,
+                            comm_factory=lambda r: MqttCommManager(
+                                "127.0.0.1", broker.port, r, g["workers"]))
+
+        def edge_orders(r, i):
+            ci = int(api.sample(r)[i])
+            gen = client_generator(cfg.seed, r, ci)
+            return [torch.randperm(n_pad, generator=gen) for _ in range(cfg.epochs)]
+
+        sims = {}
+        for label, hook in (("edge_orders", edge_orders), ("own_orders", None)):
+            api = FedAvgAPI(ds, cfg, bundle, order_hook=hook)
+            api.variables = {k: v.clone() for k, v in init.items()}
+            hist = api.train()
+            sims[label] = (api.variables, hist)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    out = {}
+    for label, (svars, hist) in sims.items():
+        worst, ratio = _max_rel(local.variables, {k: v.cpu().numpy() for k, v in svars.items()})
+        acc = [h["acc"] for h in local.test_history]
+        loss = [h["loss"] for h in local.test_history]
+        acc_d = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(acc, hist["Test/Acc"]))
+        loss_d = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(loss, hist["Test/Loss"]))
+        out[label] = {"weights_max_abs": worst, "weights_tol_ratio": ratio,
+                      "acc_rel": acc_d, "loss_rel": loss_d, "edge_acc": acc, "sim_acc":
+                      hist["Test/Acc"], "edge_loss": loss, "sim_loss": hist["Test/Loss"]}
+        log(f"{tag} edge (local, wire round trip) against FedAvgAPI ({label}): weights max "
+            f"|d| {worst:.3e} ({ratio:.3f} of rtol {EDGE_TOL['rtol']} / atol "
+            f"{EDGE_TOL['atol']}), acc rel {acc_d:.3e}, loss rel {loss_d:.3e}; edge loss "
+            f"{loss}, sim {hist['Test/Loss']}; {smi}")
+    o = out["edge_orders"]
+    if not (o["weights_tol_ratio"] <= 1.0 and o["acc_rel"] <= EDGE_TOL["acc"]
+            and o["loss_rel"] <= EDGE_TOL["loss"]):
+        raise AssertionError(f"{tag} the edge misses FedAvgAPI: {o}")
+    same = all(np.array_equal(mqtt.variables[k], local.variables[k]) for k in local.variables)
+    if not same or mqtt.test_history != local.test_history:
+        raise AssertionError(f"{tag} the MQTT federation differs from the local one")
+    log(f"{tag} MQTT federation over the in-repo broker = local transport, bit for bit")
+    # the streaming aggregator on round 0's uploads: any arrival order bit
+    # for bit in deterministic mode, and the batch mean within EDGE_STREAM_TOL
+    ups = local_rec.uploads
+    if len(ups) != g["workers"]:
+        raise AssertionError(f"{tag} recorded {len(ups)} round-0 uploads")
+
+    def streamed(order):
+        agg = StreamingFedAVGAggregator(init, g["workers"],
+                                        cfg.replace(stream_aggregate="deterministic"))
+        for i in order:
+            agg.add_local_trained_result(i, *ups[i])
+        return agg, agg.aggregate()
+
+    fwd, a = streamed(sorted(ups))
+    rev, b = streamed(sorted(ups, reverse=True))
+    batch = FedAVGAggregator(init, g["workers"], cfg)
+    for i in sorted(ups):
+        batch.add_local_trained_result(i, *ups[i])
+    want = batch.aggregate()
+    if not all(np.array_equal(a[k], b[k]) for k in a) or rev.stream_peak_held < 2:
+        raise AssertionError(f"{tag} the deterministic fold depends on the arrival order")
+    worst = 0.0
+    for k in want:
+        np.testing.assert_allclose(a[k], want[k], **EDGE_STREAM_TOL, err_msg=f"{tag} streaming {k}")
+        worst = max(worst, float(np.abs(a[k].astype(np.float64) - want[k]).max()))
+    log(f"{tag} streaming aggregator (deterministic) on round 0's {len(ups)} uploads: "
+        f"arrival orders bit for bit (held {rev.stream_peak_held}), batch mean within "
+        f"{worst:.3e} (rtol {EDGE_STREAM_TOL['rtol']} / atol {EDGE_STREAM_TOL['atol']}), "
+        f"{fwd.stream_nbytes} accumulator bytes after the close; {smi}")
+    return {"sim": out, "mqtt_bit_for_bit": True, "stream_max_abs": worst,
+            "stream_peak_held": rev.stream_peak_held}
+
+
+def edge_config(**config):
+    """The flagship federation (phase 4's) for phase 20 (b): 8 workers of
+    one client each, EDGE_ROUNDS rounds, bf16, evaluated after the last."""
+    from fedml_tpu_torch.core.config import FedConfig
+
+    return FedConfig(**{**dict(model="resnet56", dataset="cifar10", client_num_in_total=32,
+                               client_num_per_round=EDGE_WORKERS, comm_round=EDGE_ROUNDS,
+                               batch_size=64, epochs=1, lr=0.1, momentum=0.9,
+                               dtype="bfloat16", frequency_of_the_test=10_000, seed=SEED),
+                        **config})
+
+
+def edge_speed_arm(label: str, ds, bundle, smi: str, comm_factory=None, profile: bool = False,
+                   **config) -> dict:
+    """(b) One bf16 flagship federation: 8 workers of one client each over
+    EDGE_ROUNDS rounds; round 0 warms up (the capture), rounds 1-2 are
+    timed. Real images/s, K1/K2 a round (57 x the round's live steps,
+    exactly), encode / decode ms and bytes a round, and the device-span
+    share (CUDA events around each worker's local training over the round's
+    wall: an upper bound of the busy share). With ``profile`` one more
+    round runs under torch.profiler for the device's busy share (the union
+    of its activity over the round's wall), outside the timed rounds."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    tag = f"[edge {label}]"
+    cfg = edge_config(**config, **({"comm_round": EDGE_ROUNDS + 1} if profile else {}))
+    rec = EdgeRecorder(profile_round=EDGE_ROUNDS if profile else None)
+    bn.reset_launches()
+    agg = edge_run(ds, cfg, bundle, EDGE_WORKERS, rec, comm_factory=comm_factory)
+    torch.cuda.synchronize()
+    launches = dict(bn.LAUNCHES)
+    from fedml_tpu_torch.core.rng import sample_clients
+
+    rounds = []
+    prev = {"t": rec.t0, "launches": {"bn_fwd": 0, "bn_bwd": 0},
+            "codec": {"encode_s": 0.0, "decode_s": 0.0, "bytes": 0, "messages": 0}}
+    for r, close in enumerate(rec.closes):
+        counts = ds.train_counts[sample_clients(r, 32, EDGE_WORKERS, SEED)]
+        steps = int(sum(-(-int(c) // cfg.batch_size) for c in counts))
+        wall = close["t"] - prev["t"]
+        ran = {k: close["launches"][k] - prev["launches"][k] for k in ("bn_fwd", "bn_bwd")}
+        if any(v != BNS_PER_STEP * steps for v in ran.values()):
+            raise AssertionError(f"{tag} round {r}: launches {ran}, expected {BNS_PER_STEP} x "
+                                 f"{steps} live steps")
+        span_ms = sum(s.elapsed_time(e) for i, s, e in rec.spans if i == r)
+        codec = {k: close["codec"][k] - prev["codec"][k] for k in prev["codec"]}
+        # the round's host seconds on the device thread (aggregate: the
+        # close before this round's broadcast)
+        host = {k: sum(v for i, kk, v in rec.host if i == r and kk == k)
+                for k in ("local_train_s", "worker_call_s", "aggregate_s")}
+        rounds.append({"round": r, "seconds": wall, "real_images": float(close["weight"]),
+                       "host_s": host, "weights_finite": close["finite"],
+                       "real_images_per_s": float(close["weight"]) / wall, "steps": steps,
+                       "bn_launches": ran, "device_span_ms": span_ms,
+                       "device_span_share": span_ms / 1e3 / wall,
+                       "encode_ms": codec["encode_s"] * 1e3, "decode_ms": codec["decode_s"] * 1e3,
+                       "wire_bytes": codec["bytes"], "messages": codec["messages"]})
+        prev = close
+        log(f"{tag} round {r}: {wall:.3f} s, {close['weight']:.0f} real images "
+            f"({close['weight'] / wall:.1f}/s), {steps} steps, K1/K2 {ran}, device span "
+            f"{span_ms:.1f} ms ({span_ms / 1e3 / wall:.3f} of the wall); device thread: "
+            f"local training {host['local_train_s']:.3f} s, worker calls "
+            f"{host['worker_call_s']:.3f} s, aggregate {host['aggregate_s']:.3f} s; encode "
+            f"{codec['encode_s'] * 1e3:.1f} ms, decode {codec['decode_s'] * 1e3:.1f} ms, "
+            f"{codec['bytes']} bytes in {codec['messages']} messages")
+    if len(rounds) != cfg.comm_round:
+        raise AssertionError(f"{tag} {len(rounds)} rounds closed")
+    timed = rounds[1:EDGE_ROUNDS]
+    secs = sum(r["seconds"] for r in timed)
+    real = sum(r["real_images"] for r in timed)
+    loss = agg.test_history[-1]["loss"]
+    finite = [r["weights_finite"] for r in rounds]
+    log(f"{tag} aggregates finite by round {finite}, final loss {loss}")
+    # a lossy codec's result is no correctness claim: its arm is timed only
+    if cfg.wire_codec == "raw" and not (np.isfinite(loss) and all(finite)):
+        raise AssertionError(f"{tag} final loss {loss}, finite aggregates {finite}")
+    # the codec is timed on the local transport only (MQTT encodes inside
+    # its manager)
+    timed_codec = all(r["messages"] for r in timed)
+
+    def per_round(key):
+        return sum(r[key] for r in timed) / len(timed) if timed_codec else None
+
+    rec_out = {"rounds": rounds, "real_images_per_s": real / secs, "launches": launches,
+               "final": agg.test_history[-1],
+               "device_span_share": sum(r["device_span_ms"] for r in timed) / 1e3 / secs,
+               "encode_ms_per_round": per_round("encode_ms"),
+               "decode_ms_per_round": per_round("decode_ms"),
+               "wire_bytes_per_round": per_round("wire_bytes"), "profiled_round": rec.profile}
+    if profile:
+        # the profiler slows the host ~7x (a record a kernel of every
+        # replay), so the profiled round gives the device's busy time of its
+        # steps, and the timed rounds' busy share is that time a step over
+        # their own (unprofiled) wall
+        p = rec.profile
+        p["device_busy_ms_per_step"] = p["device_busy_ms"] / rounds[p["round"]]["steps"]
+        rec_out["busy_share"] = (p["device_busy_ms_per_step"] * sum(r["steps"] for r in timed)
+                                 / 1e3 / secs)
+        log(f"{tag} profiled round {p['round']}: {p['device_activities']} device activities, "
+            f"{p['device_busy_ms']:.1f} ms of device busy ({p['device_busy_ms_per_step']:.3f} ms a "
+            f"live step) in a {p['wall_s']:.3f} s window; rounds 1-2 at that device time a step: "
+            f"busy share {rec_out['busy_share']:.3f}; {smi}")
+    codec_txt = (f"encode {rec_out['encode_ms_per_round']:.1f} / decode "
+                 f"{rec_out['decode_ms_per_round']:.1f} ms and "
+                 f"{rec_out['wire_bytes_per_round']:.0f} bytes a round" if timed_codec
+                 else "codec not timed on this transport")
+    log(f"{tag} rounds 1-2: {rec_out['real_images_per_s']:.1f} real images/s, device span "
+        f"share {rec_out['device_span_share']:.3f}, {codec_txt}; final "
+        f"{agg.test_history[-1]}; {smi}")
+    return rec_out
+
+
+def edge_sim_arm(ds, bundle, smi: str) -> dict:
+    """The port's plain FedAvgAPI on the same federation and bundle in the
+    same call: round 0 warm, rounds 1-2 timed."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+
+    tag = "[edge sim]"
+    api = FedAvgAPI(ds, edge_config(), bundle)
+    rounds = []
+    for r in range(EDGE_ROUNDS):
+        t = time.perf_counter()
+        loss = float(api.run_round(r))
+        dt = time.perf_counter() - t
+        real, _ = api.round_counts(r)
+        rounds.append({"round": r, "seconds": dt, "real_images": real, "loss": loss})
+        log(f"{tag} round {r}: {dt:.3f} s, {real} real images ({real / dt:.1f}/s), loss {loss:.4f}")
+    secs = sum(r["seconds"] for r in rounds[1:])
+    out = {"rounds": rounds, "real_images_per_s": sum(r["real_images"] for r in rounds[1:]) / secs}
+    log(f"{tag} rounds 1-2: {out['real_images_per_s']:.1f} real images/s; {smi}")
+    return out
+
+
+def phase_train_edge(smi: str) -> dict:
+    """Phase 20: the FedAvg edge runtime, (a) the f32 gates, (b) the bf16
+    flagship federation over the local transport (raw, then q8) and over
+    MQTT, beside the plain FedAvgAPI."""
+    import importlib.util
+
+    import torch
+
+    from fedml_tpu_torch.comm.mqtt_backend import HAS_PAHO, MqttCommManager
+    from fedml_tpu_torch.comm.mqtt_broker import MqttBroker
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    has_grpc = importlib.util.find_spec("grpc") is not None
+    log(f"[edge] transports: local router, MQTT over the in-repo broker on loopback (paho "
+        f"{'installed' if HAS_PAHO else 'absent: the in-repo socket client'}); gRPC is not "
+        f"attempted on the card (grpc {'installed' if has_grpc else 'not installed'} here; the "
+        f"gRPC federation is held on the CPU by tests/test_torch_fedavg_edge.py)")
+    gate = edge_gate(smi)
+    ds = flagship_data()
+    bundle = create_model("resnet56", 10, input_shape=ds.train_x.shape[2:],
+                          dtype=torch.bfloat16, bn_impl="pallas")
+    sim = edge_sim_arm(ds, bundle, smi)
+    bn.reset_launches()
+    arms = {"local_raw": edge_speed_arm("local raw", ds, bundle, smi, profile=True)}
+    # q8 both ways on full weights (q8 delta uploads ended this federation
+    # at a NaN loss on the card; the cause is not established)
+    arms["local_q8"] = edge_speed_arm("local q8", ds, bundle, smi, wire_codec="q8")
+    with MqttBroker(0) as broker:
+        arms["mqtt_raw"] = edge_speed_arm(
+            "mqtt raw", ds, bundle, smi,
+            comm_factory=lambda r: MqttCommManager("127.0.0.1", broker.port, r, EDGE_WORKERS))
+    launches = {k: sum(a["launches"][k] for a in arms.values()) for k in ("bn_fwd", "bn_bwd")}
+    log(f"[edge] real images/s, rounds 1-2: FedAvgAPI {sim['real_images_per_s']:.1f}, edge "
+        + ", ".join(f"{k} {a['real_images_per_s']:.1f} ({a['real_images_per_s'] / sim['real_images_per_s']:.3f}x)"
+                    for k, a in arms.items()) + f"; K1/K2 over the edge arms {launches}; {smi}")
+    return {"gate": gate, "sim": sim, "arms": arms, "launches": launches}
+
+
 def sm_clock() -> float:
     """The card's maximum SM clock in MHz (``nvidia-smi clocks.max.sm``)."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -6384,6 +6885,7 @@ def main() -> int:
     fednas = timed("train_fednas_split_vfl", phase_train_fednas_split_vfl, smi)
     zoo_bn = timed("train_zoo_bn", phase_train_zoo_bn, smi)
     mesh_axes = timed("train_mesh_axes", phase_train_mesh_axes, smi)
+    edge = timed("train_edge", phase_train_edge, smi)
     for k, v in (*fednas["darts_bn"]["max_abs_err"].items(), *zoo_bn["wide_err"].items()):
         err[k] = max(err[k], v)
     err.update(conv_err)
@@ -6413,9 +6915,10 @@ def main() -> int:
             source = "batchnorm.cu"
             # the BN path's 2 rounds, the packed flagship's, the zoo's, the
             # lowering A/B's, the cross-silo arms' and the cross-device
-            # flagship arms' timed rounds, phase 13's train() runs and the
+            # flagship arms' timed rounds, phase 13's train() runs, the
             # arms of phases 14, 15, 16, 17, 18 and 19 (the data-parallel
-            # streaming trainer), each counted from 0 just before it
+            # streaming trainer) and phase 20's edge federations, each
+            # counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -6428,7 +6931,8 @@ def main() -> int:
                        "gkt_seg": gkt_seg["launches"][name],
                        "fednas_split_vfl": fednas["launches"][name],
                        "zoo_bn": zoo_bn["launches"][name],
-                       "mesh_axes": mesh_axes["launches"][name]}
+                       "mesh_axes": mesh_axes["launches"][name],
+                       "edge": edge["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -6521,7 +7025,7 @@ def main() -> int:
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
         "train_gkt_seg": gkt_seg, "train_fednas_split_vfl": fednas, "train_zoo_bn": zoo_bn,
-        "train_mesh_axes": mesh_axes,
+        "train_mesh_axes": mesh_axes, "train_edge": edge,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,
@@ -6534,6 +7038,8 @@ def main() -> int:
         f"{PROFILE_TALLY['profiled_again']} lost records of their work and were profiled "
         f"again; {smi}")
     log(smi)
+    log(f"[wall] chip_smoke.py {time.perf_counter() - T0:.1f} s from start to the kernel line; "
+        f"{smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -81,7 +81,9 @@ class FedConfig:
     model_server: str = "resnet56_server"
     epochs_server: int = 1
 
-    # the edge runtimes: transports, ranks, wire layers, chaos injection
+    # the edge runtime (distributed/fedavg_edge.py): transports, ranks, the
+    # wire codec and delta uploads, inbox caps; the reliable wire, chaos
+    # injection and the gateway are refused (item 11b)
     backend: str = "mesh"            # mesh | inproc | grpc | mqtt
     rank: Optional[int] = None
     world_size: Optional[int] = None
@@ -104,6 +106,8 @@ class FedConfig:
     chaos_crash_after: Optional[int] = None
     chaos_crash_restart_s: Optional[float] = None
     frequency_of_the_test: int = 5
+    # the reference's JSON-list wire for mobile clients: accepted and, as in
+    # the JAX package, without effect (the frames are binary)
     is_mobile: int = 0
     seed: int = 0
     ci: int = 0                      # CI fast path: at most 2 rounds of 1 epoch
@@ -188,6 +192,9 @@ class FedConfig:
     # elastic rounds: each sampled client fails a round with this
     # probability and aggregates with weight 0
     failure_prob: float = 0.0
+    # the edge server aggregates the uploads in by this many seconds after
+    # a broadcast and marks the missing workers dead (None: wait for all);
+    # the simulation paradigms ignore it, as the JAX package's do
     straggler_deadline_sec: Optional[float] = None
 
     profile_dir: Optional[str] = None
@@ -312,7 +319,9 @@ class FedConfig:
             raise ValueError(f"lens must be 'off' or 'on', got {self.lens!r}")
         if self.lens_topk < 1:
             raise ValueError(f"lens_topk must be >= 1, got {self.lens_topk}")
-        _check_codec(self.wire_codec)
+        from fedml_tpu_torch.core.compression import parse_codec
+
+        parse_codec(self.wire_codec)   # raises on an unknown codec spec
         if self.wire_codec.startswith("topk") and not self.wire_delta:
             raise ValueError("wire_codec='topk:..' sparsifies uploads destructively unless they "
                              "are error-feedback deltas; set wire_delta=True")
@@ -333,39 +342,25 @@ class FedConfig:
         return cls(**{k: v for k, v in d.items() if k in names})
 
 
-def _check_codec(codec: str) -> None:
-    """The JAX package's ``core/compression.parse_codec`` check: raw | q8 |
-    topk:<ratio in (0, 1]>."""
-    if codec in ("raw", "q8"):
-        return
-    if codec.startswith("topk:"):
-        ratio = float(codec.split(":", 1)[1])
-        if not 0.0 < ratio <= 1.0:
-            raise ValueError(f"topk ratio must be in (0, 1], got {ratio}")
-        return
-    raise ValueError(f"unknown wire codec {codec!r} (raw | q8 | topk:<ratio>)")
-
-
 #: Fields that only tune how XLA compiles or lays out the JAX program (buffer
 #: donation, scan unrolling, the chunked vmap of a cohort, the TPU device
 #: mesh) and change no result: the port accepts and ignores them.
 XLA_ONLY_FIELDS = ("donate", "scan_unroll", "cohort_vmap_width", "mesh_shape")
 
-_EDGE = "ROADMAP §1 item 11 (edge runtimes: transports, ranks, wire layers, chaos)"
+#: the wire layers over the edge transports and FedBuff; the other edge
+#: protocols (item 11c) read no field of their own
+_EDGE_B = ("ROADMAP §1 item 11b (reliable delivery, chaos injection, flow control, the "
+           "gateway, FedBuff)")
 _OBS = "ROADMAP §1 item 12 (observability: tracing, pulse plane, health, fedlens, flight)"
 #: field -> the ROADMAP item that ports its feature; set away from its
 #: default, each raises (check_ported)
 UNPORTED_FIELDS = {
-    **{name: _EDGE for name in (
-        "backend", "rank", "world_size", "grpc_ipconfig_path", "grpc_base_port", "wire_codec",
-        "wire_delta", "wire_reliable", "wire_retry_base_s", "wire_retry_max", "wire_inbox_cap",
-        "gateway_max_tenants", "gateway_tenant_workers", "chaos_seed", "chaos_drop",
-        "chaos_dup", "chaos_delay_ms", "chaos_reorder", "chaos_crash_rank",
-        "chaos_crash_after", "chaos_crash_restart_s", "is_mobile", "straggler_deadline_sec")},
+    **{name: _EDGE_B for name in (
+        "wire_reliable", "wire_retry_base_s", "wire_retry_max", "gateway_max_tenants",
+        "gateway_tenant_workers", "chaos_seed", "chaos_drop", "chaos_dup", "chaos_delay_ms",
+        "chaos_reorder", "chaos_crash_rank", "chaos_crash_after", "chaos_crash_restart_s",
+        "buffer_k", "buffer_staleness_alpha", "buffer_mode")},
     "rounds_per_step": "ROADMAP §1 item 4a (the cross-silo super-step)",
-    "buffer_k": "ROADMAP §1 items 9 and 11 (fedbuff)",
-    "buffer_staleness_alpha": "ROADMAP §1 items 9 and 11 (fedbuff)",
-    "buffer_mode": "ROADMAP §1 items 9 and 11 (fedbuff)",
     **{name: _OBS for name in (
         "trace_dir", "trace_buffer_events", "trace_sample_rate", "sketch_alpha",
         "cost_attribution", "pulse_path", "pulse_prometheus_dir", "health_loss_limit",

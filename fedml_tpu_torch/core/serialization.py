@@ -59,10 +59,11 @@ def _leaf_bytes(leaf) -> tuple[str, str, list, bytes]:
             raise TypeError(f"unsupported tensor dtype {t.dtype}")
         raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
         return "torch", name, list(t.shape), raw
-    a = np.ascontiguousarray(np.asarray(leaf))
+    a = np.asarray(leaf)
     if a.dtype == object:
         raise TypeError(f"unsupported leaf {type(leaf).__name__}")
-    return "numpy", a.dtype.str, list(a.shape), a.tobytes()
+    # the shape of ``a``: ascontiguousarray makes a 0-d array 1-d
+    return "numpy", a.dtype.str, list(a.shape), np.ascontiguousarray(a).tobytes()
 
 
 def _flatten(x, leaves: list):

@@ -6,9 +6,10 @@ per-algorithm ``main_*`` modules are thin aliases of ``run.main``, so
 lr`` has the reference's invocation shape and ``python -m
 fedml_tpu_torch.experiments.run --algorithm X`` is the fed_launch form.
 :data:`ALGORITHMS` is the JAX package's tuple, so ``--algorithm`` takes the
-same names; a name whose algorithm is not ported yet raises
-``NotImplementedError`` with its ROADMAP item. Runs go to the GPU unless the
-caller passes ``device="cpu"``.
+same names, each ported (``fedavg_edge`` is the message-driven deployment,
+``distributed/fedavg_edge.py``; :data:`UNPORTED` would map a name still to
+port to its ROADMAP item). Runs go to the GPU unless the caller passes
+``device="cpu"`` (``--device cpu`` on the command line).
 """
 
 from __future__ import annotations
@@ -43,10 +44,10 @@ PORTED = ("fedavg", "fedopt", "fedprox", "fednova", "fedagc", "centralized",
           "crosssilo_hierarchical", "silo_fedavg", "silo_fedopt", "silo_fednova",
           "silo_fedagc", "decentralized", "crosssilo_decentralized", "streaming_fedavg",
           "turboaggregate", "fedgkt", "fedseg", "crosssilo_fedseg", "fednas",
-          "crosssilo_fednas", "splitnn", "vfl")
+          "crosssilo_fednas", "splitnn", "vfl", "fedavg_edge")
 
-#: algorithm -> the ROADMAP item that ports it
-UNPORTED = {"fedavg_edge": "ROADMAP §1 item 11 (edge runtimes)"}
+#: algorithm -> the ROADMAP item that ports it (none is left)
+UNPORTED: dict = {}
 
 
 def _bundle_for(config: FedConfig, ds):
@@ -143,6 +144,8 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
         log.info("result %s", json.dumps(result))
         return result
     ds = _load(config)
+    if algorithm == "fedavg_edge":
+        return _run_edge(config, ds, device)
     if algorithm in ("fednas", "crosssilo_fednas"):
         from fedml_tpu_torch.algorithms.fednas import CrossSiloFedNASAPI, FedNASAPI
 
@@ -188,4 +191,52 @@ def _run_experiment(config: FedConfig, algorithm: str, device) -> dict:
         result = apis[algorithm](ds, config, bundle, device=device).train()
     log.info("result %s", json.dumps({k: v for k, v in dict(result).items()
                                       if isinstance(v, (int, float, str))}))
+    return result
+
+
+def _run_edge(config: FedConfig, ds, device) -> dict:
+    """The message-driven deployment (the reference's mpirun path): with
+    ``--rank`` this process is one rank of a multi-process gRPC federation
+    (``experiments/launch_edge.py`` starts them on one host); otherwise the
+    server and one worker per sampled client run in this process, over the
+    in-process router or, with ``--backend grpc``, gRPC loopback."""
+    from fedml_tpu_torch.distributed.fedavg_edge import run_fedavg_edge, run_fedavg_edge_rank
+
+    def history(agg) -> dict:
+        hist = agg.test_history
+        return {"round": [h["round"] for h in hist], "Test/Acc": [h["acc"] for h in hist],
+                "Test/Loss": [h["loss"] for h in hist]}
+
+    if config.rank is not None:
+        agg = run_fedavg_edge_rank(ds, config, device=device)
+        if agg is None:
+            return {"rank": config.rank, "role": "worker"}
+        return {"rank": 0, "role": "server", **history(agg)}
+    bundle = _bundle_for(config, ds)
+    workers = min(config.client_num_per_round, ds.num_clients)
+    if config.backend.lower() != "grpc":
+        agg = run_fedavg_edge(ds, config, worker_num=workers, bundle=bundle, device=device)
+    else:
+        import socket
+
+        from fedml_tpu_torch.comm.grpc_backend import GRPCCommManager
+
+        # a probed free port only suggests a free block of ports, which may
+        # be taken before the ranks bind: retry with a fresh base
+        for attempt in range(3):
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                base = s.getsockname()[1]
+            try:
+                agg = run_fedavg_edge(
+                    ds, config, worker_num=workers, bundle=bundle, device=device,
+                    comm_factory=lambda r, base=base: GRPCCommManager(
+                        r, workers + 1, base_port=base, host="127.0.0.1",
+                        codec=config.wire_codec, inbox_cap=config.wire_inbox_cap))
+                break
+            except OSError:
+                if attempt == 2:
+                    raise
+    result = history(agg)
+    log.info("result %s", json.dumps({"rounds": len(result["round"])}))
     return result

@@ -4,10 +4,11 @@
         --dataset synthetic_1_1 --model lr --comm_round 50
 
 The flags are ``core/config.add_args``'s (the JAX package's), plus
-``--algorithm`` and ``--result_json`` (the full result dict, history lists
-included). The last line printed is one JSON object: the algorithm and each
-history series' final value. Runs on the GPU; from Python,
-``main(argv, device="cpu")`` runs on the CPU.
+``--algorithm``, ``--result_json`` (the full result dict, history lists
+included) and ``--device`` (``cpu`` runs on the CPU; the GPU by default).
+The last line printed is one JSON object: the algorithm and each history
+series' final value. From Python, ``main(argv, device="cpu")`` runs on the
+CPU.
 """
 
 from __future__ import annotations
@@ -30,12 +31,15 @@ def main(argv: Optional[Sequence[str]] = None, default_algorithm: str = "fedavg"
                         choices=sorted(ALGORITHMS))
     parser.add_argument("--result_json", type=str, default=None,
                         help="write the full result dict (history lists included) to this path")
+    parser.add_argument("--device", type=str, default=None,
+                        help="cpu runs on the CPU (default: the GPU)")
     ns = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(filename)s[line:%(lineno)d] %(levelname)s %(message)s")
     algorithm, result_json = ns.algorithm, ns.result_json
-    del ns.algorithm, ns.result_json
+    device = device if device is not None else ns.device
+    del ns.algorithm, ns.result_json, ns.device
     result = run_experiment(config_from_args(ns), algorithm, device=device)
     if result_json:
         with open(result_json, "w") as f:

@@ -12,6 +12,8 @@ profiler hook (counterpart of ``fedml_tpu/utils/metrics.py``).
 - :func:`profile_trace`: a ``torch.profiler`` trace of a region written to
   a directory; a no-op when the directory is unset.
 - :func:`round_stats`: the host round pipeline's stage rows as one record.
+- :func:`wire_stats` / :func:`merge_wire_stats`: the counters of a wire
+  middleware stack as ``wire/*`` and ``chaos/*`` keys.
 
 The JAX package's registry and tracer views (``obs/*``) are not ported.
 """
@@ -192,3 +194,31 @@ def profile_trace(logdir: Optional[str]):
     with profile(activities=acts) as prof:
         yield
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def wire_stats(comm) -> dict:
+    """The counters of a wire middleware stack, walked down its ``.inner``
+    chain: each layer with a ``stats`` dict and a ``stats_prefix`` (the
+    reliable layer's ``wire``, the chaos layer's ``chaos``) adds
+    ``<prefix>/<counter>``. A bare transport gives {}; the reliable and
+    chaos layers are ROADMAP §1 item 11b, so the edge run's summary holds
+    the server's own ``wire/stale_uploads`` alone."""
+    out: dict = {}
+    node = comm
+    while node is not None:
+        prefix = getattr(node, "stats_prefix", None)
+        if prefix is not None:
+            for k, v in getattr(node, "stats", {}).items():
+                key = f"{prefix}/{k}"
+                out[key] = out.get(key, 0) + v
+        node = getattr(node, "inner", None)
+    return out
+
+
+def merge_wire_stats(comms) -> dict:
+    """Sum ``wire_stats`` over a federation's transports (one a rank)."""
+    total: dict = {}
+    for c in comms:
+        for k, v in wire_stats(c).items():
+            total[k] = total.get(k, 0) + v
+    return total

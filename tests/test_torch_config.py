@@ -7,7 +7,9 @@
   raise on the same bad values.
 - Every field is ported, XLA-only (accepted and ignored) or unported; each
   unported one, set away from its default, raises ``NotImplementedError``
-  at ``FedAvgAPI`` construction naming the field and its ROADMAP item.
+  at ``FedAvgAPI`` construction naming the field and its ROADMAP item (the
+  wire layers and FedBuff: item 11b); the edge runtime's ten fields are
+  live.
 - FedGKT's five fields are live: each, set away from its default, changes
   what ``FedGKTAPI`` builds or computes.
 """
@@ -33,12 +35,9 @@ BASE = dict(model="lr", dataset="tiny", client_num_in_total=4, client_num_per_ro
 #: a value away from the default for each unported field, with the fields it
 #: needs to pass the JAX package's own checks
 NON_DEFAULT = {
-    "backend": {"backend": "grpc"}, "rank": {"rank": 1, "world_size": 2},
-    "world_size": {"world_size": 2}, "grpc_ipconfig_path": {"grpc_ipconfig_path": "ip.csv"},
-    "grpc_base_port": {"grpc_base_port": 50100}, "wire_codec": {"wire_codec": "q8"},
-    "wire_delta": {"wire_delta": True}, "wire_reliable": {"wire_reliable": True},
+    "wire_reliable": {"wire_reliable": True},
     "wire_retry_base_s": {"wire_retry_base_s": 0.1}, "wire_retry_max": {"wire_retry_max": 5},
-    "wire_inbox_cap": {"wire_inbox_cap": 4}, "gateway_max_tenants": {"gateway_max_tenants": 2},
+    "gateway_max_tenants": {"gateway_max_tenants": 2},
     "gateway_tenant_workers": {"gateway_tenant_workers": 2}, "chaos_seed": {"chaos_seed": 1},
     "chaos_drop": {"chaos_drop": 0.1, "wire_reliable": True},
     "chaos_dup": {"chaos_dup": 0.1, "wire_reliable": True},
@@ -48,7 +47,6 @@ NON_DEFAULT = {
     "chaos_crash_after": {"chaos_crash_rank": 1, "chaos_crash_after": 3},
     "chaos_crash_restart_s": {"chaos_crash_rank": 1, "chaos_crash_after": 3,
                               "chaos_crash_restart_s": 1.0},
-    "is_mobile": {"is_mobile": 1}, "straggler_deadline_sec": {"straggler_deadline_sec": 5.0},
     "rounds_per_step": {"rounds_per_step": 2},
     "buffer_k": {"buffer_k": 2}, "buffer_staleness_alpha": {"buffer_staleness_alpha": 1.0},
     "buffer_mode": {"buffer_mode": "deterministic"}, "trace_dir": {"trace_dir": "traces"},
@@ -66,6 +64,22 @@ NON_DEFAULT = {
     "flight_window": {"flight_window": 4}, "flight_on": {"flight_on": "manual"},
     "trace_device_sampler": {"trace_device_sampler": False},
 }
+
+#: the edge runtime's fields (distributed/fedavg_edge.py), live: a value away from
+#: the default for each, with the fields it needs
+EDGE_LIVE = {
+    "backend": {"backend": "grpc"}, "rank": {"rank": 1, "world_size": 2},
+    "world_size": {"world_size": 2}, "grpc_ipconfig_path": {"grpc_ipconfig_path": "ip.csv"},
+    "grpc_base_port": {"grpc_base_port": 50100}, "wire_codec": {"wire_codec": "q8"},
+    "wire_delta": {"wire_delta": True}, "wire_inbox_cap": {"wire_inbox_cap": 4},
+    "is_mobile": {"is_mobile": 1}, "straggler_deadline_sec": {"straggler_deadline_sec": 5.0},
+}
+
+#: the wire layers over the edge transports and FedBuff (ROADMAP item 11b)
+EDGE_11B = {"wire_reliable", "wire_retry_base_s", "wire_retry_max", "gateway_max_tenants",
+            "gateway_tenant_workers", "chaos_seed", "chaos_drop", "chaos_dup", "chaos_delay_ms",
+            "chaos_reorder", "chaos_crash_rank", "chaos_crash_after", "chaos_crash_restart_s",
+            "buffer_k", "buffer_staleness_alpha", "buffer_mode"}
 
 ARGV = [
     [],
@@ -153,8 +167,21 @@ def test_unported_field_raises_at_construction(field):
     JaxFedConfig(**BASE, **values)          # a value the JAX package takes
     cfg = FedConfig(**BASE, **values)
     assert field in unported_fields(cfg)
-    with pytest.raises(NotImplementedError, match=rf"{field}=.*ROADMAP"):
+    item = "ROADMAP §1 item 11b" if field in EDGE_11B else "ROADMAP"
+    with pytest.raises(NotImplementedError, match=rf"{field}=.*{item}"):
         FedAvgAPI(_ds(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field", sorted(EDGE_LIVE))
+def test_edge_field_is_live(field):
+    """The edge runtime's fields pass JAX's checks and the port's: no entry
+    point refuses them (the simulation ignores them, as the JAX package's
+    does; ``distributed/fedavg_edge.py`` reads them)."""
+    values = EDGE_LIVE[field]
+    JaxFedConfig(**BASE, **values)
+    cfg = FedConfig(**BASE, **values)
+    assert field not in UNPORTED_FIELDS and unported_fields(cfg) == {}
+    FedAvgAPI(_ds(), cfg, device="cpu")
 
 
 def test_other_entry_points_check_too():

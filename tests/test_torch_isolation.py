@@ -70,7 +70,12 @@ def test_new_modules_are_covered():
                 "models/resnet_gn.py", "models/rnn.py", "ops/dropout.py",
                 "data/stackoverflow.py", "data/imagenet.py", "parallel/collectives.py",
                 "parallel/sequence.py", "parallel/tensor.py", "parallel/pipeline.py",
-                "parallel/dataparallel.py", "models/moe.py"):
+                "parallel/dataparallel.py", "models/moe.py", "comm/__init__.py",
+                "comm/message.py", "comm/base.py", "comm/local.py", "comm/managers.py",
+                "comm/grpc_backend.py", "comm/mqtt_broker.py", "comm/mqtt_client.py",
+                "comm/mqtt_backend.py", "core/compression.py", "core/streaming.py",
+                "distributed/base_framework.py", "distributed/fedavg_edge.py",
+                "experiments/launch_edge.py", "experiments/main_fedavg_edge.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
@@ -90,6 +95,8 @@ def test_the_launcher_loads_no_jax_at_run_time():
         "import fedml_tpu_torch.algorithms.vfl, fedml_tpu_torch.data.vertical\n"
         "import fedml_tpu_torch.parallel.pipeline, fedml_tpu_torch.parallel.tensor\n"
         "import fedml_tpu_torch.parallel.dataparallel, fedml_tpu_torch.models.moe\n"
+        "import fedml_tpu_torch.distributed.fedavg_edge, fedml_tpu_torch.comm.mqtt_backend\n"
+        "import fedml_tpu_torch.experiments.launch_edge\n"
         "fedml_tpu_torch.data.vertical.load_vertical('lending_club', 'no-such-dir')\n"
         "known_datasets(); load_dataset('synthetic_1_1', num_clients=3)\n"
         "load_dataset('pascal_voc', num_clients=2)\n"
@@ -106,3 +113,19 @@ def test_the_launcher_loads_no_jax_at_run_time():
     out = subprocess.run([sys.executable, "-m", "fedml_tpu_torch.experiments.run", "--help"],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "--resume_from" in out.stdout, out.stderr[-2000:]
+
+
+def test_chip_smoke_binds_each_top_level_name_once():
+    """A later phase's helper or constant that reuses an earlier phase's
+    name silently replaces it, and the earlier phase then fails only on the
+    card, minutes into a run."""
+    import collections
+
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    assert not [n for n, c in names.items() if c > 1], names.most_common(3)
