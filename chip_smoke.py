@@ -6360,31 +6360,53 @@ def edge_gate_data():
         partition_method="homo", batch_size=g["records"], seed=SEED)
 
 
+def bad_leaves(tree: dict) -> list:
+    """(leaf, min) of each leaf of a state dict that is not finite, or that
+    is a BN running variance (``*.var``) below 0: the leaves that make an
+    evaluation read NaN."""
+    out = []
+    for k, v in tree.items():
+        v = np.asarray(v)
+        if v.dtype.kind == "f" and (not np.isfinite(v).all() or (k.endswith("var")
+                                                                  and v.min() < 0)):
+            out.append((k, float(np.nanmin(v)) if np.isfinite(v).any() else float("nan")))
+    return out
+
+
 class EdgeRecorder:
     """What phase 20 reads of an edge run without touching the port: the
     aggregator's round closes (time, accepted weight, kernel launches and
     codec totals at each), the workers' local training wrapped in CUDA
     events, and the uploads of round 0 (``keep_uploads``)."""
 
-    def __init__(self, keep_uploads: bool = False, profile_round: Optional[int] = None):
+    def __init__(self, keep_uploads: bool = False, profile_round: Optional[int] = None,
+                 keep_variables: bool = False):
         self.closes = []
-        #: a round profiled whole (torch.profiler, CUDA activity only, from
-        #: the close of the round before to its own close) and its reading
+        #: each close keeps the model it made (``variables``)
+        self.keep_variables = keep_variables
+        #: the round whose first worker call is profiled (torch.profiler,
+        #: CUDA activity only, on the device thread) and its reading
         self.profile_round = profile_round
         self.profile = None
-        self._prof = None
         self.spans = []
         #: (round, what, host seconds): local_train_s, worker_call_s, aggregate_s
         self.host = []
         self.uploads = {} if keep_uploads else None
         self.codec = {"encode_s": 0.0, "decode_s": 0.0, "bytes": 0, "messages": 0}
         self.t0 = None
+        #: (round, worker, leaf, min) of every upload leaf that is not finite
+        #: or is a BN running variance below 0, in arrival order
+        self.bad_leaves = []
+        #: the clients of each worker call on the device thread, in order
+        self.trained = []
 
     def aggregator_cls(self, base):
         rec = self
 
         class Recording(base):
             def add_local_trained_result(self, index, model_params, sample_num):
+                rec.bad_leaves.extend((len(rec.closes), index, *bad)
+                                      for bad in bad_leaves(model_params))
                 if rec.uploads is not None and not rec.closes:
                     rec.uploads[index] = ({k: v.copy() for k, v in model_params.items()},
                                           float(sample_num))
@@ -6396,47 +6418,16 @@ class EdgeRecorder:
                 rec.closes.append({"t": time.perf_counter(),
                                    "weight": sum(self.sample_num_dict[i] for i in self.model_dict),
                                    "launches": dict(bn.LAUNCHES), "codec": dict(rec.codec)})
-                rec.profile_step(len(rec.closes) - 1)
                 t = time.perf_counter()
                 out = super().aggregate()
                 rec.host.append((len(rec.closes), "aggregate_s", time.perf_counter() - t))
                 rec.closes[-1]["finite"] = all(bool(np.isfinite(v).all()) for v in out.values())
+                rec.closes[-1]["bad_leaves"] = bad_leaves(out)
+                if rec.keep_variables:
+                    rec.closes[-1]["variables"] = out
                 return out
 
         return Recording
-
-    def profile_step(self, closed: int) -> None:
-        """At the close of round ``closed`` (on the server's thread): open
-        the profile window before the profiled round, close it at its end.
-        Every upload of a round follows its worker's copy out, so the
-        round's device work is done when it closes."""
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-
-        if self.profile_round is None:
-            return
-        if closed == self.profile_round - 1:
-            self._prof = profile(activities=[ProfilerActivity.CUDA])
-            self._prof.start()
-            self._prof_t0 = time.perf_counter()
-        elif closed == self.profile_round:
-            torch.cuda.synchronize()
-            self._prof.stop()
-            wall = time.perf_counter() - self._prof_t0
-            spans = sorted((e.start_ns(), e.end_ns())
-                           for e in self._prof.profiler.kineto_results.events()
-                           if e.device_type() == torch.autograd.DeviceType.CUDA)
-            busy, end = 0, None
-            for a, b in spans:          # the union of the device's intervals
-                if end is None or a > end:
-                    busy += b - a
-                    end = b
-                elif b > end:
-                    busy += b - end
-                    end = b
-            self.profile = {"round": closed, "wall_s": wall, "device_activities": len(spans),
-                            "device_busy_ms": busy / 1e6, "busy_share": busy / 1e9 / wall}
-            self._prof = None
 
     def comm_cls(self):
         from fedml_tpu_torch.comm import Message
@@ -6481,14 +6472,50 @@ class EdgeRecorder:
             host.append((len(self.closes), "local_train_s", time.perf_counter() - t))
             return out
 
-        def timed_train(*a, **kw):
+        def timed_train(variables, round_idx, clients):
+            self.trained.append(list(clients))
+            if self.profile is None and len(self.closes) == self.profile_round:
+                return self._profiled(train, trainer, variables, round_idx, clients)
             t = time.perf_counter()
-            out = train(*a, **kw)
+            out = train(variables, round_idx, clients)
             host.append((len(self.closes), "worker_call_s", time.perf_counter() - t))
             return out
 
         trainer.local_train = timed
         trainer._train = timed_train
+
+    def _profiled(self, train, trainer, variables, round_idx, clients):
+        """One worker call (its copies in and out and its captured steps)
+        under torch.profiler, CUDA activity only: the device's busy time (the
+        union of its intervals) a live step. The profiler slows the host ~7x,
+        so the call's own wall says nothing of an unprofiled round."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        t = time.perf_counter()
+        out = train(variables, round_idx, clients)
+        torch.cuda.synchronize()
+        prof.stop()
+        wall = time.perf_counter() - t
+        spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA)
+        busy, end = 0, None
+        for a, b in spans:          # the union of the device's intervals
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        bs = trainer.config.batch_size
+        steps = sum(-(-int(trainer.dataset.train_counts[c]) // bs) for c in clients)
+        self.profile = {"round": len(self.closes), "clients": list(clients), "steps": steps,
+                        "wall_s": wall, "device_activities": len(spans),
+                        "device_busy_ms": busy / 1e6}
+        return out
 
 
 def edge_run(ds, cfg, bundle, workers: int, rec: EdgeRecorder, comm_factory=None,
@@ -6497,6 +6524,7 @@ def edge_run(ds, cfg, bundle, workers: int, rec: EdgeRecorder, comm_factory=None
     (``build_edge_rank(..., bundle=, aggregator=)`` and
     ``comm.local.run_ranks``), recorded by ``rec``; returns the aggregator."""
     from fedml_tpu_torch.comm.local import LocalRouter, run_ranks
+    from fedml_tpu_torch.comm.reliable import wire_wrap_factory
     from fedml_tpu_torch.distributed.fedavg_edge import (FedAVGAggregator,
                                                          StreamingFedAVGAggregator,
                                                          build_edge_rank)
@@ -6519,19 +6547,33 @@ def edge_run(ds, cfg, bundle, workers: int, rec: EdgeRecorder, comm_factory=None
         return m
 
     rec.t0 = time.perf_counter()
-    run_ranks(make, size, comm_factory=comm_factory, timeout=600.0)
+    managers = run_ranks(make, size, comm_factory=comm_factory, wrap=wire_wrap_factory(cfg),
+                         timeout=600.0)
+    agg.wire_stats = released_wire_stats(managers)
     return agg
 
 
-def _max_rel(a: dict, b: dict) -> tuple:
-    """(max |a - b|, max |a - b| / (atol + rtol |b|) over EDGE_TOL) of two
-    state dicts."""
+def released_wire_stats(managers) -> dict:
+    """Stop every rank's wire stack (a crash-stopped rank's too) and sum
+    their counters."""
+    from fedml_tpu_torch.distributed.fedavg_edge import release_wire
+    from fedml_tpu_torch.utils.metrics import merge_wire_stats
+
+    comms = [m.com_manager for m in managers]
+    release_wire(comms)
+    return merge_wire_stats(comms)
+
+
+def _max_rel(a: dict, b: dict, tol: Optional[dict] = None) -> tuple:
+    """(max |a - b|, max |a - b| / (atol + rtol |b|) over ``tol``, EDGE_TOL
+    by default) of two state dicts."""
+    tol = tol or EDGE_TOL
     worst, ratio = 0.0, 0.0
     for k in b:
         x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
         d = np.abs(x - y)
         worst = max(worst, float(d.max()))
-        ratio = max(ratio, float((d / (EDGE_TOL["atol"] + EDGE_TOL["rtol"] * np.abs(y))).max()))
+        ratio = max(ratio, float((d / (tol["atol"] + tol["rtol"] * np.abs(y))).max()))
     return worst, ratio
 
 
@@ -6662,8 +6704,9 @@ def edge_speed_arm(label: str, ds, bundle, smi: str, comm_factory=None, profile:
     exactly), encode / decode ms and bytes a round, and the device-span
     share (CUDA events around each worker's local training over the round's
     wall: an upper bound of the busy share). With ``profile`` one more
-    round runs under torch.profiler for the device's busy share (the union
-    of its activity over the round's wall), outside the timed rounds."""
+    round runs, outside the timed rounds, with its first worker call under
+    torch.profiler: its device busy time a live step times the timed
+    rounds' steps over their wall is the busy share."""
     import torch
 
     from fedml_tpu_torch.ops import batchnorm as bn
@@ -6716,10 +6759,19 @@ def edge_speed_arm(label: str, ds, bundle, smi: str, comm_factory=None, profile:
     real = sum(r["real_images"] for r in timed)
     loss = agg.test_history[-1]["loss"]
     finite = [r["weights_finite"] for r in rounds]
-    log(f"{tag} aggregates finite by round {finite}, final loss {loss}")
-    # a lossy codec's result is no correctness claim: its arm is timed only
-    if cfg.wire_codec == "raw" and not (np.isfinite(loss) and all(finite)):
-        raise AssertionError(f"{tag} final loss {loss}, finite aggregates {finite}")
+    agg_bad = [c["bad_leaves"] for c in rec.closes]
+    log(f"{tag} aggregates finite by round {finite}, losses "
+        f"{[(h['round'], h['loss']) for h in agg.test_history]}; uploads with a non-finite "
+        f"leaf or a BN variance below 0 (round, worker, leaf, min): {rec.bad_leaves[:8]} "
+        f"({len(rec.bad_leaves)} in all); such aggregate leaves by round {agg_bad}")
+    # a lossy codec on full weights is no correctness claim: that arm is
+    # timed only; raw and delta uploads must stay finite at every
+    # evaluation (q8 delta uploads ended at a NaN loss once, ROADMAP §3)
+    losses = [h["loss"] for h in agg.test_history]
+    if (cfg.wire_codec == "raw" or cfg.wire_delta) and not (
+            np.isfinite(losses).all() and all(finite)):
+        raise AssertionError(f"{tag} losses {losses}, finite aggregates {finite}, "
+                             f"bad aggregate leaves {agg_bad}")
     # the codec is timed on the local transport only (MQTT encodes inside
     # its manager)
     timed_codec = all(r["messages"] for r in timed)
@@ -6735,17 +6787,18 @@ def edge_speed_arm(label: str, ds, bundle, smi: str, comm_factory=None, profile:
                "wire_bytes_per_round": per_round("wire_bytes"), "profiled_round": rec.profile}
     if profile:
         # the profiler slows the host ~7x (a record a kernel of every
-        # replay), so the profiled round gives the device's busy time of its
-        # steps, and the timed rounds' busy share is that time a step over
-        # their own (unprofiled) wall
+        # replay), so the profiled worker call gives the device's busy time
+        # of its steps, and the timed rounds' busy share is that time a step
+        # over their own (unprofiled) wall
         p = rec.profile
-        p["device_busy_ms_per_step"] = p["device_busy_ms"] / rounds[p["round"]]["steps"]
+        p["device_busy_ms_per_step"] = p["device_busy_ms"] / p["steps"]
         rec_out["busy_share"] = (p["device_busy_ms_per_step"] * sum(r["steps"] for r in timed)
                                  / 1e3 / secs)
-        log(f"{tag} profiled round {p['round']}: {p['device_activities']} device activities, "
-            f"{p['device_busy_ms']:.1f} ms of device busy ({p['device_busy_ms_per_step']:.3f} ms a "
-            f"live step) in a {p['wall_s']:.3f} s window; rounds 1-2 at that device time a step: "
-            f"busy share {rec_out['busy_share']:.3f}; {smi}")
+        log(f"{tag} round {p['round']}'s first worker call profiled: {p['device_activities']} "
+            f"device activities, {p['device_busy_ms']:.1f} ms of device busy for {p['steps']} "
+            f"live steps ({p['device_busy_ms_per_step']:.3f} ms a live step, its copies in and "
+            f"out included) in a {p['wall_s']:.3f} s window; rounds 1-2 at that device time a "
+            f"step: busy share {rec_out['busy_share']:.3f}; {smi}")
     codec_txt = (f"encode {rec_out['encode_ms_per_round']:.1f} / decode "
                  f"{rec_out['decode_ms_per_round']:.1f} ms and "
                  f"{rec_out['wire_bytes_per_round']:.0f} bytes a round" if timed_codec
@@ -6779,8 +6832,8 @@ def edge_sim_arm(ds, bundle, smi: str) -> dict:
 
 def phase_train_edge(smi: str) -> dict:
     """Phase 20: the FedAvg edge runtime, (a) the f32 gates, (b) the bf16
-    flagship federation over the local transport (raw, then q8) and over
-    MQTT, beside the plain FedAvgAPI."""
+    flagship federation over the local transport (raw, then q8), over MQTT,
+    and with q8 delta uploads, beside the plain FedAvgAPI."""
     import importlib.util
 
     import torch
@@ -6802,18 +6855,317 @@ def phase_train_edge(smi: str) -> dict:
     sim = edge_sim_arm(ds, bundle, smi)
     bn.reset_launches()
     arms = {"local_raw": edge_speed_arm("local raw", ds, bundle, smi, profile=True)}
-    # q8 both ways on full weights (q8 delta uploads ended this federation
-    # at a NaN loss on the card; the cause is not established)
+    # q8 both ways on full weights, then q8 delta uploads with the
+    # error-feedback residual, evaluated every round
     arms["local_q8"] = edge_speed_arm("local q8", ds, bundle, smi, wire_codec="q8")
     with MqttBroker(0) as broker:
         arms["mqtt_raw"] = edge_speed_arm(
             "mqtt raw", ds, bundle, smi,
             comm_factory=lambda r: MqttCommManager("127.0.0.1", broker.port, r, EDGE_WORKERS))
+    arms["local_q8_delta"] = edge_speed_arm("local q8 delta", ds, bundle, smi, wire_codec="q8",
+                                            wire_delta=True, frequency_of_the_test=1)
     launches = {k: sum(a["launches"][k] for a in arms.values()) for k in ("bn_fwd", "bn_bwd")}
     log(f"[edge] real images/s, rounds 1-2: FedAvgAPI {sim['real_images_per_s']:.1f}, edge "
         + ", ".join(f"{k} {a['real_images_per_s']:.1f} ({a['real_images_per_s'] / sim['real_images_per_s']:.3f}x)"
                     for k, a in arms.items()) + f"; K1/K2 over the edge arms {launches}; {smi}")
     return {"gate": gate, "sim": sim, "arms": arms, "launches": launches}
+
+
+# -- phase 21: the reliable wire, chaos injection and FedBuff -------------------
+
+# the fast retry schedule (gave-up after ~1.4 s) and the acceptance chaos of
+# tests/test_fedbuff.py:42-47
+FAST_WIRE = dict(wire_retry_base_s=0.02, wire_retry_max=6)
+WIRE_CHAOS = dict(wire_reliable=True, chaos_drop=0.2, chaos_dup=0.1, chaos_delay_ms=20.0,
+                  chaos_seed=7, **FAST_WIRE)
+# the crash-restart fate of tests/test_fedbuff.py:272-289: the third worker
+# crash-stops after its third protocol message and revives 0.6 s later
+CRASH_RESTART = dict(buffer_k=2, buffer_mode="arrival", comm_round=8, wire_reliable=True,
+                     chaos_crash_rank=2, chaos_crash_after=3, chaos_crash_restart_s=0.6,
+                     chaos_seed=1, chaos_delay_ms=60.0, straggler_deadline_sec=1.0,
+                     frequency_of_the_test=10_000, **FAST_WIRE)
+# the sync pin: FedBuff's float64 fold against the float32 batch mean
+# (tests/test_fedbuff.py:49)
+FEDBUFF_SYNC_TOL = dict(rtol=1e-3, atol=1e-5)
+# (b) bench.py's per-message latency of its FedBuff A/B (bench.py:551-552)
+WAN_DELAY = dict(chaos_delay_ms=120.0, chaos_seed=3)
+FEDBUFF_KS = (8, 4)
+
+
+class FedBuffRecorder(EdgeRecorder):
+    """EdgeRecorder for a FedBuff run: the server's emissions in place of
+    round closes (time, folds, codec totals; with ``keep_variables`` the
+    model before and after and the buffer's uploads), and each fold's
+    worker with its record."""
+
+    def __init__(self, keep_variables: bool = False):
+        super().__init__(keep_variables=keep_variables)
+        self.folds = []
+        self._buffered = []
+
+    def server_cls(self, base):
+        rec = self
+
+        class Recording(base):
+            def _fold(self, worker, item):
+                if rec.keep_variables:
+                    rec._buffered.append((worker, item[0], item[1]))
+                super()._fold(worker, item)
+                rec.folds.append((worker, dict(self.buffer.fold_log[-1])))
+
+            def _emit(self):
+                close = {"t": time.perf_counter(), "folds": self.buffer.folds,
+                         "codec": dict(rec.codec)}
+                if rec.keep_variables:
+                    close.update(before=self.aggregator.variables, uploads=rec._buffered)
+                    rec._buffered = []
+                rec.closes.append(close)
+                super()._emit()
+                close["finite"] = all(bool(np.isfinite(v).all())
+                                      for v in self.aggregator.variables.values())
+                if rec.keep_variables:
+                    close["variables"] = self.aggregator.variables
+
+        return Recording
+
+
+def fedbuff_run(ds, cfg, bundle, workers: int, rec: FedBuffRecorder,
+                init: Optional[dict] = None):
+    """One FedBuff federation built through the port's own seams
+    (``build_fedbuff_rank(..., bundle=)``, ``comm.local.run_ranks`` with the
+    wire stack ``cfg`` asks for) over the timed local transport, recorded by
+    ``rec``; returns the aggregator."""
+    from fedml_tpu_torch.comm.local import LocalRouter, run_ranks
+    from fedml_tpu_torch.comm.reliable import wire_wrap_factory
+    from fedml_tpu_torch.distributed.fedavg_edge import _edge_args
+    from fedml_tpu_torch.distributed.fedbuff_edge import (FedBuffAggregator,
+                                                          FedBuffEdgeServerManager,
+                                                          build_fedbuff_rank)
+
+    agg = FedBuffAggregator(init if init is not None else bundle.init(cfg.seed), workers, cfg,
+                            dataset=ds, bundle=bundle)
+    size = workers + 1
+    router, timed = LocalRouter(size), rec.comm_cls()
+    server = rec.server_cls(FedBuffEdgeServerManager)
+
+    def make(rank, comm):
+        if rank == 0:
+            return server(_edge_args(cfg, ds), comm, 0, size, agg)
+        m = build_fedbuff_rank(ds, cfg, rank, size, comm, bundle=bundle)
+        rec.wrap_trainer(m.trainer)
+        return m
+
+    rec.t0 = time.perf_counter()
+    managers = run_ranks(make, size, wrap=wire_wrap_factory(cfg), timeout=600.0,
+                         comm_factory=lambda r: timed(router, r, wire_roundtrip=True,
+                                                      codec=cfg.wire_codec))
+    agg.wire_stats = released_wire_stats(managers)
+    return agg
+
+
+def _bit_for_bit(a, b) -> bool:
+    return (a.test_history == b.test_history
+            and all(np.array_equal(a.variables[k], b.variables[k]) for k in a.variables))
+
+
+def wire_gate(smi: str) -> dict:
+    """(a) f32 on phase 20's gate federation (ResNet-56 at full width and
+    depth, K1/K2, deterministic cuDNN): FedBuff in deterministic mode with
+    buffer_k = workers against the FedAvg edge (the sync pin); FedBuff and
+    the FedAvg edge under drop / dup / delay chaos over the reliable layer,
+    each bit for bit against its run without; and a crash-restarted worker
+    in arrival mode that revives and folds with staleness."""
+    import torch
+
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.distributed.fedavg_edge import FedAVGAggregator
+    from fedml_tpu_torch.models import create_model
+
+    tag = "[wire gate]"
+    g = EDGE_GATE
+    ds = edge_gate_data()
+    cfg = FedConfig(model="resnet56", dataset="edge-gate", client_num_in_total=g["clients"],
+                    client_num_per_round=g["workers"], comm_round=g["rounds"],
+                    batch_size=g["records"], epochs=1, lr=0.01, momentum=0.9,
+                    frequency_of_the_test=1, seed=SEED)
+    sync = dict(buffer_k=g["workers"], buffer_mode="deterministic")
+    bundle = create_model("resnet56", 10, input_shape=(32, 32, 3), bn_impl="pallas")
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    edge_rec, fb_rec = EdgeRecorder(keep_variables=True), FedBuffRecorder(keep_variables=True)
+    try:
+        init = bundle.init(cfg.seed)
+        runs = {"edge": edge_run(ds, cfg, bundle, g["workers"], edge_rec, init=init),
+                "fedbuff": fedbuff_run(ds, cfg.replace(**sync), bundle, g["workers"], fb_rec,
+                                       init=init),
+                "fedbuff_chaos": fedbuff_run(ds, cfg.replace(**sync, **WIRE_CHAOS), bundle,
+                                             g["workers"], FedBuffRecorder(), init=init),
+                "edge_chaos": edge_run(ds, cfg.replace(**WIRE_CHAOS), bundle, g["workers"],
+                                       EdgeRecorder(), init=init)}
+        crash_rec = FedBuffRecorder()
+        crash = fedbuff_run(ds, cfg.replace(**CRASH_RESTART), bundle, g["workers"], crash_rec,
+                            init=init)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    fbr, ed = runs["fedbuff"], runs["edge"]
+    # the sync pin from one state at every version: version 0 of both runs
+    # (one init), and each FedBuff emission against the FedAvg edge's
+    # aggregate (the port's FedAVGAggregator) of the same uploads; the runs'
+    # distance after the last version is printed beside it (a full-depth f32
+    # ResNet-56 round amplifies a one-ulp difference; ROADMAP §3)
+    pins = [_max_rel(fb_rec.closes[0]["variables"], edge_rec.closes[0]["variables"],
+                     FEDBUFF_SYNC_TOL)]
+    for close in fb_rec.closes:
+        agg = FedAVGAggregator(close["before"], g["workers"], cfg)
+        for w, delta, n in close["uploads"]:
+            agg.add_local_trained_result(w, {k: close["before"][k] + delta[k] for k in delta}, n)
+        pins.append(_max_rel(close["variables"], agg.aggregate(), FEDBUFF_SYNC_TOL))
+    runs_apart = _max_rel(fbr.variables, ed.variables, FEDBUFF_SYNC_TOL)
+    stal = [r["staleness"] for r in fbr.buffer.fold_log]
+    loss = ([h["loss"] for h in fbr.test_history], [h["loss"] for h in ed.test_history])
+    log(f"{tag} sync pin: FedBuff (deterministic, buffer_k {g['workers']}) against the FedAvg "
+        f"edge, weights max |d| (share of rtol {FEDBUFF_SYNC_TOL['rtol']} / atol "
+        f"{FEDBUFF_SYNC_TOL['atol']}): version 0 of both runs {pins[0][0]:.3e} "
+        f"({pins[0][1]:.3f}); each version against the edge's aggregate of its uploads "
+        + ", ".join(f"{d:.3e} ({r:.3f})" for d, r in pins[1:])
+        + f"; the two runs after {g['rounds']} versions {runs_apart[0]:.3e} "
+        f"({runs_apart[1]:.3f}); staleness {sorted(set(stal))}, {fbr.uploads_folded} folds; "
+        f"losses {loss[0]} / {loss[1]}; {smi}")
+    if (max(r for _, r in pins) > 1.0 or any(stal) or len(pins) != g["rounds"] + 1
+            or fbr.uploads_folded != g["workers"] * g["rounds"]):
+        raise AssertionError(f"{tag} the sync pin fails: {pins}, staleness {stal}")
+    out = {"sync_pin": {"weights_max_abs": [d for d, _ in pins],
+                        "tol_ratio": [r for _, r in pins], "runs_apart": runs_apart,
+                        "staleness": stal}}
+    for label, plain in (("fedbuff_chaos", fbr), ("edge_chaos", ed)):
+        r = runs[label]
+        w = r.wire_stats
+        same = _bit_for_bit(r, plain)
+        log(f"{tag} {label.replace('_', ' ')} (drop 0.2, dup 0.1, delay 20 ms, chaos seed 7, "
+            f"fast retries) = its run without faults, bit for bit: {same}; chaos/dropped "
+            f"{w['chaos/dropped']}, chaos/duplicated {w['chaos/duplicated']}, wire/retransmits "
+            f"{w['wire/retransmits']}, wire/dup_dropped {w['wire/dup_dropped']}, wire/gave_up "
+            f"{w['wire/gave_up']}; {smi}")
+        if not (same and w["chaos/dropped"] > 0 and w["wire/retransmits"] > 0):
+            raise AssertionError(f"{tag} {label} differs from its run without faults, or the "
+                                 f"wire lost nothing: {w}")
+        out[label] = {"bit_for_bit": same, "wire_stats": w}
+    w = crash.wire_stats
+    revived = [r["staleness"] for wk, r in crash_rec.folds if wk == CRASH_RESTART["chaos_crash_rank"] - 1]
+    log(f"{tag} crash-restart (arrival, buffer_k 2): crash_stops {w['chaos/crash_stops']}, "
+        f"crash_restarts {w['chaos/crash_restarts']}, {crash.versions_emitted} versions, "
+        f"{crash.uploads_folded} folds, the restarted worker's fold staleness {revived}, "
+        f"wire/gave_up {w['wire/gave_up']}, final {crash.test_history[-1]}; {smi}")
+    if not (w["chaos/crash_stops"] == 1 and w["chaos/crash_restarts"] == 1
+            and crash.versions_emitted == CRASH_RESTART["comm_round"]
+            and crash.uploads_folded == 2 * CRASH_RESTART["comm_round"]
+            and max(revived, default=0) >= 1
+            and np.isfinite(crash.test_history[-1]["loss"])):
+        raise AssertionError(f"{tag} crash-restart: {w}, revived folds {revived}")
+    out["crash_restart"] = {"wire_stats": w, "revived_staleness": revived,
+                            "folds": crash.uploads_folded}
+    return out
+
+
+def fedbuff_speed_arm(label: str, ds, bundle, smi: str, k: int) -> dict:
+    """(b) One bf16 flagship FedBuff federation in arrival mode: 8 workers,
+    each assignment one client; the first 8 folds warm (the capture), the
+    next 2 x 8 timed, as the FedAvg edge's rounds 1-2. Real images/s and
+    clients/s over the timed folds, the version lag of every fold, encode /
+    decode ms and bytes a version, and K1/K2 = 57 x the live steps of every
+    training the run made."""
+    import torch
+
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    tag = f"[wire {label}]"
+    per = EDGE_WORKERS // k            # versions of 8 folds
+    warm, versions = per, 3 * per
+    cfg = edge_config(comm_round=versions, buffer_k=k, buffer_mode="arrival", **WAN_DELAY)
+    rec = FedBuffRecorder()
+    bn.reset_launches()
+    agg = fedbuff_run(ds, cfg, bundle, EDGE_WORKERS, rec)
+    torch.cuda.synchronize()
+    launches = dict(bn.LAUNCHES)
+    steps = sum(-(-int(ds.train_counts[c]) // cfg.batch_size) for cl in rec.trained for c in cl)
+    if any(v != BNS_PER_STEP * steps for v in launches.values()):
+        raise AssertionError(f"{tag} launches {launches}, expected {BNS_PER_STEP} x {steps} "
+                             f"live steps")
+    if agg.versions_emitted != versions or len(rec.closes) != versions:
+        raise AssertionError(f"{tag} {agg.versions_emitted} versions emitted")
+    folds = list(agg.buffer.fold_log)
+    t0, t1 = rec.closes[warm - 1], rec.closes[-1]
+    timed = folds[warm * k:versions * k]
+    wall = t1["t"] - t0["t"]
+    real = sum(r["n"] for r in timed)
+    stal = np.asarray([r["staleness"] for r in folds], np.float64)
+    codec = {c: t1["codec"][c] - t0["codec"][c] for c in t0["codec"]}
+    n_timed = versions - warm
+    loss = agg.test_history[-1]["loss"]
+    finite = [c["finite"] for c in rec.closes]
+    out = {"buffer_k": k, "versions": versions, "warm_versions": warm, "seconds": wall,
+           "real_images_per_s": real / wall, "clients_per_s": len(timed) / wall,
+           "version_lag_p99": float(np.percentile(stal, 99)),
+           "version_lag_mean": float(stal.mean()), "trainings": len(rec.trained),
+           "folds": agg.uploads_folded, "steps": steps, "launches": launches,
+           "encode_ms_per_version": codec["encode_s"] * 1e3 / n_timed,
+           "decode_ms_per_version": codec["decode_s"] * 1e3 / n_timed,
+           "wire_bytes_per_version": codec["bytes"] / n_timed,
+           "messages_per_version": codec["messages"] / n_timed,
+           "variances_from_values": agg.variances_from_values,
+           "final": agg.test_history[-1], "wire_stats": agg.wire_stats}
+    log(f"{tag} versions {warm}-{versions - 1} ({len(timed)} folds): {wall:.3f} s, "
+        f"{out['real_images_per_s']:.1f} real images/s, {out['clients_per_s']:.2f} clients/s; "
+        f"version lag p99 {out['version_lag_p99']:.3f}, mean {out['version_lag_mean']:.4f} "
+        f"(all {agg.uploads_folded} folds); encode {out['encode_ms_per_version']:.1f} / decode "
+        f"{out['decode_ms_per_version']:.1f} ms and {out['wire_bytes_per_version']:.0f} bytes a "
+        f"version; {len(rec.trained)} trainings, K1/K2 {launches} = {BNS_PER_STEP} x {steps} "
+        f"live steps; {agg.variances_from_values} BN variance floats a stale delta took below 0 "
+        f"took the uploads' mean; final {agg.test_history[-1]}; {smi}")
+    if not (np.isfinite(loss) and all(finite)):
+        raise AssertionError(f"{tag} final loss {loss}, finite versions {finite}")
+    return out
+
+
+def phase_train_wire(smi: str, edge_raw: Optional[dict] = None) -> dict:
+    """Phase 21: the reliable wire, chaos injection and FedBuff. (a) the f32
+    gates; (b) the bf16 flagship federation under bench.py's 120 ms
+    per-message latency: the FedAvg edge, FedBuff arrival at buffer_k 8 and
+    4; and the FedAvg edge over the reliable layer without faults, against
+    phase 20's local raw arm (``edge_raw``) for the ACK traffic's cost."""
+    import torch
+
+    from fedml_tpu_torch.models import create_model
+
+    gate = wire_gate(smi)
+    ds = flagship_data()
+    bundle = create_model("resnet56", 10, input_shape=ds.train_x.shape[2:],
+                          dtype=torch.bfloat16, bn_impl="pallas")
+    arms = {}
+    edge_delay = edge_speed_arm("edge delay", ds, bundle, smi, **WAN_DELAY)
+    timed_rounds = edge_delay["rounds"][1:EDGE_ROUNDS]
+    secs = sum(r["seconds"] for r in timed_rounds)
+    edge_delay["clients_per_s"] = EDGE_WORKERS * len(timed_rounds) / secs
+    edge_delay["version_lag_p99"] = edge_delay["version_lag_mean"] = 0.0   # synchronous
+    log(f"[wire edge delay] rounds 1-2: {edge_delay['real_images_per_s']:.1f} real images/s, "
+        f"{edge_delay['clients_per_s']:.2f} clients/s, version lag 0 (a synchronous round); "
+        f"{smi}")
+    arms["edge_delay"] = edge_delay
+    for k in FEDBUFF_KS:
+        arms[f"fedbuff_k{k}"] = fedbuff_speed_arm(f"fedbuff k{k}", ds, bundle, smi, k)
+    arms["edge_reliable"] = edge_speed_arm("edge reliable", ds, bundle, smi, wire_reliable=True)
+    rel = arms["edge_reliable"]
+    versus = (f" against phase 20's local raw arm's {edge_raw['real_images_per_s']:.1f} "
+              f"({rel['real_images_per_s'] / edge_raw['real_images_per_s']:.3f}x)"
+              if edge_raw else "")
+    launches = {k: sum(a["launches"][k] for a in arms.values()) for k in ("bn_fwd", "bn_bwd")}
+    log(f"[wire] real images/s: edge under 120 ms {edge_delay['real_images_per_s']:.1f}, "
+        + ", ".join(f"FedBuff k{k} {arms[f'fedbuff_k{k}']['real_images_per_s']:.1f} "
+                    f"({arms[f'fedbuff_k{k}']['real_images_per_s'] / edge_delay['real_images_per_s']:.3f}x)"
+                    for k in FEDBUFF_KS)
+        + f"; the edge over the reliable layer without faults {rel['real_images_per_s']:.1f}"
+        + versus + f"; K1/K2 over the arms {launches}; {smi}")
+    return {"gate": gate, "arms": arms, "launches": launches}
 
 
 def sm_clock() -> float:
@@ -6886,6 +7238,7 @@ def main() -> int:
     zoo_bn = timed("train_zoo_bn", phase_train_zoo_bn, smi)
     mesh_axes = timed("train_mesh_axes", phase_train_mesh_axes, smi)
     edge = timed("train_edge", phase_train_edge, smi)
+    wire = timed("train_wire", phase_train_wire, smi, edge["arms"]["local_raw"])
     for k, v in (*fednas["darts_bn"]["max_abs_err"].items(), *zoo_bn["wide_err"].items()):
         err[k] = max(err[k], v)
     err.update(conv_err)
@@ -6917,8 +7270,9 @@ def main() -> int:
             # lowering A/B's, the cross-silo arms' and the cross-device
             # flagship arms' timed rounds, phase 13's train() runs, the
             # arms of phases 14, 15, 16, 17, 18 and 19 (the data-parallel
-            # streaming trainer) and phase 20's edge federations, each
-            # counted from 0 just before it
+            # streaming trainer), phase 20's edge federations and phase
+            # 21's FedAvg-edge and FedBuff arms, each counted from 0 just
+            # before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -6932,7 +7286,8 @@ def main() -> int:
                        "fednas_split_vfl": fednas["launches"][name],
                        "zoo_bn": zoo_bn["launches"][name],
                        "mesh_axes": mesh_axes["launches"][name],
-                       "edge": edge["launches"][name]}
+                       "edge": edge["launches"][name],
+                       "wire_fedbuff": wire["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -7025,7 +7380,7 @@ def main() -> int:
         "train_zoo": zoo, "train_packed_conv": packed_conv, "train_crosssilo": crosssilo, "train_crossdevice": crossdevice,
         "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
         "train_gkt_seg": gkt_seg, "train_fednas_split_vfl": fednas, "train_zoo_bn": zoo_bn,
-        "train_mesh_axes": mesh_axes, "train_edge": edge,
+        "train_mesh_axes": mesh_axes, "train_edge": edge, "train_wire": wire,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

@@ -8,9 +8,11 @@ the ``Message`` envelope (message.py), the ``Observer`` callback and
 ``BaseCommunicationManager`` (base.py), the handler-registry managers
 (managers.py) and the transports :func:`create_comm_manager` builds by name:
 the in-process router (local.py), gRPC (grpc_backend.py, imported on use)
-and MQTT (mqtt_backend.py, with an in-repo broker and socket client). The
-reliable and chaos layers over these (``comm/reliable.py``,
-``comm/chaos.py``, ``comm/flow.py``) are ROADMAP §1 item 11b.
+and MQTT (mqtt_backend.py, with an in-repo broker and socket client). Over
+any of them, the wire middleware: seeded chaos injection (chaos.py) under
+ACK / retransmit and dedup (reliable.py), stacked by
+``reliable.wire_wrap_factory``. The gateway's bounded tenant lanes
+(``comm/flow.py``) come with the gateway (ROADMAP §1, "11b's gateway").
 """
 
 from fedml_tpu_torch.comm.base import BaseCommunicationManager, Observer

@@ -74,3 +74,16 @@ def put_control(q, item) -> None:
                 q.get_nowait()
             except queue.Empty:
                 pass
+
+
+def find_layer(comm, cls):
+    """The first layer of type ``cls`` down a wire stack's ``.inner`` chain
+    (reliable over chaos over a bare transport), or None: how a protocol
+    reaches one layer's hooks (FedBuff's gave-up ejection, the chaos
+    layer's ``on_restart``)."""
+    node = comm
+    while node is not None:
+        if isinstance(node, cls):
+            return node
+        node = getattr(node, "inner", None)
+    return None

@@ -78,7 +78,7 @@ class LocalCommunicationManager(BaseCommunicationManager):
 
 
 def run_ranks(make_manager, size: int, wire_roundtrip: bool = False, timeout: float = 300.0,
-              comm_factory=None, codec: str = "raw", inbox_cap: int = 0):
+              comm_factory=None, codec: str = "raw", wrap=None, inbox_cap: int = 0):
     """Launch ``size`` ranks on threads; rank r runs ``make_manager(r,
     comm).run()``. Returns the managers once every thread has joined (the
     reference's ``mpirun -np N`` and rank branch, FedAvgAPI.py:20-28).
@@ -86,14 +86,18 @@ def run_ranks(make_manager, size: int, wire_roundtrip: bool = False, timeout: fl
     ``comm_factory(rank)`` builds another transport (gRPC loopback, MQTT)
     in place of ``LocalCommunicationManager``s over one ``LocalRouter``,
     whose mailboxes ``inbox_cap`` bounds and whose sends ``codec``
-    compresses (a ``comm_factory`` configures its own). A rank that raises
-    stops every rank's receive loop, and the first error is raised here."""
+    compresses (a ``comm_factory`` configures its own). ``wrap(rank, comm)
+    -> comm`` layers wire middleware over whichever transport was built
+    (the reliable and chaos layers, ``comm/reliable.wire_wrap_factory``). A
+    rank that raises stops every rank's receive loop, and the first error
+    is raised here."""
     router = None if comm_factory else LocalRouter(size, cap=inbox_cap)
     comms: list[BaseCommunicationManager] = []
     try:
         for r in range(size):
-            comms.append(comm_factory(r) if comm_factory else LocalCommunicationManager(
-                router, r, wire_roundtrip=wire_roundtrip, codec=codec))
+            c = comm_factory(r) if comm_factory else LocalCommunicationManager(
+                router, r, wire_roundtrip=wire_roundtrip, codec=codec)
+            comms.append(wrap(r, c) if wrap is not None else c)
         managers = [make_manager(r, comms[r]) for r in range(size)]
     except BaseException:
         # a partial set-up (a port already bound) releases what it made

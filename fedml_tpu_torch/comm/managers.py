@@ -6,7 +6,7 @@ dispatches ``message_handler_dict[msg_type]``. ``finish()`` stops that loop
 gracefully, where the reference aborts ``MPI.COMM_WORLD``.
 
 The JAX package's send and receive spans (its tracer) and the gateway's
-tenant stamp are not ported (ROADMAP §1 items 12 and 11b)."""
+tenant stamp are not ported (ROADMAP §1 item 12 and item 11b's gateway)."""
 
 from __future__ import annotations
 

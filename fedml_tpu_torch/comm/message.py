@@ -11,10 +11,11 @@ decodes raw and compressed blobs alike. The port ships its models as flat
 state dicts of host numpy arrays; a frame of the port does not cross to the
 JAX package (whose variables are flax trees), and the reverse.
 
-The JAX package's envelope keys of the reliable wire, the gateway, the
-tracer and the flight recorder (``__wire_*``, ``__tenant__``,
-``__trace_ctx__``, ``__flight_*``) belong to features not ported yet
-(ROADMAP §1 items 11b and 12) and are left out.
+The reliable wire's envelope keys (``__wire_*``) are the JAX package's,
+with its values. Its keys of the gateway, the tracer and the flight
+recorder (``__tenant__``, ``__trace_ctx__``, ``__flight_*``) belong to
+features not ported yet (ROADMAP §1 item 12 and item 11b's gateway) and are
+left out.
 """
 
 from __future__ import annotations
@@ -28,6 +29,22 @@ from fedml_tpu_torch.core.serialization import (frame_pack, frame_unpack, tree_f
                                                 tree_to_bytes)
 
 _MAGIC = b"FMSG1"
+
+# The reliable wire's envelope (comm/reliable.py): a per-(sender, receiver)
+# sequence number, a message id and the sending layer's incarnation, so a
+# restarted rank's new stream is not deduplicated against its old one.
+# Handlers never read them; an unstamped message (a local control event, a
+# peer without the layer) is delivered as it is.
+MSG_ARG_KEY_WIRE_SEQ = "__wire_seq__"
+MSG_ARG_KEY_WIRE_MID = "__wire_mid__"
+MSG_ARG_KEY_WIRE_INC = "__wire_inc__"
+# acks and the receiver's push-back are consumed by the reliable layer
+# before dispatch, never by a handler
+MSG_TYPE_WIRE_ACK = "__wire_ack__"
+MSG_TYPE_WIRE_BUSY = "__wire_busy__"
+# an ack's payload: the acked message id and sequence number
+KEY_ACK_MID = "ack_mid"
+KEY_ACK_SEQ = "ack_seq"
 
 # canonical arg keys (reference message.py:15-35)
 MSG_ARG_KEY_TYPE = "msg_type"

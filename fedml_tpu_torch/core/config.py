@@ -81,9 +81,10 @@ class FedConfig:
     model_server: str = "resnet56_server"
     epochs_server: int = 1
 
-    # the edge runtime (distributed/fedavg_edge.py): transports, ranks, the
-    # wire codec and delta uploads, inbox caps; the reliable wire, chaos
-    # injection and the gateway are refused (item 11b)
+    # the edge runtime (distributed/fedavg_edge.py, fedbuff_edge.py):
+    # transports, ranks, the wire codec and delta uploads, inbox caps, the
+    # reliable wire (comm/reliable.py) and chaos injection (comm/chaos.py);
+    # the gateway's quotas are refused (item 11b's gateway)
     backend: str = "mesh"            # mesh | inproc | grpc | mqtt
     rank: Optional[int] = None
     world_size: Optional[int] = None
@@ -144,7 +145,7 @@ class FedConfig:
     host_pipeline_workers: int = 0
     # cohort selection (data/sched.py): uniform | speed | fair
     cohort_policy: str = "uniform"
-    # fedbuff (asynchronous buffered aggregation)
+    # fedbuff (asynchronous buffered aggregation, algorithms/fedbuff.py)
     buffer_k: int = 4
     buffer_staleness_alpha: float = 0.5
     buffer_mode: str = "arrival"
@@ -347,19 +348,15 @@ class FedConfig:
 #: mesh) and change no result: the port accepts and ignores them.
 XLA_ONLY_FIELDS = ("donate", "scan_unroll", "cohort_vmap_width", "mesh_shape")
 
-#: the wire layers over the edge transports and FedBuff; the other edge
-#: protocols (item 11c) read no field of their own
-_EDGE_B = ("ROADMAP §1 item 11b (reliable delivery, chaos injection, flow control, the "
-           "gateway, FedBuff)")
+#: the federation gateway and its flow control, which import the
+#: observability layer; the other edge protocols (item 11c) read no field of
+#: their own
+_GATEWAY = "ROADMAP §1 item 11b's gateway, after item 12 (the federation gateway)"
 _OBS = "ROADMAP §1 item 12 (observability: tracing, pulse plane, health, fedlens, flight)"
 #: field -> the ROADMAP item that ports its feature; set away from its
 #: default, each raises (check_ported)
 UNPORTED_FIELDS = {
-    **{name: _EDGE_B for name in (
-        "wire_reliable", "wire_retry_base_s", "wire_retry_max", "gateway_max_tenants",
-        "gateway_tenant_workers", "chaos_seed", "chaos_drop", "chaos_dup", "chaos_delay_ms",
-        "chaos_reorder", "chaos_crash_rank", "chaos_crash_after", "chaos_crash_restart_s",
-        "buffer_k", "buffer_staleness_alpha", "buffer_mode")},
+    **{name: _GATEWAY for name in ("gateway_max_tenants", "gateway_tenant_workers")},
     "rounds_per_step": "ROADMAP §1 item 4a (the cross-silo super-step)",
     **{name: _OBS for name in (
         "trace_dir", "trace_buffer_events", "trace_sample_rate", "sketch_alpha",

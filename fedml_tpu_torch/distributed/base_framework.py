@@ -147,10 +147,12 @@ def run_base_framework(client_num: int, comm_round: int = 3, wire_roundtrip: boo
                        config=None, comm_factory=None) -> List[float]:
     """In-process launch of the server and ``client_num`` clients (the
     reference's ``mpirun -np N``); returns the server's global history.
-    ``config`` (a FedConfig) sets the transport's codec and inbox cap and is
-    held to the port's features (``core/config.check_ported``: the reliable
-    and chaos layers are ROADMAP item 11b); ``comm_factory`` builds another
-    transport, as in ``comm.local.run_ranks``."""
+    ``config`` (a FedConfig) sets the transport's codec and inbox cap,
+    stacks the reliable and chaos layers it asks for over each rank's
+    transport (``comm/reliable.wire_wrap_factory``), and is held to the
+    port's features (``core/config.check_ported``); ``comm_factory`` builds
+    another transport, as in ``comm.local.run_ranks``."""
+    from fedml_tpu_torch.comm.reliable import wire_wrap_factory
     from fedml_tpu_torch.core.config import check_ported
 
     class Args:
@@ -162,7 +164,8 @@ def run_base_framework(client_num: int, comm_round: int = 3, wire_roundtrip: boo
     kw = {}
     if config is not None:
         check_ported(config)
-        kw = dict(codec=config.wire_codec, inbox_cap=config.wire_inbox_cap)
+        kw = dict(codec=config.wire_codec, inbox_cap=config.wire_inbox_cap,
+                  wrap=wire_wrap_factory(config))
 
     def make(rank, comm):
         if rank == 0:

@@ -45,10 +45,16 @@ and would still need one thread (or a lock) for the global-mode captures.
 ``ops/dropout.client_key``), the port's derivation; the JAX package's
 ``fold_in(round_key(root, r), ci)`` threefry stream is not reproduced.
 
+**The wire.** ``wire_reliable`` and the ``chaos_*`` fields stack the
+reliable and chaos layers over every rank's transport
+(``comm/reliable.wire_wrap_factory``); delivery faults then change arrival
+order only, and the aggregate does not depend on it, so a run under chaos
+equals its run without, bit for bit.
+
 Not ported: the hooks of ROADMAP §1 item 12 (fedlens, the registry, the
-tracer, the pulse plane, the flight recorder) and the reliable, chaos and
-gateway layers of item 11b; the wire lane's one counter,
-``stale_uploads``, is a plain dict on the server manager.
+tracer, the pulse plane, the flight recorder) and item 11b's gateway; the
+wire lane's one counter, ``stale_uploads``, is a plain dict on the server
+manager.
 """
 
 from __future__ import annotations
@@ -171,6 +177,29 @@ def edge_local_train(bundle, dataset, config):
         return programs[key][1]
 
 
+class ServerEval:
+    """The server's evaluation of a host state dict through ``make_eval_fn``
+    on its device: the test set copied there once, the call made on the
+    device thread; returns the finalized metrics."""
+
+    def __init__(self, bundle, dataset, device: torch.device):
+        self.dataset = dataset
+        self.device = device
+        self._fn = make_eval_fn(bundle, get_task(dataset.task, dataset.class_num))
+        self._test = None
+
+    def __call__(self, variables: Tree) -> dict:
+        return finalize_metrics(device_call(self._sums, variables))
+
+    def _sums(self, variables: Tree) -> dict:
+        ds = self.dataset
+        if self._test is None:
+            self._test = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                               for a in (ds.test_x, ds.test_y, ds.test_mask))
+        sums = self._fn(_device_tree(variables, self.device), *self._test)
+        return {k: v.item() if v.numel() == 1 else v.cpu().numpy() for k, v in sums.items()}
+
+
 class FedAVGAggregator:
     """Server-side state: collect the workers' results, take their weighted
     mean, sample the cohort (the reference's FedAVGAggregator.py:13-163).
@@ -190,9 +219,8 @@ class FedAVGAggregator:
         self.test_history: list[dict] = []
         #: every accepted upload (full participation: rounds x workers)
         self.uploads_accepted = 0
-        self._eval = (make_eval_fn(bundle, get_task(dataset.task, dataset.class_num))
+        self._eval = (ServerEval(bundle, dataset, self.device)
                       if bundle is not None and dataset is not None else None)
-        self._dev_test = None
         if getattr(config, "cohort_policy", "uniform") != "uniform":
             log.warning("cohort_policy=%r ignored on the edge paradigm: the server samples "
                         "uniformly (client_sampling)", config.cohort_policy)
@@ -239,18 +267,10 @@ class FedAVGAggregator:
     def test_on_server_for_all_clients(self, round_idx: int) -> Optional[dict]:
         if self._eval is None:
             return None
-        m = finalize_metrics(device_call(self._eval_sums))
+        m = self._eval(self.variables)
         m["round"] = round_idx
         self.test_history.append(m)
         return m
-
-    def _eval_sums(self) -> dict:
-        ds = self.dataset
-        if self._dev_test is None:
-            self._dev_test = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                                   for a in (ds.test_x, ds.test_y, ds.test_mask))
-        sums = self._eval(_device_tree(self.variables, self.device), *self._dev_test)
-        return {k: v.item() if v.numel() == 1 else v.cpu().numpy() for k, v in sums.items()}
 
 
 class StreamingFedAVGAggregator(FedAVGAggregator):
@@ -811,8 +831,40 @@ def build_edge_rank(dataset, config, rank: int, world_size: int, comm, bundle=No
     return FedAvgEdgeClientManager(args, comm, rank, world_size, trainer)
 
 
+#: wire counters whose nonzero value is worth a log line at the end of a run
+WIRE_ANOMALIES = ("wire/retransmits", "wire/retransmit_errors", "wire/gave_up",
+                  "wire/dup_dropped", "wire/stale_uploads")
+
+
+def log_wire_anomalies(stats: dict) -> None:
+    if any(stats.get(k, 0) for k in WIRE_ANOMALIES) or any(
+            k.startswith("chaos/") and v for k, v in stats.items()):
+        log.info("wire stats: %s", stats)
+
+
+def release_wire(comms) -> None:
+    """Stop every rank's wire stack once the federation is over, and wait
+    for each reliable layer's drain: a rank whose receive loop ended
+    without its ``finish()`` (a chaos crash-stop) still holds a reliable
+    layer whose retransmit thread only a stop ends, and no thread of a
+    layer outlives the run. A rank that finished is stopped already, and a
+    second stop is a no-op or a refusal logged here."""
+    from fedml_tpu_torch.comm.base import find_layer
+    from fedml_tpu_torch.comm.reliable import ReliableCommManager
+
+    for c in comms:
+        try:
+            c.stop_receive_message()
+        except Exception as e:   # a transport already torn down
+            log.debug("stopping a finished rank's transport: %s", e)
+    for c in comms:
+        layer = find_layer(c, ReliableCommManager)
+        if layer is not None and not layer.join(timeout=layer.drain_timeout_s + 1.0):
+            log.warning("rank %d: the wire's retransmit thread outlived its drain", layer.rank)
+
+
 def _summary_wire_stats(aggregator, comms, server) -> None:
-    """``aggregator.wire_stats``: the transports' counters and the server's
+    """``aggregator.wire_stats``: the wire stacks' counters and the server's
     wire lane (``wire/stale_uploads``)."""
     from fedml_tpu_torch.utils.metrics import merge_wire_stats
 
@@ -820,8 +872,7 @@ def _summary_wire_stats(aggregator, comms, server) -> None:
     for k, v in server._wire_lane.items():
         stats[f"wire/{k}"] = stats.get(f"wire/{k}", 0) + v
     aggregator.wire_stats = stats
-    if any(stats.values()):
-        log.info("wire stats: %s", stats)
+    log_wire_anomalies(stats)
 
 
 def run_fedavg_edge(dataset, config, worker_num: int, wire_roundtrip: bool = True,
@@ -844,10 +895,16 @@ def run_fedavg_edge(dataset, config, worker_num: int, wire_roundtrip: bool = Tru
         return build_edge_rank(dataset, config, rank, size, comm, bundle=bundle,
                                aggregator=aggregator, device=dev)
 
+    from fedml_tpu_torch.comm.reliable import wire_wrap_factory
+
+    wrap = wire_wrap_factory(config)
     managers = run_ranks(make, size, wire_roundtrip=wire_roundtrip, comm_factory=comm_factory,
-                         timeout=timeout, codec=config.wire_codec,
+                         timeout=timeout, codec=config.wire_codec, wrap=wrap,
                          inbox_cap=config.wire_inbox_cap)
-    _summary_wire_stats(aggregator, [m.com_manager for m in managers], managers[0])
+    comms = [m.com_manager for m in managers]
+    if wrap is not None:
+        release_wire(comms)
+    _summary_wire_stats(aggregator, comms, managers[0])
     return aggregator
 
 
@@ -875,12 +932,26 @@ def run_fedavg_edge_rank(dataset, config, device: Optional[Union[str, torch.devi
         # long default (their sends go to the server; start order is free)
         send_timeout=deadline if deadline is not None and config.rank == 0 else 120.0,
         inbox_cap=config.wire_inbox_cap)
+    from fedml_tpu_torch.comm.reliable import wire_wrap_factory
+
+    wrap = wire_wrap_factory(config)
+    if wrap is not None:
+        comm = wrap(config.rank, comm)
     manager = build_edge_rank(dataset, config, config.rank, config.world_size, comm,
                               device=dev)
     log.info("rank %d/%d entering run loop (grpc base port %d)", config.rank,
              config.world_size, config.grpc_base_port)
     manager.run()
+    if wrap is not None:
+        release_wire([comm])
     if config.rank != 0:
+        # each process sees only its own wire stack, so every rank reports
+        # its counters (an uplink's loss shows in the worker's log)
+        from fedml_tpu_torch.utils.metrics import wire_stats
+
+        stats = wire_stats(comm)
+        if stats:
+            log.info("rank %d wire stats: %s", config.rank, stats)
         return None
     _summary_wire_stats(manager.aggregator, [comm], manager)
     return manager.aggregator

@@ -10,9 +10,13 @@ One OS process per rank, rank 0 the server, each
 
 so the same per-rank entry point deploys across machines: run it on each
 host with a shared ``--grpc_ipconfig_path`` csv (the reference's
-grpc_ipconfig.csv). Every flag passes to every rank (``--device cpu`` too);
-``--result_json`` goes to rank 0 alone, whose standard output is this
-process's (the workers' is discarded).
+grpc_ipconfig.csv). Every flag passes to every rank (``--device cpu`` too),
+the wire's among them: ``--wire_reliable``, ``--wire_retry_base_s``,
+``--wire_retry_max`` and the ``--chaos_*`` fates stack the reliable and
+chaos layers over each rank's gRPC transport, so a lossy-wire rehearsal
+runs through the deployment's own entry points. ``--result_json`` goes to
+rank 0 alone, whose standard output is this process's (the workers' is
+discarded).
 
     python -m fedml_tpu_torch.experiments.launch_edge --world_size 3 \\
         --dataset synthetic_1_1 --model lr --comm_round 5 --grpc_base_port 56980

@@ -63,6 +63,14 @@ class sync_batch_norm:
         _SYNC_AXIS.pop()
 
 
+def running_variance_names(module: nn.Module) -> list[str]:
+    """The state-dict names of every BatchNorm's running variance in
+    ``module``: leaves that must stay ``>= 0`` for an evaluation to be
+    finite."""
+    return [f"{name}.var" if name else "var" for name, m in module.named_modules()
+            if isinstance(m, PallasBatchNorm)]
+
+
 class PallasBatchNorm(nn.Module):
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5,
                  fuse_relu: bool = False, use_kernel: bool = True, axis: int = -1,

@@ -197,12 +197,16 @@ def profile_trace(logdir: Optional[str]):
 
 
 def wire_stats(comm) -> dict:
-    """The counters of a wire middleware stack, walked down its ``.inner``
-    chain: each layer with a ``stats`` dict and a ``stats_prefix`` (the
-    reliable layer's ``wire``, the chaos layer's ``chaos``) adds
-    ``<prefix>/<counter>``. A bare transport gives {}; the reliable and
-    chaos layers are ROADMAP §1 item 11b, so the edge run's summary holds
-    the server's own ``wire/stale_uploads`` alone."""
+    """The counters of a wire middleware stack (``comm/reliable.py`` over
+    ``comm/chaos.py`` over a bare transport), walked down its ``.inner``
+    chain: each layer with a ``stats`` dict and a ``stats_prefix`` adds
+    ``<prefix>/<counter>``, the JAX package's keys: ``wire/retransmits``,
+    ``wire/retransmit_errors``, ``wire/gave_up``, ``wire/dup_dropped`` and
+    the reliable layer's others, ``chaos/dropped``, ``chaos/duplicated``,
+    ``chaos/crash_stops``, ``chaos/crash_restarts``,
+    ``chaos/crashed_dropped`` and the chaos layer's others. A bare
+    transport gives {}. Counters are read without locks (monotone ints,
+    read for a summary)."""
     out: dict = {}
     node = comm
     while node is not None:

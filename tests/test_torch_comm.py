@@ -240,8 +240,11 @@ def test_run_base_framework_matches_jax():
     assert run_base_framework(3, comm_round=3) == want
     assert run_base_framework(3, comm_round=3, wire_roundtrip=False) == want
     assert run_base_framework(3, comm_round=3, config=FedConfig(wire_inbox_cap=1)) == want
-    with pytest.raises(NotImplementedError, match="11b"):
-        run_base_framework(2, config=FedConfig(wire_reliable=True))
+    # the reliable layer is stacked over the transport, and delivers the same
+    # history; a field still unported (the gateway's) is refused
+    assert run_base_framework(3, comm_round=3, config=FedConfig(wire_reliable=True)) == want
+    with pytest.raises(NotImplementedError, match="11b's gateway"):
+        run_base_framework(2, config=FedConfig(gateway_max_tenants=2))
 
 
 def test_run_base_framework_over_mqtt():

@@ -8,8 +8,8 @@
 - Every field is ported, XLA-only (accepted and ignored) or unported; each
   unported one, set away from its default, raises ``NotImplementedError``
   at ``FedAvgAPI`` construction naming the field and its ROADMAP item (the
-  wire layers and FedBuff: item 11b); the edge runtime's ten fields are
-  live.
+  gateway's two: item 11b's gateway); the edge runtime's 24 fields (the
+  transports, the reliable wire, chaos and FedBuff) are live.
 - FedGKT's five fields are live: each, set away from its default, changes
   what ``FedGKTAPI`` builds or computes.
 """
@@ -35,21 +35,9 @@ BASE = dict(model="lr", dataset="tiny", client_num_in_total=4, client_num_per_ro
 #: a value away from the default for each unported field, with the fields it
 #: needs to pass the JAX package's own checks
 NON_DEFAULT = {
-    "wire_reliable": {"wire_reliable": True},
-    "wire_retry_base_s": {"wire_retry_base_s": 0.1}, "wire_retry_max": {"wire_retry_max": 5},
     "gateway_max_tenants": {"gateway_max_tenants": 2},
-    "gateway_tenant_workers": {"gateway_tenant_workers": 2}, "chaos_seed": {"chaos_seed": 1},
-    "chaos_drop": {"chaos_drop": 0.1, "wire_reliable": True},
-    "chaos_dup": {"chaos_dup": 0.1, "wire_reliable": True},
-    "chaos_delay_ms": {"chaos_delay_ms": 5.0},
-    "chaos_reorder": {"chaos_reorder": 0.1, "wire_reliable": True},
-    "chaos_crash_rank": {"chaos_crash_rank": 1, "chaos_crash_after": 3},
-    "chaos_crash_after": {"chaos_crash_rank": 1, "chaos_crash_after": 3},
-    "chaos_crash_restart_s": {"chaos_crash_rank": 1, "chaos_crash_after": 3,
-                              "chaos_crash_restart_s": 1.0},
-    "rounds_per_step": {"rounds_per_step": 2},
-    "buffer_k": {"buffer_k": 2}, "buffer_staleness_alpha": {"buffer_staleness_alpha": 1.0},
-    "buffer_mode": {"buffer_mode": "deterministic"}, "trace_dir": {"trace_dir": "traces"},
+    "gateway_tenant_workers": {"gateway_tenant_workers": 2},
+    "rounds_per_step": {"rounds_per_step": 2}, "trace_dir": {"trace_dir": "traces"},
     "trace_buffer_events": {"trace_buffer_events": 10},
     "trace_sample_rate": {"trace_sample_rate": 0.5}, "sketch_alpha": {"sketch_alpha": 0.05},
     "cost_attribution": {"cost_attribution": True}, "pulse_path": {"pulse_path": "pulse.jsonl"},
@@ -73,13 +61,25 @@ EDGE_LIVE = {
     "grpc_base_port": {"grpc_base_port": 50100}, "wire_codec": {"wire_codec": "q8"},
     "wire_delta": {"wire_delta": True}, "wire_inbox_cap": {"wire_inbox_cap": 4},
     "is_mobile": {"is_mobile": 1}, "straggler_deadline_sec": {"straggler_deadline_sec": 5.0},
+    # the reliable wire, chaos injection and FedBuff (comm/reliable.py,
+    # comm/chaos.py, distributed/fedbuff_edge.py)
+    "wire_reliable": {"wire_reliable": True},
+    "wire_retry_base_s": {"wire_retry_base_s": 0.1}, "wire_retry_max": {"wire_retry_max": 5},
+    "chaos_seed": {"chaos_seed": 1},
+    "chaos_drop": {"chaos_drop": 0.1, "wire_reliable": True},
+    "chaos_dup": {"chaos_dup": 0.1, "wire_reliable": True},
+    "chaos_delay_ms": {"chaos_delay_ms": 5.0},
+    "chaos_reorder": {"chaos_reorder": 0.1, "wire_reliable": True},
+    "chaos_crash_rank": {"chaos_crash_rank": 1, "chaos_crash_after": 3},
+    "chaos_crash_after": {"chaos_crash_rank": 1, "chaos_crash_after": 3},
+    "chaos_crash_restart_s": {"chaos_crash_rank": 1, "chaos_crash_after": 3,
+                              "chaos_crash_restart_s": 1.0},
+    "buffer_k": {"buffer_k": 2}, "buffer_staleness_alpha": {"buffer_staleness_alpha": 1.0},
+    "buffer_mode": {"buffer_mode": "deterministic"},
 }
 
-#: the wire layers over the edge transports and FedBuff (ROADMAP item 11b)
-EDGE_11B = {"wire_reliable", "wire_retry_base_s", "wire_retry_max", "gateway_max_tenants",
-            "gateway_tenant_workers", "chaos_seed", "chaos_drop", "chaos_dup", "chaos_delay_ms",
-            "chaos_reorder", "chaos_crash_rank", "chaos_crash_after", "chaos_crash_restart_s",
-            "buffer_k", "buffer_staleness_alpha", "buffer_mode"}
+#: the federation gateway's quotas (ROADMAP §1, 11b's gateway, after item 12)
+GATEWAY = {"gateway_max_tenants", "gateway_tenant_workers"}
 
 ARGV = [
     [],
@@ -154,6 +154,8 @@ def test_every_field_is_ported_xla_only_or_unported():
     assert not set(UNPORTED_FIELDS) & set(XLA_ONLY_FIELDS)
     assert set(NON_DEFAULT) == set(UNPORTED_FIELDS)
     assert unported_fields(FedConfig()) == {}
+    # 4a's super-step, the gateway's two quotas and item 12's 21 fields
+    assert len(UNPORTED_FIELDS) == 24 and GATEWAY < set(UNPORTED_FIELDS)
 
 
 def _ds():
@@ -167,7 +169,7 @@ def test_unported_field_raises_at_construction(field):
     JaxFedConfig(**BASE, **values)          # a value the JAX package takes
     cfg = FedConfig(**BASE, **values)
     assert field in unported_fields(cfg)
-    item = "ROADMAP §1 item 11b" if field in EDGE_11B else "ROADMAP"
+    item = "ROADMAP §1 item 11b's gateway" if field in GATEWAY else "ROADMAP"
     with pytest.raises(NotImplementedError, match=rf"{field}=.*{item}"):
         FedAvgAPI(_ds(), cfg, device="cpu")
 
@@ -176,7 +178,8 @@ def test_unported_field_raises_at_construction(field):
 def test_edge_field_is_live(field):
     """The edge runtime's fields pass JAX's checks and the port's: no entry
     point refuses them (the simulation ignores them, as the JAX package's
-    does; ``distributed/fedavg_edge.py`` reads them)."""
+    does; ``distributed/fedavg_edge.py``, ``fedbuff_edge.py`` and the wire
+    layers read them)."""
     values = EDGE_LIVE[field]
     JaxFedConfig(**BASE, **values)
     cfg = FedConfig(**BASE, **values)

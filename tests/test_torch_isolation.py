@@ -75,7 +75,9 @@ def test_new_modules_are_covered():
                 "comm/grpc_backend.py", "comm/mqtt_broker.py", "comm/mqtt_client.py",
                 "comm/mqtt_backend.py", "core/compression.py", "core/streaming.py",
                 "distributed/base_framework.py", "distributed/fedavg_edge.py",
-                "experiments/launch_edge.py", "experiments/main_fedavg_edge.py"):
+                "experiments/launch_edge.py", "experiments/main_fedavg_edge.py",
+                "comm/reliable.py", "comm/chaos.py", "algorithms/fedbuff.py",
+                "distributed/fedbuff_edge.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
