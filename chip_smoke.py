@@ -48,10 +48,9 @@ Phases (any failure raises and the script exits non-zero):
    profile of 5 packed FedOpt steps and one of 5 client-adam steps.
 4f. The joint packed lowerings (``packed_conv``), the counterpart of
    ``bench.py``'s packed-conv A/B (``_bench_packed_conv_ab``), on phase 4b's
-   federation and model: off, grouped and blockdiag at 2 lanes, FedOpt-adam
-   (server lr 0.01) under off and blockdiag, off and blockdiag at 4 and 8
-   lanes. Each arm: 2 warm rounds, then the same 2 rounds timed, ending in a
-   sync: real images/s, rounds/s, the speed-up over off, executed packed
+   federation and model: off and blockdiag at 2 and 8 lanes. Each arm: a
+   warm round, then the same round timed, ending in a sync: real images/s,
+   rounds/s, the speed-up over off, executed packed
    steps a round, 57 K1 + 57 K2 and one replay an executed step, a 5-step
    profile (device ms a step, busy share, the conv/GEMM, im2col and copy
    families), useful and streamed conv FLOPs a step, peak memory. Gates:
@@ -65,7 +64,7 @@ Phases (any failure raises and the script exits non-zero):
    one every round, data resident; arms (a) the packed mesh (2 lanes), (b)
    the grouped schedule (``bucket_groups=6``), (c) resident-sharded, (d)
    FedOpt with server adam on (a), (e) (a) at 8 and 16 silos and the fit
-   T(c) = a + b*c. Each: a warm-up round, then 2 timed rounds (1 for (d))
+   T(c) = a + b*c. Each: a warm-up round, then 1 timed round
    ending in a sync, real and padded images/s, 57 K1 + 57 K2 and one
    replay per executed step, finite losses, a 5-step profile; FedOpt's
    server state on the card and nonzero; a small f32 packed and resident
@@ -159,7 +158,7 @@ Phases (any failure raises and the script exits non-zero):
    clip at ``ROBUST_NORM_BOUND``, DP noise 1e-3) plain and packed, each
    client's update norm before the clip and each aggregate's noise
    recorded; hierarchical FL at G = 2 with 2 group rounds (the host round)
-   and the one-rank mesh at G = 1; SiloFedAvg on 8 silos (packed, 3
+   and the one-rank mesh at G = 1 (one round, its capture included); SiloFedAvg on 8 silos (packed, 3
    rounds, patience 2, per-client exit, checkpoints). Gates: 57 K1 + 57 K2
    and one replay an executed step (every group round's), none in any
    evaluation; finite losses; the bound binds on at least half of round
@@ -177,7 +176,8 @@ Phases (any failure raises and the script exits non-zero):
    batch 64, 2 rounds an arm, the first with its capture): (a) DSGD on 16
    nodes (the flagship's recipe at 16 clients, the symmetric topology at
    ``neighbor_num=2``), (b) PushSum on them, (c) the DSGD mesh on one rank
-   without a process group; (d) ``StreamingFedAvgAPI`` on the 32-client
+   without a process group (one round, its capture included); (d)
+   ``StreamingFedAvgAPI`` on the 32-client
    flagship, 8 a round, ``stream_aggregate="off"`` at pipeline depth 0,
    (e) ``"deterministic"`` at depth 2; (f) ``TurboAggregateAPI`` on it.
    Gates: 57 K1 + 57 K2 and one replay a live step, none in any
@@ -215,12 +215,13 @@ Phases (any failure raises and the script exits non-zero):
    launcher's full width (channels 16, 8 layers, 4 steps, multiplier 4:
    929 BatchNorms a forward, all through K1/K2 with ReLU off), f32, on 2
    CIFAR-10-shaped clients of 2 batches of 64, both every round,
-   lr 0.025; first-order, then unrolled (the exact second-order
-   architect, through the BN wrapper's differentiable backward): round 0
-   with its capture, then 2 timed rounds (1 unrolled) ending in a sync;
-   real images/s, ``FEDNAS_LAUNCHES`` K1 + K2 and one replay a step, none in
-   the evaluation; peak memory; a one-step profile (first-order) or a replay's
-   CUDA-event time (unrolled). (a) and (b) run cuDNN's deterministic
+   lr 0.025, first-order: round 0 with its capture, then 1 timed round
+   ending in a sync; real images/s, ``FEDNAS_LAUNCHES`` K1 + K2 and one
+   replay a step, none in the evaluation; peak memory; a replay's CUDA-event
+   time.
+   The unrolled architect (the exact second-order one, through the BN
+   wrapper's differentiable backward) is held by (b) at 3 layers; its
+   full-width timed arm is not run. (a) and (b) run cuDNN's deterministic
    algorithms. (b) In f32, on the full width at 3 layers
    (``FEDNAS_GATE_SIZE``): one step of each architect captured against eager;
    one search step of each architect through K1/K2 against the
@@ -242,8 +243,11 @@ Phases (any failure raises and the script exits non-zero):
    ``resnet56_w128`` each round 0 with its capture, then 2 timed rounds
    ending in a sync: real images/s, ``ZOO_BNS`` K1 + K2 and one replay a
    step, none in the evaluation, peak memory, a one-step profile (busy
-   share, K1 + K2 ms); every other ``ZOO_BNS`` name (``efficientnet-b7``:
-   K1/K2 at C = 3840) one captured step, its launches and a finite loss.
+   share, K1 + K2 ms); each other family's widest name (``ZOO_ONE_STEP``:
+   ``mobilenet_v3/large``, ``efficientnet-b7`` with K1/K2 at C = 3840,
+   ``vgg19``, ``resnet56_w64``, ``resnet56_nonorm``) one captured step, its
+   launches and a finite loss; the other names' K1 calls of a forward
+   recorded, no step.
    (b) In f32: K1/K2 against their plain versions at C = 1152 .. 3840
    (``WIDE_BN_SHAPES``, and ``WIDE_REREAD_SHAPES`` past the on-chip rows)
    and at every [rows, C] of the zoo's K1 calls at batch 64 (recorded in
@@ -291,13 +295,42 @@ Phases (any failure raises and the script exits non-zero):
    orders bit for bit, the batch mean within ``EDGE_STREAM_TOL``). (b) The bf16
    flagship federation (32 x 1562 records, 8 workers of one client, batch
    64): FedAvgAPI, then the edge over the local transport (raw; q8 both
-   ways) and over MQTT, 1 warm and 2 timed rounds each: real
+   ways) and over MQTT, 1 warm and 1 timed round each: real
    images/s, K1/K2 a round (57 x its live steps, exactly), encode / decode
    ms and bytes a round, and the device-span share (CUDA events around each
    worker's training over the round's wall). gRPC is not attempted on the
    card.
+21. The reliable wire, chaos injection and FedBuff, after phase 20. (a)
+   Gates: FedBuff (deterministic, ``buffer_k`` 4) against the FedAvg edge's
+   aggregates; FedBuff and the FedAvg edge under chaos (drop 0.2, dup 0.1,
+   delay 20 ms, seed 7, fast retries) equal to their runs without, bit for
+   bit; a crash-restart of one worker absorbed. (b) The bf16 flagship: the
+   FedAvg edge under a 120 ms delay, FedBuff at ``buffer_k`` 8 and 4, and
+   the FedAvg edge over the reliable layer without faults: real images/s,
+   clients/s, the version lag, encode / decode ms and bytes.
+22. The other edge protocols, after phase 21. (a) f32 gates through K1/K2
+   under cuDNN's deterministic algorithms: the FedGKT edge at CI depth (4
+   clients, 2 rounds) against ``FedGKTAPI`` at ``EP_GKT_TOL`` (JAX's), and
+   under chaos (drop 0.2, dup 0.1, delay 20 ms, seed 7) equal to its run
+   without; the TurboAggregate edge on ResNet-56 at full depth (4 clients
+   x 128 records, group size 2, 2 rounds) against
+   ``TurboAggregateAPI``, every float that did not wrap within
+   ``EP_TA_ATOL`` (the API names the wrapped ones), the threshold protocol,
+   healthy, within ``EP_TA_FT_ATOL`` of the ring; the SplitNN managed ring,
+   healthy, equal to the strict ring; the VFL edge and the decentralized
+   framework under ``EP_CHAOS`` against their runs without (bit for bit;
+   rtol ``EP_GOSSIP_RTOL``). (b) bf16 on the flagship federation's first 8
+   clients, each run round 0 warm (the captures) and round 1 timed, over
+   the local transport: the FedGKT edge (resnet8 / resnet56_server at full
+   depth, batch 64) beside ``FedGKTAPI``, K1 = K2 = 7 a client step + 38 a
+   server step exactly, an upload's feature and logit bytes and a round's
+   uploads encoded and decoded raw and q8; the TurboAggregate edge on the
+   ResNet-56 flagship (group size 2, frac_bits 20) beside
+   ``TurboAggregateAPI``, K1 = K2 = 57 a live step exactly, the host MPC
+   ms a round and the floats the API wrapped. gRPC is not attempted on the card.
 
-Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15, 16, 17 and 18 is a replay of the step
+Every live step of phases 4, 4b, 4c, 4f, 4d, 4e, 8, 11, 13, 14, 15, 16, 17, 18 and of
+the edges' local training is a replay of the step
 captured as one CUDA graph (``parallel/capture.py``): each round checks one
 replay a live (or executed packed) step and the kernels' launch counts, to
 which a replay adds the launches its capture recorded. Each of those phases
@@ -314,9 +347,9 @@ launch calls, K1 and K2 by name: 57 a step on the BN paths), the captured
 graph's kernel nodes are read through libcuda's graph API (57 K1 + 57 K2
 nodes, all cooperative, on the BN paths; 72 K3 and 36 cooperative K4 on
 the lanes path; 4 K6 on path (A)), and the grid-barrier words of each
-capturing stream must be back at zero. Phases 4 and 4b also run their
-rounds again from the same weights through the eager step, for real
-images/s both ways. Phase 12 profiles one more (eager) step.
+capturing stream must be back at zero. Phase 4 also runs its rounds again
+from the same weights through the eager step, for real images/s both ways.
+Phase 12 profiles one more (eager) step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -362,7 +395,8 @@ MAIN_PATH_BNS = {
 }
 BNS_PER_STEP = sum(MAIN_PATH_BNS.values())      # 57
 # the packed flagship (pack_lanes=2): the same BNs, each over both lanes'
-# channels, [rows, 2*C]; phase 4f also packs 4 and 8 lanes, [rows, L*C]
+# channels, [rows, 2*C]; phases 2-3 also hold and time K1/K2 at 4 and 8
+# lanes, [rows, L*C], and phase 4f trains at 8
 PACK_LANES = 2
 PACKED_CONV_LANES = (2, 4, 8)
 PACKED_BNS_BY_LANES = {L: {(n, L * C, relu): k for (n, C, relu), k in MAIN_PATH_BNS.items()}
@@ -1787,7 +1821,6 @@ def phase_train_packed(smi: str):
                   "lane_steps": pl.live.sum(1).astype(int).tolist()} for pl in plans]
     log(f"{tag} plans: {per_round}")
     steps = sum(r["executed_steps"] for r in per_round)
-    init = {k: v.clone() for k, v in api.variables.items()}
     captured = run_rounds(api, tag, smi, replayed=steps)
     rounds, metrics, eval_s, trained, launches = captured
     train_s = sum(r["seconds"] for r in rounds)
@@ -1804,12 +1837,12 @@ def phase_train_packed(smi: str):
     bf16_check = packed_bf16_step_check()
     control = order_control()
     conv_timing = packed_conv_timing()
+    # no eager rounds here: phase 4's give the eager-against-captured rounds
     arms = capture_arms(api, tag, smi, packed=True, graph_kernels=BN_GRAPH,
                         named_per_step=BNS_PER_STEP)
-    eager = eager_rounds(api, init, tag, smi, captured)
     return {"pack_lanes": PACK_LANES, "plans": per_round, "rounds": rounds, "eval": metrics,
             "step_profile": arms["profiles"]["captured"], "capture": arms,
-            "eager_rounds": eager, "replay_check": replay, "bf16_step_check": bf16_check,
+            "replay_check": replay, "bf16_step_check": bf16_check,
             "order_control": control, "conv_timing": conv_timing,
             "eval_s": eval_s, "steps": steps,
             "launches_train": trained, "launches": launches,
@@ -2209,18 +2242,18 @@ def phase_train_zoo(smi: str):
 # -- phase 4f: the joint packed lowerings ---------------------------------------
 
 # bench.py's packed-conv A/B (_bench_packed_conv_ab, bench.py:168): the
-# flagship's packed round under each lowering, its adaptive arm (FedOpt
-# with server adam at phase 4c's server lr), and packing at L = 4 and 8:
-# (label, lanes, packed_conv, FedOpt-adam)
+# flagship's packed round under each lowering at 2 and 8 lanes: (label,
+# lanes, packed_conv, FedOpt-adam). Not run, to keep the script in its time
+# limit: grouped (the very conv call off makes; grouped_equals_off holds it
+# bit for bit), FedOpt-adam under off and blockdiag (phase 4d's arm d times
+# FedOpt-adam on the packed mesh) and L = 4 (phase 4b's lowering timing has
+# its convs)
 PACKED_CONV_ARMS = (
-    ("off-L2", 2, "off", False), ("grouped-L2", 2, "grouped", False),
-    ("blockdiag-L2", 2, "blockdiag", False),
-    ("fedopt-off-L2", 2, "off", True), ("fedopt-blockdiag-L2", 2, "blockdiag", True),
-    ("off-L4", 4, "off", False), ("blockdiag-L4", 4, "blockdiag", False),
+    ("off-L2", 2, "off", False), ("blockdiag-L2", 2, "blockdiag", False),
     ("off-L8", 8, "off", False), ("blockdiag-L8", 8, "blockdiag", False))
 # warm rounds, then the same rounds timed (bench.py's discipline: the timed
 # rounds' cohorts and steps are the warm ones')
-AB_WARM, AB_TIMED = 2, 2
+AB_WARM, AB_TIMED = 1, 1
 # the end-to-end bound of a joint lowering against off
 # (tests/test_packed_conv.py:177-192): weights 2 x W_RTOL / 4 x W_ATOL,
 # losses rtol 1e-2
@@ -2446,9 +2479,8 @@ def lowering_check() -> dict:
 
 def phase_train_packed_conv(smi: str) -> dict:
     """Phase 4f: bench.py's packed-conv A/B on the flagship (ResNet-56,
-    bn_impl="pallas", bf16, 8 of 32 clients, batch 64): off, grouped and
-    blockdiag at 2 lanes, FedOpt-adam under off and blockdiag, off and
-    blockdiag at 4 and 8 lanes (``packed_conv_arm``); the speed-up over off;
+    bn_impl="pallas", bf16, 8 of 32 clients, batch 64): off and blockdiag
+    at 2 and 8 lanes (``packed_conv_arm``); the speed-up over off;
     the gates: every twin conv under both lowerings against the per-lane
     convs (``lowering_check``), grouped = off bit for bit, the f32 blockdiag
     round within rtol 1e-4 / atol 1e-5 of off, the f32 blockdiag mesh round
@@ -2526,7 +2558,7 @@ def crosssilo_steps(api) -> int:
     return api.round_counts(0)[1] // api.config.batch_size
 
 
-def crosssilo_arm(api, tag: str, smi: str, timed: int = 2) -> dict:
+def crosssilo_arm(api, tag: str, smi: str, timed: int = 1) -> dict:
     """One warm-up round, then ``timed`` rounds ending in a host sync: real
     and padded images/s, rounds/s, K1 and K2 launches (57 + 57 a step) and
     one replay a step over the timed rounds, finite losses; then a profile of
@@ -2718,9 +2750,9 @@ def phase_train_crosssilo(smi: str) -> dict:
         torch.cuda.empty_cache()
 
     out, launches = {"arms": {}}, {"bn_fwd": 0, "bn_bwd": 0}
-    arms = (("a-packed", None, dict(pack_lanes=PACK_LANES), 2),
-            ("b-grouped", None, dict(pack_lanes=0), 2),
-            ("c-resident", None, dict(pack_lanes=0, bucket_groups=1), 2),
+    arms = (("a-packed", None, dict(pack_lanes=PACK_LANES), 1),
+            ("b-grouped", None, dict(pack_lanes=0), 1),
+            ("c-resident", None, dict(pack_lanes=0, bucket_groups=1), 1),
             ("d-fedopt-adam", CrossSiloFedOptAPI,
              dict(pack_lanes=PACK_LANES, server_optimizer="adam", server_lr=ZOO_SERVER_LR), 1))
     expect = {"a-packed": "packed mesh", "b-grouped": "grouped", "c-resident": "resident",
@@ -3531,10 +3563,11 @@ def check_bn_launches(tag: str, trained: dict, after_eval: dict, steps: int) -> 
         raise AssertionError(f"{tag} launched a lanes conv kernel: {trained}")
 
 
-def hierarchical_arm(label: str, smi: str, groups: int, mesh: bool) -> dict:
+def hierarchical_arm(label: str, smi: str, groups: int, mesh: bool, rounds: int = 2) -> dict:
     """Hierarchical FL on the flagship's federation (8 clients a round, the
-    host round), ``HIER_GROUP_ROUNDS`` group rounds a round, 2 rounds: the
-    simulator at ``groups`` groups, or the one-rank mesh (``groups`` 1):
+    host round), ``HIER_GROUP_ROUNDS`` group rounds a round, ``rounds``
+    rounds: the simulator at ``groups`` groups, or the one-rank mesh
+    (``groups`` 1):
     finite losses, 57 K1 + 57 K2 and one replay a step (every group round's
     live steps), none in the evaluation."""
     from fedml_tpu_torch.algorithms.hierarchical import (CrossSiloHierarchicalFedAvgAPI,
@@ -3543,10 +3576,9 @@ def hierarchical_arm(label: str, smi: str, groups: int, mesh: bool) -> dict:
     tag = f"[hierarchical {label}]"
     cls = CrossSiloHierarchicalFedAvgAPI if mesh else HierarchicalFedAvgAPI
     api = flagship_api(api_cls=cls, ds=flagship_data(), group_num=groups,
-                       group_comm_round=HIER_GROUP_ROUNDS)
-    rounds = range(api.config.comm_round)
+                       group_comm_round=HIER_GROUP_ROUNDS, comm_round=rounds)
     steps = HIER_GROUP_ROUNDS * sum(api.round_counts(r)[1] // api.config.batch_size
-                                    for r in rounds)
+                                    for r in range(api.config.comm_round))
     rounds_rec, metrics, eval_s, trained, after_eval = run_rounds(api, tag, smi, replayed=steps)
     check_bn_launches(tag, trained, after_eval, steps)
     train_s = sum(r["seconds"] for r in rounds_rec)
@@ -3723,7 +3755,7 @@ def phase_train_robust(smi: str) -> dict:
     """Phase 14: robust aggregation, hierarchical FL and the silo harness on
     the flagship (ResNet-56, ``bn_impl="pallas"``, bf16, batch 64), through
     K1/K2, profiled nowhere: FedAvg-robust plain and packed, hierarchical
-    at G = 2 and the one-rank mesh at G = 1, SiloFedAvg on 8 silos, FedAvg
+    at G = 2 and the one-rank mesh at G = 1 (one round), SiloFedAvg on 8 silos, FedAvg
     packed on the same federation for its images/s; the f32 gates."""
     import gc
     import tempfile
@@ -3746,7 +3778,10 @@ def phase_train_robust(smi: str) -> dict:
     add("robust-plain", robust_arm("plain", smi, packed=False))
     add("robust-packed", robust_arm("packed", smi, packed=True))
     add("hierarchical-g2", hierarchical_arm("G=2", smi, HIER_GROUPS, mesh=False))
-    add("hierarchical-mesh-g1", hierarchical_arm("one-rank mesh G=1", smi, 1, mesh=True))
+    # the one-rank mesh at G = 1 at the flagship's width: one round, its
+    # capture included (the f32 gates hold its rounds against the simulator's)
+    add("hierarchical-mesh-g1", hierarchical_arm("one-rank mesh G=1", smi, 1, mesh=True,
+                                                 rounds=1))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_silo_") as tmp:
         add("silo-fedavg", silo_arm(smi, tmp))
     out["f32_checks"] = robust_hier_f32_checks()
@@ -3839,10 +3874,10 @@ def zoo_arm(label: str, smi: str, api, on_round=None, eval_finite: bool = True) 
             "real_images_per_s": sum(r["real_images"] for r in rounds_rec) / train_s}
 
 
-def gossip_arm(label: str, smi: str, mode: str, mesh: bool) -> dict:
+def gossip_arm(label: str, smi: str, mode: str, mesh: bool, rounds: int = 2) -> dict:
     """(a)-(c): DSGD or PushSum on the 16 nodes over the symmetric topology
     (``neighbor_num=2``), the simulator or the one-rank mesh without a
-    process group. PushSum's mass must stay N (rtol 1e-5) every round. The
+    process group, ``rounds`` rounds. PushSum's mass must stay N (rtol 1e-5) every round. The
     mix's CUDA-event ms on the final node state (``mix_stacked``: one f32
     product over the flat [16, 860,026] view), the consensus distance and
     node 0's evaluation."""
@@ -3854,7 +3889,8 @@ def gossip_arm(label: str, smi: str, mode: str, mesh: bool) -> dict:
 
     api = flagship_api(api_cls=MeshDecentralizedFedAPI if mesh else DecentralizedFedAPI,
                        ds=gossip_data(), api_kw={"mode": mode},
-                       client_num_in_total=GOSSIP_NODES, client_num_per_round=GOSSIP_NODES)
+                       client_num_in_total=GOSSIP_NODES, client_num_per_round=GOSSIP_NODES,
+                       comm_round=rounds)
     if mesh and (api.mesh.world_size != 1 or api.mesh.group is not None):
         raise AssertionError(f"[gossip {label}] not the group-less one-rank mesh: {api.mesh}")
 
@@ -4049,8 +4085,8 @@ def zoo_gossip_f32_gates(smi: str) -> dict:
 
 
 def phase_train_zoo_gossip(smi: str) -> dict:
-    """Phase 15: decentralized FL (DSGD, PushSum, the one-rank mesh),
-    streaming FedAvg (off at depth 0, deterministic at depth 2) and
+    """Phase 15: decentralized FL (DSGD, PushSum, the one-rank mesh at one
+    round), streaming FedAvg (off at depth 0, deterministic at depth 2) and
     TurboAggregate on the flagship (ResNet-56, ``bn_impl="pallas"``, bf16,
     batch 64), through K1/K2, profiled nowhere; the native batcher's check
     and the f32 gates."""
@@ -4069,7 +4105,9 @@ def phase_train_zoo_gossip(smi: str) -> dict:
 
     add("dsgd", gossip_arm("(a) DSGD", smi, "dsgd", mesh=False))
     add("pushsum", gossip_arm("(b) PushSum", smi, "pushsum", mesh=False))
-    add("dsgd-mesh", gossip_arm("(c) DSGD one-rank mesh", smi, "dsgd", mesh=True))
+    # the one-rank mesh at the flagship's width: one round, its capture
+    # included (the f32 gates hold mesh = simulation, bit for bit)
+    add("dsgd-mesh", gossip_arm("(c) DSGD one-rank mesh", smi, "dsgd", mesh=True, rounds=1))
     out["native"] = native_batches_check(flagship_data())
     add("stream-off", stream_arm("(d) off, depth 0", smi, "off", 0))
     add("stream-deterministic", stream_arm("(e) deterministic, depth 2", smi, "deterministic", 2))
@@ -4550,11 +4588,10 @@ def fednas_capture_gate(api, tag: str) -> dict:
 def fednas_arm(unrolled: bool, smi: str) -> dict:
     """(a): the full-width search through K1/K2 (f32, bn_impl="pallas") on 2
     CIFAR-10-shaped clients of 2 batches of 64, both every round. Round 0
-    with its capture, then 2 timed rounds (1 unrolled) ending in a sync:
-    real images/s, one replay and FEDNAS_LAUNCHES K1 + K2 a step, none in
-    the evaluation; peak memory; first-order, a one-step profile (busy
-    share, K1 + K2 device ms); unrolled, a replay's CUDA-event time.
-    Captured = eager is held in (b) (``fednas_step_capture_gate``)."""
+    with its capture, then 1 timed round ending in a sync: real images/s,
+    one replay and FEDNAS_LAUNCHES K1 + K2 a step, none in the evaluation;
+    peak memory; a replay's CUDA-event time. Captured = eager is held in (b)
+    (``fednas_step_capture_gate``)."""
     import torch
 
     from fedml_tpu_torch.ops import batchnorm as bn
@@ -4579,7 +4616,7 @@ def fednas_arm(unrolled: bool, smi: str) -> dict:
     cl.reset_launches()
     r0 = prog.replays
     rounds = []
-    timed_rounds = (1,) if unrolled else (1, 2)
+    timed_rounds = (1,)
     for r in timed_rounds:
         t = time.perf_counter()
         loss = float(api.run_round(r))
@@ -4610,24 +4647,18 @@ def fednas_arm(unrolled: bool, smi: str) -> dict:
 
     genotype = derive_genotype(api.alphas, api.steps_cfg, api.multiplier)
 
-    def one_step():
-        _fill_batch(api, 1)
-        return float(prog())
-
+    # a replay's device time by CUDA events: a profile of its ~54k (first-order)
+    # or ~183k (unrolled) kernels costs 10-25 s, and the first-order step's
+    # by-family reading stands in PERF.md §5
     t = time.perf_counter()
-    if unrolled:
-        # a replay's device time by CUDA events (a profile of its ~183k
-        # kernels costs ~25 s late in the script)
-        _fill_batch(api, 1)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        prog()
-        end.record()
-        torch.cuda.synchronize()
-        profile = {"replay_event_ms": start.elapsed_time(end)}
-    else:
-        profile = _profile(one_step, 1, op_tables=False)
+    _fill_batch(api, 1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    prog()
+    end.record()
+    torch.cuda.synchronize()
+    profile = {"replay_event_ms": start.elapsed_time(end)}
     profile_s = time.perf_counter() - t
     real = int(np.asarray(api.dataset.train_counts).sum())
     train_s = sum(r["seconds"] for r in rounds)
@@ -4640,18 +4671,10 @@ def fednas_arm(unrolled: bool, smi: str) -> dict:
            "genotype": [list(genotype.normal), list(genotype.reduce)],
            "launches": trained, "launches_per_step": per_step,
            "warmup_launches": prog.warmup_launches, "step_profile": profile}
-    if unrolled:
-        shown = f"a replay {profile['replay_event_ms']:.2f} ms of CUDA events"
-    else:
-        fam = profile["device_ms_per_step_by_family"]
-        log(f"{tag} a step's device ms by family {fam}")
-        shown = (f"a step {profile['device_ms_per_step']:.2f} ms of device, busy "
-                 f"{profile['device_busy_share']:.3f}, K1+K2 "
-                 f"{fam.get('bn kernels (K1/K2)', 0.0):.2f} ms, "
-                 f"{profile['gpu_activities_per_step']:.0f} GPU activities")
+    shown = f"a replay {profile['replay_event_ms']:.2f} ms of CUDA events"
     log(f"{tag} {steps} steps a round, {out['real_images_per_s']:.1f} real images/s over "
         f"{len(rounds)} warm round(s) ({out['ms_per_step']:.1f} ms a step; round 0 with the "
-        f"capture {round0_s:.1f} s, the profile {profile_s:.1f} s), K1/K2 {per_step} a step, "
+        f"capture {round0_s:.1f} s, the timed replay {profile_s:.1f} s), K1/K2 {per_step} a step, "
         f"peak {peak / 2**30:.2f} GiB, Test/Acc {acc:.4f}; {shown}; {smi}")
     del api, prog
     return out
@@ -4950,8 +4973,8 @@ def vfl_arm(smi: str) -> dict:
 
 
 def phase_train_fednas_split_vfl(smi: str) -> dict:
-    """Phase 17: the full-width FedNAS search through K1/K2, first-order (a)
-    and unrolled; the f32 gates (b), both under cuDNN's deterministic
+    """Phase 17: the full-width first-order FedNAS search through K1/K2 (a);
+    the f32 gates of both architects (b), both under cuDNN's deterministic
     algorithms; a SplitNN ring and a VFL fit (c)."""
     import gc
 
@@ -4963,13 +4986,14 @@ def phase_train_fednas_split_vfl(smi: str) -> dict:
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for unrolled in (False, True):
-            rec = out["arms"]["unrolled" if unrolled else "first_order"] = fednas_arm(unrolled,
-                                                                                      smi)
-            for k in launches:
-                launches[k] += rec["launches"][k]
-            gc.collect()
-            torch.cuda.empty_cache()
+        # the unrolled search is held by its gates below (the K1/K2 gate and
+        # captured = eager, FEDNAS_GATE_SIZE); its full-width timed arm (~60 s,
+        # mostly its capture) is not run
+        rec = out["arms"]["first_order"] = fednas_arm(False, smi)
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
         gates = {"first_order": fednas_bn_gate(False), "unrolled": fednas_bn_gate(True),
                  "first_order_capture": fednas_step_capture_gate(False),
                  "unrolled_capture": fednas_step_capture_gate(True), "nccl": fednas_nccl_gate()}
@@ -5035,6 +5059,11 @@ ZOO_BNS = {"mobilenet": 27, "mobilenet_v3": 34, "mobilenet_v3/large": 46, "vgg11
            "resnet56_w64": 57, "resnet56_w128": 57, "resnet56_nonorm": 0}
 # (a)'s timed arms; every other name of ZOO_BNS gets one captured step
 ZOO_TIMED = ("mobilenet", "mobilenet_v3", "vgg16", "efficientnet-b0", "resnet56_w128")
+# each other family's widest name gets one captured step; the rest of
+# ZOO_BNS only has its K1 calls recorded (a forward, no capture), so (b)
+# still holds K1/K2 at every BN shape of the zoo
+ZOO_ONE_STEP = ("mobilenet_v3/large", "efficientnet-b7", "vgg19", "resnet56_w64",
+                "resnet56_nonorm")
 # the timed arms' K1/K2 calls a step at batch 64 by (rows, C, relu), as
 # MAIN_PATH_BNS (rows = 64 x the BN's spatial size at 32 x 32 input); each
 # arm checks its recorded calls against these, and (b) holds K1/K2 against
@@ -5236,6 +5265,28 @@ def zoo_one_step(name: str, smi: str) -> dict:
     del api, prog
     return {"model": name, "loss": loss[0], "seconds": seconds, "launches": dict(bn_counts()),
             "widest_bn": widest, "bn_shapes": sorted([*k, v] for k, v in shapes.items())}
+
+
+def zoo_shapes(name: str, smi: str) -> dict:
+    """(a) a name of neither list: its bf16 kernel-BN net built on the card
+    and its K1 calls of one train-mode forward at batch 64 recorded (their
+    count ZOO_BNS[name]), for (b)'s shape check; no step, no capture."""
+    import torch
+
+    from fedml_tpu_torch.models import create_model
+
+    model, kw = _zoo_name(name)
+    bundle = create_model(model, 10, input_shape=(32, 32, 3), dtype=torch.bfloat16,
+                          bn_impl="pallas", **kw)
+    bundle.module.to("cuda")
+    shapes = record_bn_shapes(bundle)
+    if sum(shapes.values()) != ZOO_BNS[name]:
+        raise AssertionError(f"[zoo (a) {name}] {sum(shapes.values())} K1 calls a forward, not "
+                             f"{ZOO_BNS[name]}: {shapes}")
+    log(f"[zoo (a) {name}] K1 calls of a forward recorded: {sum(shapes.values())} at "
+        f"{len(shapes)} shapes (no step); {smi}")
+    del bundle
+    return {"model": name, "bn_shapes": sorted([*k, v] for k, v in shapes.items())}
 
 
 def _rel_dicts(a: dict, b: dict, keys) -> float:
@@ -5560,15 +5611,18 @@ def phase_train_zoo_bn(smi: str) -> dict:
             launches[k] += rec["launches"][k]
         gc.collect()
         torch.cuda.empty_cache()
-    for name in ZOO_BNS:
-        if name not in ZOO_TIMED:
-            rec = out["one_step"][name] = zoo_one_step(name, smi)
-            for k in launches:
-                launches[k] += rec["launches"][k]
-            gc.collect()
+    for name in ZOO_ONE_STEP:
+        rec = out["one_step"][name] = zoo_one_step(name, smi)
+        for k in launches:
+            launches[k] += rec["launches"][k]
+        gc.collect()
+    out["shapes_only"] = {name: zoo_shapes(name, smi) for name in ZOO_BNS
+                          if name not in ZOO_TIMED + ZOO_ONE_STEP}
+    gc.collect()
     out["launches"] = launches
     out["wide_err"], out["wide_cases"] = bn_wide_check()
-    shapes = {(n, C, relu) for rec in [*out["arms"].values(), *out["one_step"].values()]
+    shapes = {(n, C, relu) for rec in [*out["arms"].values(), *out["one_step"].values(),
+                                       *out["shapes_only"].values()]
               for n, C, relu, _ in rec["bn_shapes"]}
     out["zoo_shape_err"], out["zoo_shape_cases"] = bn_zoo_check(shapes)
     out["step_gates"] = {n: zoo_step_gate(n) for n in ZOO_STEP_NAMES}
@@ -6346,9 +6400,9 @@ EDGE_GATE = dict(clients=8, records=128, workers=4, rounds=2)
 EDGE_TOL = dict(rtol=1e-5, atol=1e-6, acc=1e-6, loss=1e-4)
 # the streaming aggregator against the batch one (tests/test_fedsched.py:35)
 EDGE_STREAM_TOL = dict(rtol=1e-6, atol=1e-7)
-# (b) the flagship federation over 8 workers: 1 warm round, then 2 timed
+# (b) the flagship federation over 8 workers: 1 warm round, then 1 timed
 EDGE_WORKERS = 8
-EDGE_ROUNDS = 3
+EDGE_ROUNDS = 2
 
 
 def edge_gate_data():
@@ -6699,7 +6753,7 @@ def edge_config(**config):
 def edge_speed_arm(label: str, ds, bundle, smi: str, comm_factory=None, profile: bool = False,
                    **config) -> dict:
     """(b) One bf16 flagship federation: 8 workers of one client each over
-    EDGE_ROUNDS rounds; round 0 warms up (the capture), rounds 1-2 are
+    EDGE_ROUNDS rounds; round 0 warms up (the capture), round 1 is
     timed. Real images/s, K1/K2 a round (57 x the round's live steps,
     exactly), encode / decode ms and bytes a round, and the device-span
     share (CUDA events around each worker's local training over the round's
@@ -6797,13 +6851,13 @@ def edge_speed_arm(label: str, ds, bundle, smi: str, comm_factory=None, profile:
         log(f"{tag} round {p['round']}'s first worker call profiled: {p['device_activities']} "
             f"device activities, {p['device_busy_ms']:.1f} ms of device busy for {p['steps']} "
             f"live steps ({p['device_busy_ms_per_step']:.3f} ms a live step, its copies in and "
-            f"out included) in a {p['wall_s']:.3f} s window; rounds 1-2 at that device time a "
+            f"out included) in a {p['wall_s']:.3f} s window; round 1 at that device time a "
             f"step: busy share {rec_out['busy_share']:.3f}; {smi}")
     codec_txt = (f"encode {rec_out['encode_ms_per_round']:.1f} / decode "
                  f"{rec_out['decode_ms_per_round']:.1f} ms and "
                  f"{rec_out['wire_bytes_per_round']:.0f} bytes a round" if timed_codec
                  else "codec not timed on this transport")
-    log(f"{tag} rounds 1-2: {rec_out['real_images_per_s']:.1f} real images/s, device span "
+    log(f"{tag} round 1: {rec_out['real_images_per_s']:.1f} real images/s, device span "
         f"share {rec_out['device_span_share']:.3f}, {codec_txt}; final "
         f"{agg.test_history[-1]}; {smi}")
     return rec_out
@@ -6811,7 +6865,7 @@ def edge_speed_arm(label: str, ds, bundle, smi: str, comm_factory=None, profile:
 
 def edge_sim_arm(ds, bundle, smi: str) -> dict:
     """The port's plain FedAvgAPI on the same federation and bundle in the
-    same call: round 0 warm, rounds 1-2 timed."""
+    same call: round 0 warm, round 1 timed."""
     from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
 
     tag = "[edge sim]"
@@ -6826,7 +6880,7 @@ def edge_sim_arm(ds, bundle, smi: str) -> dict:
         log(f"{tag} round {r}: {dt:.3f} s, {real} real images ({real / dt:.1f}/s), loss {loss:.4f}")
     secs = sum(r["seconds"] for r in rounds[1:])
     out = {"rounds": rounds, "real_images_per_s": sum(r["real_images"] for r in rounds[1:]) / secs}
-    log(f"{tag} rounds 1-2: {out['real_images_per_s']:.1f} real images/s; {smi}")
+    log(f"{tag} round 1: {out['real_images_per_s']:.1f} real images/s; {smi}")
     return out
 
 
@@ -6865,7 +6919,7 @@ def phase_train_edge(smi: str) -> dict:
     arms["local_q8_delta"] = edge_speed_arm("local q8 delta", ds, bundle, smi, wire_codec="q8",
                                             wire_delta=True, frequency_of_the_test=1)
     launches = {k: sum(a["launches"][k] for a in arms.values()) for k in ("bn_fwd", "bn_bwd")}
-    log(f"[edge] real images/s, rounds 1-2: FedAvgAPI {sim['real_images_per_s']:.1f}, edge "
+    log(f"[edge] real images/s, round 1: FedAvgAPI {sim['real_images_per_s']:.1f}, edge "
         + ", ".join(f"{k} {a['real_images_per_s']:.1f} ({a['real_images_per_s'] / sim['real_images_per_s']:.3f}x)"
                     for k, a in arms.items()) + f"; K1/K2 over the edge arms {launches}; {smi}")
     return {"gate": gate, "sim": sim, "arms": arms, "launches": launches}
@@ -7070,7 +7124,7 @@ def wire_gate(smi: str) -> dict:
 def fedbuff_speed_arm(label: str, ds, bundle, smi: str, k: int) -> dict:
     """(b) One bf16 flagship FedBuff federation in arrival mode: 8 workers,
     each assignment one client; the first 8 folds warm (the capture), the
-    next 2 x 8 timed, as the FedAvg edge's rounds 1-2. Real images/s and
+    next 2 x 8 timed. Real images/s and
     clients/s over the timed folds, the version lag of every fold, encode /
     decode ms and bytes a version, and K1/K2 = 57 x the live steps of every
     training the run made."""
@@ -7147,7 +7201,7 @@ def phase_train_wire(smi: str, edge_raw: Optional[dict] = None) -> dict:
     secs = sum(r["seconds"] for r in timed_rounds)
     edge_delay["clients_per_s"] = EDGE_WORKERS * len(timed_rounds) / secs
     edge_delay["version_lag_p99"] = edge_delay["version_lag_mean"] = 0.0   # synchronous
-    log(f"[wire edge delay] rounds 1-2: {edge_delay['real_images_per_s']:.1f} real images/s, "
+    log(f"[wire edge delay] round 1: {edge_delay['real_images_per_s']:.1f} real images/s, "
         f"{edge_delay['clients_per_s']:.2f} clients/s, version lag 0 (a synchronous round); "
         f"{smi}")
     arms["edge_delay"] = edge_delay
@@ -7166,6 +7220,367 @@ def phase_train_wire(smi: str, edge_raw: Optional[dict] = None) -> dict:
         + f"; the edge over the reliable layer without faults {rel['real_images_per_s']:.1f}"
         + versus + f"; K1/K2 over the arms {launches}; {smi}")
     return {"gate": gate, "arms": arms, "launches": launches}
+
+
+# -- phase 22: the other edge protocols ------------------------------------------
+
+# (a) the f32 gates' federations: FedGKT at CI depth (client 1 block, server 1
+# a stage) on 4 CIFAR-10-shaped clients, 2 rounds; TurboAggregate's ResNet-56
+# at full depth on 4 clients x 128 records, group size 2, 2 rounds
+EP_GKT_DATA = dict(num_clients=4, records_per_client=64, batch_size=32)
+EP_TA_DATA = dict(num_clients=4, records_per_client=128, batch_size=64)
+# JAX's tolerances of the GKT edge against the simulation
+# (tests/test_fedgkt.py:95-109): Test/Acc within one boundary sample, the
+# losses rtol / atol, the server logits
+EP_GKT_TOL = dict(loss_rtol=5e-3, loss_atol=5e-4, logits=5e-2)
+# the TA edge against the host-simulated API (tests/test_edge_protocols.py:
+# 51-53): every float that did not wrap within 4 units of 2^-20; the
+# threshold protocol against the ring (tests/test_edge_ft_protocols.py:42-58)
+EP_TA_ATOL = 4 / (1 << 20)
+EP_TA_FT_ATOL = 1e-6
+# the VFL and gossip chaos round trips of tests/test_chaos.py:377-416: its
+# fault rates and seed (drop 0.2, dup 0.1, reorder 0.1, seed 7), its
+# federations, retries from 10 ms; the decentralized framework at rtol 1e-5
+EP_CHAOS = dict(wire_reliable=True, chaos_drop=0.2, chaos_dup=0.1, chaos_reorder=0.1,
+                chaos_seed=7, wire_retry_base_s=0.01)
+EP_GOSSIP_RTOL = 1e-5
+# (b) the flagship federation's first 8 clients, 1 warm and 1 timed round
+EP_CLIENTS = 8
+
+
+def ep_cifar(name: str, num_clients: int, records_per_client: int, batch_size: int):
+    from fedml_tpu_torch.data.synthetic import make_synthetic_classification
+
+    return make_synthetic_classification(name, (32, 32, 3), 10, num_clients,
+                                         records_per_client=records_per_client,
+                                         partition_method="hetero", partition_alpha=0.5,
+                                         batch_size=batch_size, seed=SEED)
+
+
+def ep_first_clients(ds, n: int):
+    """``ds`` cut to its first ``n`` clients (the test pool kept)."""
+    import dataclasses
+
+    return dataclasses.replace(ds, train_x=ds.train_x[:n], train_y=ds.train_y[:n],
+                               train_mask=ds.train_mask[:n], train_counts=ds.train_counts[:n])
+
+
+def ep_gkt_config(ds, dtype: str, **config):
+    from fedml_tpu_torch.core.config import FedConfig
+
+    base = dict(model="resnet56", dataset="cifar10", client_num_in_total=ds.num_clients,
+                client_num_per_round=ds.num_clients, comm_round=2, batch_size=64, epochs=1,
+                epochs_server=1, lr=0.1, dtype=dtype, frequency_of_the_test=1, seed=SEED)
+    return FedConfig(**{**base, **config})
+
+
+def ep_gkt_pair(ds, blocks: tuple, dtype: str):
+    import torch
+
+    from fedml_tpu_torch.models.gkt import create_gkt_pair
+
+    return create_gkt_pair(ds.class_num, tuple(ds.train_x.shape[2:]), *blocks,
+                           dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
+                           bn_impl="pallas")
+
+
+def ep_ta_config(clients: int, dtype: str, **config):
+    from fedml_tpu_torch.core.config import FedConfig
+
+    base = dict(model="resnet56", dataset="cifar10", client_num_in_total=clients,
+                client_num_per_round=clients, comm_round=2, batch_size=64, epochs=1, lr=0.1,
+                momentum=0.9, dtype=dtype, frequency_of_the_test=1, seed=SEED,
+                device_data="off")
+    return FedConfig(**{**base, **config})
+
+
+def ep_resnet56(dtype: str):
+    import torch
+
+    from fedml_tpu_torch.models import create_model
+
+    return create_model("resnet56", 10, input_shape=(32, 32, 3), bn_impl="pallas",
+                        dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+
+
+def ep_gates(smi: str) -> dict:
+    """(a) The f32 gates, K1/K2 through ``bn_impl="pallas"``, TF32 off, under
+    cuDNN's deterministic algorithms."""
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
+    from fedml_tpu_torch.core.config import FedConfig
+    from fedml_tpu_torch.data.vertical import make_synthetic_vertical
+    from fedml_tpu_torch.distributed import decentralized_framework as dfw
+    from fedml_tpu_torch.distributed import split_nn_edge as se
+    from fedml_tpu_torch.distributed import vfl_edge as ve
+    from fedml_tpu_torch.distributed.fedgkt_edge import run_fedgkt_edge
+    from fedml_tpu_torch.distributed.turboaggregate_edge import run_turboaggregate_edge
+    from fedml_tpu_torch.models.split import create_split_cnn
+
+    out = {}
+    # FedGKT: the edge against the simulation, and under chaos against itself
+    ds = ep_cifar("gkt-gate", **EP_GKT_DATA)
+    cfg = ep_gkt_config(ds, "float32", batch_size=EP_GKT_DATA["batch_size"])
+    sim = FedGKTAPI(ds, cfg, ep_gkt_pair(ds, (1, 1), "float32"))
+    sim.train()
+    edge = run_fedgkt_edge(ds, cfg, pair=ep_gkt_pair(ds, (1, 1), "float32"))
+    chaos = run_fedgkt_edge(ds, ep_gkt_config(ds, "float32", batch_size=EP_GKT_DATA["batch_size"],
+                                              **WIRE_CHAOS),
+                            pair=ep_gkt_pair(ds, (1, 1), "float32"))
+    n_test = float(ds.test_mask.sum())
+    g, w = edge.history[-1], sim.history[-1]
+    rel = {k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in ("Test/Loss", "Train/ServerLoss")}
+    logits = float((edge.api.server_logits - sim.server_logits).abs().max())
+    gkt = {"acc": [g["Test/Acc"], w["Test/Acc"]], "losses_rel": rel, "server_logits_max_abs": logits,
+           "bit_for_bit": edge.history == [{k: h[k] for k in g} for h in sim.history]
+           and logits == 0.0, "chaos_bit_for_bit": chaos.history == edge.history
+           and bool((chaos.api.server_logits == edge.api.server_logits).all())}
+    ok = (abs(g["Test/Acc"] - w["Test/Acc"]) <= 1.0 / n_test + 1e-9 and logits <= EP_GKT_TOL["logits"]
+          and all(abs(g[k] - w[k]) <= EP_GKT_TOL["loss_atol"] + EP_GKT_TOL["loss_rtol"] * abs(w[k])
+                  for k in rel))
+    log(f"[edge protocols gate gkt] f32 CI-depth edge (4 clients, 2 rounds) against FedGKTAPI: "
+        f"Test/Acc {g['Test/Acc']:.6f} / {w['Test/Acc']:.6f} (one sample {1 / n_test:.4f}), "
+        f"losses rel {rel}, server logits max |d| {logits:.3g} (bound {EP_GKT_TOL['logits']}); "
+        f"bit for bit: {gkt['bit_for_bit']}; under chaos (drop 0.2, dup 0.1, delay 20 ms, seed "
+        f"7) = without: {gkt['chaos_bit_for_bit']}; {smi}")
+    if not (ok and gkt["chaos_bit_for_bit"]):
+        raise AssertionError(f"[edge protocols gate gkt] {gkt}")
+    out["gkt"] = gkt
+    # TurboAggregate: ResNet-56 at full depth, the edge against the API, the
+    # threshold protocol against the ring
+    ds = ep_cifar("ta-gate", **EP_TA_DATA)
+    cfg = ep_ta_config(EP_TA_DATA["num_clients"], "float32")
+    host = TurboAggregateAPI(ds, cfg, ep_resnet56("float32"), group_size=2)
+    host.train()
+    edge = run_turboaggregate_edge(ds, cfg, group_size=2, bundle=ep_resnet56("float32"))
+    ft = run_turboaggregate_edge(ds, ep_ta_config(EP_TA_DATA["num_clients"], "float32",
+                                                  straggler_deadline_sec=600.0),
+                                 bundle=ep_resnet56("float32"))
+    worst, worst_ft = 0.0, 0.0
+    for k, v in host.variables.items():
+        d = np.abs(edge.variables[k].astype(np.float64) - v.double().cpu().numpy())
+        if k in host.wrapped:            # the API names the floats whose total wrapped
+            d = d[~host.wrapped[k].numpy()]
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+        worst_ft = max(worst_ft, float(np.abs(ft.variables[k].astype(np.float64)
+                                              - edge.variables[k]).max()))
+    ta = {"max_abs_unwrapped": worst, "bound": EP_TA_ATOL,
+          "wrapped": host.mpc_stats["wrapped_floats"], "wrapped_leaves": list(host.wrapped),
+          "threshold_vs_ring_max_abs": worst_ft,
+          "threshold_history_equal": ft.history["Test/Acc"] == edge.history["Test/Acc"]}
+    log(f"[edge protocols gate ta] f32 ResNet-56 edge (4 clients x 128, group size 2, 2 rounds) "
+        f"against TurboAggregateAPI: max |d| over the unwrapped floats {worst:.3g} (bound "
+        f"{EP_TA_ATOL:.3g}); wrapped {ta['wrapped']} floats {ta['wrapped_leaves']} (named by the "
+        f"API); the threshold protocol, healthy, "
+        f"against the ring: max |d| {worst_ft:.3g} (bound {EP_TA_FT_ATOL}), Test/Acc equal "
+        f"{ta['threshold_history_equal']}; {smi}")
+    if not (worst <= EP_TA_ATOL and worst_ft <= EP_TA_FT_ATOL
+            and ta["threshold_history_equal"]):
+        raise AssertionError(f"[edge protocols gate ta] {ta}")
+    out["turboaggregate"] = ta
+    # SplitNN: the managed ring, healthy, against the strict one
+    ds = ep_cifar("split-gate", num_clients=3, records_per_client=64, batch_size=32)
+    runs = []
+    for deadline in (None, 600.0):
+        cb, sb = create_split_cnn(10, (32, 32, 3), features=8, hidden=32)
+        runs.append(se.run_splitnn_edge(ds, FedConfig(batch_size=32, lr=0.02, momentum=0.9,
+                                                      epochs=2, seed=SEED,
+                                                      straggler_deadline_sec=deadline), cb, sb))
+    strict, managed = runs
+    split = {"val_history": strict.val_history,
+             "managed_equals_strict": managed.val_history == strict.val_history and all(
+                 bool((managed.variables[k] == v).all()) for k, v in strict.variables.items())}
+    log(f"[edge protocols gate split] the managed ring (healthy) against the strict one over 3 "
+        f"clients x 2 epochs: bit for bit {split['managed_equals_strict']}; validations "
+        f"{[round(v, 4) for v in strict.val_history]}; {smi}")
+    if not split["managed_equals_strict"]:
+        raise AssertionError(f"[edge protocols gate split] {split}")
+    out["split"] = split
+    # VFL and the decentralized framework: under chaos against their runs without
+    vds = make_synthetic_vertical((6, 5), n_train=64, n_test=32, seed=3)
+    kw = dict(hidden_dim=8, lr=0.05, batch_size=32, epochs=1, seed=1)
+    bare = ve.run_vfl_edge(vds, **kw)
+    chaotic = ve.run_vfl_edge(vds, config=FedConfig(**EP_CHAOS), **kw)
+    vfl = all(bool((chaotic.party.params[k] == v).all()) for k, v in bare.party.params.items()) \
+        and chaotic.history == bare.history
+    g_bare = dfw.run_decentralized_framework(worker_num=4, comm_round=3)
+    g_chaos = dfw.run_decentralized_framework(worker_num=4, comm_round=3,
+                                              config=FedConfig(**EP_CHAOS))
+    g_rel = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b)) / np.maximum(np.abs(b), 1e-12)))
+                for a, b in zip(g_chaos, g_bare))
+    out["vfl_chaos_bit_for_bit"], out["gossip_chaos_rel"] = vfl, g_rel
+    log(f"[edge protocols gate vfl/gossip] under chaos against without: VFL bit for bit {vfl} "
+        f"(Test/Acc {bare.history[-1]['Test/Acc']:.4f}); the decentralized framework's mixed "
+        f"states max rel {g_rel:.3g} (bound {EP_GOSSIP_RTOL}); {smi}")
+    if not (vfl and g_rel <= EP_GOSSIP_RTOL):
+        raise AssertionError(f"[edge protocols gate vfl/gossip] vfl {vfl}, gossip {g_rel}")
+    return out
+
+
+def ep_gkt_arm(smi: str) -> dict:
+    """(b) FedGKT at full depth (resnet8 / resnet56_server), bf16 through
+    K1/K2, on the flagship federation's first 8 clients: FedGKTAPI, then
+    the edge over the local transport (the wire round trip), each round 0
+    warm (the captures) and round 1 timed; real images/s both ways; K1 =
+    K2 = 7 a client step + 38 a server step over the edge's rounds, exactly;
+    the uploads' bytes and encode / decode ms, raw and q8."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKTAPI
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.distributed import fedgkt_edge as fe
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    tag = "[edge protocols gkt]"
+    ds = ep_first_clients(flagship_data(), EP_CLIENTS)
+    cfg = ep_gkt_config(ds, "bfloat16", frequency_of_the_test=10_000)
+    api = FedGKTAPI(ds, cfg, ep_gkt_pair(ds, (3, 9), "bfloat16"))
+    steps_c, steps_s = api.round_steps()
+    real = int(np.asarray(ds.train_counts).sum())
+    api.run_round(0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    api.run_round(1)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t
+    del api
+    bn.reset_launches()
+    server = fe.run_fedgkt_edge(ds, cfg, pair=ep_gkt_pair(ds, (3, 9), "bfloat16"))
+    torch.cuda.synchronize()
+    launches = dict(bn.LAUNCHES)
+    want = 2 * (GKT_BNS["client"] * steps_c + GKT_BNS["server"] * steps_s)
+    walls = np.diff([server.t_start] + server.round_closes).tolist()
+    hist = server.history[-1]
+    if launches != {"bn_fwd": want, "bn_bwd": want} or len(walls) != 2 \
+            or not np.isfinite(hist["Test/Loss"]):
+        raise AssertionError(f"{tag} launched {launches} over {len(walls)} rounds; expected "
+                             f"2 x (7 x {steps_c} + 38 x {steps_s}) = {want}; final {hist}")
+    # the codec on two of the round's uploads (every upload has the same shapes)
+    codec = {}
+    for name in ("raw", "q8"):
+        enc = dec = nbytes = 0.0
+        for k in (0, 1):
+            m = Message(fe.MSG_TYPE_C2S_SEND_FEATURE_AND_LOGITS, k + 1, 0)
+            for key, v in zip(fe._TRAIN_KEYS + fe._TEST_KEYS,
+                              server._last_feat[k] + server._last_test[k]):
+                m.add_params(key, v)
+            t = time.perf_counter()
+            buf = m.to_bytes(name)
+            t1 = time.perf_counter()
+            Message.from_bytes(buf)
+            enc, dec, nbytes = enc + t1 - t, dec + time.perf_counter() - t1, nbytes + len(buf)
+        codec[name] = {"bytes_per_round": nbytes / 2 * EP_CLIENTS,
+                       "encode_ms_per_round": enc / 2 * EP_CLIENTS * 1e3,
+                       "decode_ms_per_round": dec / 2 * EP_CLIENTS * 1e3}
+    f = server._last_feat[0]
+    rec = {"clients": EP_CLIENTS, "client_steps_per_round": steps_c,
+           "server_steps_per_round": steps_s, "real_images_per_round": real,
+           "sim_real_images_per_s": real / sim_s, "edge_real_images_per_s": real / walls[1],
+           "edge_round_walls_s": walls, "launches": launches, "final": hist,
+           "feature_bytes_per_upload": int(f[0].numel() * f[0].element_size()),
+           "logit_bytes_per_upload": int(np.asarray(f[1]).nbytes), "codec": codec}
+    log(f"{tag} bf16 resnet8 / resnet56_server on {EP_CLIENTS} flagship clients ({real} real "
+        f"images a round, {steps_c} client + {steps_s} server steps): FedGKTAPI "
+        f"{rec['sim_real_images_per_s']:.1f} real images/s, the edge "
+        f"{rec['edge_real_images_per_s']:.1f} ({rec['edge_real_images_per_s'] / rec['sim_real_images_per_s']:.3f}x; "
+        f"round walls {[round(w, 3) for w in walls]} s); K1 = K2 = {want} over 2 rounds "
+        f"(7 x {steps_c} + 38 x {steps_s} a round); an upload's features "
+        f"{rec['feature_bytes_per_upload']} B and train logits {rec['logit_bytes_per_upload']} B; "
+        f"a round's uploads raw {codec['raw']['bytes_per_round']:.0f} B, encode "
+        f"{codec['raw']['encode_ms_per_round']:.1f} / decode {codec['raw']['decode_ms_per_round']:.1f} ms, "
+        f"q8 {codec['q8']['bytes_per_round']:.0f} B, encode {codec['q8']['encode_ms_per_round']:.1f} / "
+        f"decode {codec['q8']['decode_ms_per_round']:.1f} ms; final {hist}; {smi}")
+    del server
+    return rec
+
+
+def ep_ta_arm(smi: str) -> dict:
+    """(b) TurboAggregate on the bf16 ResNet-56 flagship through K1/K2, the
+    flagship federation's first 8 clients, group size 2, frac_bits 20:
+    TurboAggregateAPI, then the edge, each round 0 warm and round 1 timed;
+    real images/s both ways, the host MPC ms a round, the wrapped floats
+    (the API's: the edge's server sees only the field total); K1 = K2 = 57 x the live steps of the edge's rounds,
+    exactly."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
+    from fedml_tpu_torch.distributed.turboaggregate_edge import run_turboaggregate_edge
+    from fedml_tpu_torch.ops import batchnorm as bn
+
+    tag = "[edge protocols turboaggregate]"
+    ds = flagship_data()
+    cfg = ep_ta_config(EP_CLIENTS, "bfloat16", frequency_of_the_test=10_000)
+    api = TurboAggregateAPI(ds, cfg, ep_resnet56("bfloat16"), group_size=2)
+    secs, mpc = [], []
+    for r in range(2):
+        t = time.perf_counter()
+        api.run_round(r)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        mpc.append(api.mpc_stats["mpc_ms"])
+    real = [api.round_counts(r)[0] for r in range(2)]
+    wraps = {k: api.mpc_stats[k] for k in ("wrapped_floats", "wrapped_leaves", "max_abs_total",
+                                           "field_limit")}
+    del api
+    counts = np.asarray(ds.train_counts)[:EP_CLIENTS]
+    steps = int(sum(-(-int(c) // cfg.batch_size) for c in counts))
+    bn.reset_launches()
+    server = run_turboaggregate_edge(ds, cfg, group_size=2, frac_bits=20,
+                                     bundle=ep_resnet56("bfloat16"))
+    torch.cuda.synchronize()
+    launches = dict(bn.LAUNCHES)
+    walls = np.diff([server.t_start] + server.round_closes).tolist()
+    want = 2 * BNS_PER_STEP * steps
+    if launches != {"bn_fwd": want, "bn_bwd": want} or len(walls) != 2:
+        raise AssertionError(f"{tag} launched {launches} over {len(walls)} rounds; expected "
+                             f"2 x 57 x {steps} live steps = {want}")
+    rec = {"clients": EP_CLIENTS, "live_steps_per_round": steps,
+           "real_images_per_round": int(counts.sum()),
+           "api_real_images_per_s": real[1] / secs[1], "api_mpc_ms": mpc,
+           "edge_real_images_per_s": int(counts.sum()) / walls[1], "edge_round_walls_s": walls,
+           "edge_mpc_ms": server.mpc_ms, **wraps, "launches": launches,
+           "history": server.history}
+    log(f"{tag} bf16 ResNet-56 on {EP_CLIENTS} flagship clients ({rec['real_images_per_round']} "
+        f"real images, {steps} live steps a round), group size 2, frac_bits 20: "
+        f"TurboAggregateAPI {rec['api_real_images_per_s']:.1f} real images/s (MPC "
+        f"{[round(m, 1) for m in mpc]} ms a round), the edge {rec['edge_real_images_per_s']:.1f} "
+        f"({rec['edge_real_images_per_s'] / rec['api_real_images_per_s']:.3f}x; round walls "
+        f"{[round(w, 3) for w in walls]} s; host MPC {[round(m, 1) for m in server.mpc_ms]} ms "
+        f"a round); the API's round 1 wrapped {rec['wrapped_floats']} floats "
+        f"{rec['wrapped_leaves']} (max |total| {rec['max_abs_total']:.6g} against the field's "
+        f"{rec['field_limit']:.6g}); K1 = K2 = "
+        f"{want} = 2 x 57 x {steps}; {smi}")
+    del server
+    return rec
+
+
+def phase_train_edge_protocols(smi: str) -> dict:
+    """Phase 22: the FedGKT, TurboAggregate, SplitNN and VFL edges and the
+    decentralized framework: (a) the f32 gates, (b) the bf16 FedGKT and
+    TurboAggregate edges at the flagship's width through K1/K2."""
+    import gc
+
+    import torch
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gates = ep_gates(smi)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms = {"gkt": ep_gkt_arm(smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    arms["turboaggregate"] = ep_ta_arm(smi)
+    launches = {k: sum(a["launches"][k] for a in arms.values()) for k in ("bn_fwd", "bn_bwd")}
+    log(f"[edge protocols] real images/s: FedGKT edge {arms['gkt']['edge_real_images_per_s']:.1f} "
+        f"(API {arms['gkt']['sim_real_images_per_s']:.1f}), TurboAggregate edge "
+        f"{arms['turboaggregate']['edge_real_images_per_s']:.1f} (API "
+        f"{arms['turboaggregate']['api_real_images_per_s']:.1f}); K1/K2 over the arms {launches}; "
+        f"{smi}")
+    return {"gates": gates, "arms": arms, "launches": launches}
 
 
 def sm_clock() -> float:
@@ -7239,6 +7654,7 @@ def main() -> int:
     mesh_axes = timed("train_mesh_axes", phase_train_mesh_axes, smi)
     edge = timed("train_edge", phase_train_edge, smi)
     wire = timed("train_wire", phase_train_wire, smi, edge["arms"]["local_raw"])
+    edge_protocols = timed("train_edge_protocols", phase_train_edge_protocols, smi)
     for k, v in (*fednas["darts_bn"]["max_abs_err"].items(), *zoo_bn["wide_err"].items()):
         err[k] = max(err[k], v)
     err.update(conv_err)
@@ -7271,8 +7687,8 @@ def main() -> int:
             # flagship arms' timed rounds, phase 13's train() runs, the
             # arms of phases 14, 15, 16, 17, 18 and 19 (the data-parallel
             # streaming trainer), phase 20's edge federations and phase
-            # 21's FedAvg-edge and FedBuff arms, each counted from 0 just
-            # before it
+            # 21's FedAvg-edge and FedBuff arms and phase 22's FedGKT and
+            # TurboAggregate edges, each counted from 0 just before it
             by_path = {"fedavg_bn": train["launches"][name],
                        "fedavg_packed": train_packed["launches"][name],
                        "zoo": zoo["launches"][name],
@@ -7287,7 +7703,8 @@ def main() -> int:
                        "zoo_bn": zoo_bn["launches"][name],
                        "mesh_axes": mesh_axes["launches"][name],
                        "edge": edge["launches"][name],
-                       "wire_fedbuff": wire["launches"][name]}
+                       "wire_fedbuff": wire["launches"][name],
+                       "edge_protocols": edge_protocols["launches"][name]}
             launches = sum(by_path.values())
             packed = {}
             for L, t_rows in timing_packed_by_lanes.items():
@@ -7381,6 +7798,7 @@ def main() -> int:
         "train_loop": loop, "train_robust": robust, "train_zoo_gossip": zoo_gossip,
         "train_gkt_seg": gkt_seg, "train_fednas_split_vfl": fednas, "train_zoo_bn": zoo_bn,
         "train_mesh_axes": mesh_axes, "train_edge": edge, "train_wire": wire,
+        "train_edge_protocols": edge_protocols,
         "conv_check_cases": conv_cases,
         "small_lanes_model_rel_err": lanes_model_err, "conv_timing": conv_timing,
         "probe": probe, "probe_launches": probe_launches, "train_lanes": train_lanes,

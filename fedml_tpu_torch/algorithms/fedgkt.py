@@ -147,6 +147,7 @@ class FedGKTAPI:
         self.server_logits = torch.zeros((self.C, self.n_pad, K), device=self.device)
         self._test = None
         self.programs: dict = {}
+        self._program_at: dict = {}
         self.history: list[dict] = []
 
     # -- state ---------------------------------------------------------------
@@ -183,12 +184,17 @@ class FedGKTAPI:
         """The step program of ``kind`` ("client" or "server"), built at its
         first use; its static inputs are (bx, by, bm, teacher logits) and,
         for the client, the KL weight (a 0-dim tensor)."""
-        prog = self.programs.get(kind)
-        if prog is not None:
-            return prog
-        c, bs, dev = self.config, self.config.batch_size, self.device
         half = self.pair.client if kind == "client" else self.pair.server
         module, opt = half.module, self._copt if kind == "client" else self._sopt
+        # a captured step replays the addresses its capture saw: a program is
+        # reused only while the net's tensors stay where they were when it
+        # was made (``ModelBundle.init`` moves them through the CPU)
+        where = tuple(t.data_ptr() for t in module_state(module, opt))
+        prog = self.programs.get(kind)
+        if prog is not None and self._program_at.get(kind) == where:
+            return prog
+        self._program_at[kind] = where
+        c, bs, dev = self.config, self.config.batch_size, self.device
         src = self._x if kind == "client" else self._feats
         K = self.dataset.class_num
         inputs = [torch.empty((bs,) + tuple(src.shape[2:]), dtype=src.dtype, device=dev),
@@ -266,43 +272,62 @@ class FedGKTAPI:
             for dst, val in zip(outs, got if isinstance(got, tuple) else (got,)):
                 dst[s:s + EVAL_BATCH].copy_(val)
 
+    def train_client(self, round_idx: int, i: int, x, y, m, count: int, teacher,
+                     clogits_out: torch.Tensor, feats_out: torch.Tensor) -> torch.Tensor:
+        """Client ``i``'s step of a round, from the state loaded into the edge
+        net: its distillation epochs on its records ``x, y, m`` (``count``
+        real) toward ``teacher`` (the server's logits of its records), then
+        the extraction pass over its whole record axis into ``clogits_out``
+        and ``feats_out``; returns its mean loss over the last epoch. The
+        simulation's client phase runs it for every client, the edge's
+        client for its own."""
+        bs = self.config.batch_size
+        prog = self.program("client")
+        bx, by, bm, bt, klw = prog.inputs
+        klw.fill_(0.0 if round_idx == 0 else self.config.alpha_distill)
+        steps = -(-int(count) // bs)
+        total = torch.zeros((), device=self.device)
+        for perm in self._client_orders(round_idx, i):
+            order = real_first(perm.to(self.device), m)
+            total = torch.zeros((), device=self.device)
+            for s in range(steps):
+                idx = order[s * bs:(s + 1) * bs]
+                for src, dst in zip((x, y, m, teacher), (bx, by, bm, bt)):
+                    torch.index_select(src, 0, idx, out=dst)
+                total = total + prog()
+        self._eval_pass(self.pair.client.module, x, (clogits_out, feats_out))
+        return total / max(steps, 1)
+
     def client_phase(self, round_idx: int) -> torch.Tensor:
         """Every client's distillation training and extraction pass; returns
         each client's mean loss over its last epoch, [C]."""
-        bs = self.config.batch_size
-        kl_w = 0.0 if round_idx == 0 else self.config.alpha_distill
-        prog = self.program("client")
-        bx, by, bm, bt, klw = prog.inputs
-        klw.fill_(kl_w)
         counts = self.dataset.train_counts
         losses = []
         for i in range(self.C):
             self._load_client(i)
-            steps = -(-int(counts[i]) // bs)
-            x, y, m, t = self._x[i], self._y[i], self._mask[i], self.server_logits[i]
-            total = torch.zeros((), device=self.device)
-            for perm in self._client_orders(round_idx, i):
-                order = real_first(perm.to(self.device), m)
-                total = torch.zeros((), device=self.device)
-                for s in range(steps):
-                    idx = order[s * bs:(s + 1) * bs]
-                    for src, dst in zip((x, y, m, t), (bx, by, bm, bt)):
-                        torch.index_select(src, 0, idx, out=dst)
-                    total = total + prog()
-            losses.append(total / max(steps, 1))
-            self._eval_pass(self.pair.client.module, x, (self._clogits[i], self._feats[i]))
+            losses.append(self.train_client(round_idx, i, self._x[i], self._y[i], self._mask[i],
+                                            int(counts[i]), self.server_logits[i],
+                                            self._clogits[i], self._feats[i]))
             self._store_client(i)
         return torch.stack(losses)
 
-    def server_phase(self, round_idx: int) -> torch.Tensor:
+    def server_phase(self, round_idx: int, feats: Optional[torch.Tensor] = None,
+                     y: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None,
+                     clogits: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The server's training on the union of the client features, then
         its logits for every client record; returns its mean loss over the
-        last epoch."""
+        last epoch. The union is the client phase's (``[C, n_pad, ...]``)
+        unless the edge's server passes the uploaded one, whose mask then
+        gives the real records (a dead client's slot masked out)."""
         bs = self.config.batch_size
         N = self.C * self.n_pad
-        fx, fy = self._feats.view((N,) + self.pair.feature_shape), self._y.view(N)
-        fm, fl = self._mask.view(N), self._clogits.view(N, -1)
-        steps = -(-int(np.asarray(self.dataset.train_counts).sum()) // bs)
+        feats = self._feats if feats is None else feats
+        clogits = self._clogits if clogits is None else clogits
+        fx, fy = feats.view((N,) + self.pair.feature_shape), (self._y if y is None else y).view(N)
+        fm, fl = (self._mask if mask is None else mask).view(N), clogits.view(N, -1)
+        real = (np.asarray(self.dataset.train_counts).sum() if mask is None
+                else float(mask.sum()))
+        steps = -(-int(real) // bs)
         prog = self.program("server")
         total = torch.zeros((), device=self.device)
         for perm in self._server_orders(round_idx):

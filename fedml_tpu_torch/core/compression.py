@@ -12,8 +12,9 @@ A frame carries the codec and each leaf's encoding in its JSON header, so
 decoding needs nothing else. Integer and bool leaves, and float leaves of
 fewer than :data:`MIN_LOSSY_ELEMENTS` elements (biases, BN scales: few
 bytes, large effect), ride raw inside a lossy frame. Leaves are numpy
-arrays (a tensor leaf is copied to the host); decoding gives numpy arrays,
-bit for bit the JAX package's on the same arrays.
+arrays (a tensor leaf is copied to the host, a bf16 one widened to f32);
+decoding gives numpy arrays, bit for bit the JAX package's on the same
+arrays.
 """
 
 from __future__ import annotations
@@ -45,7 +46,12 @@ def parse_codec(codec: str) -> tuple[str, float]:
 
 
 def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    """A leaf as a numpy array; a bf16 tensor (numpy has no bf16) widened
+    to f32, exactly."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+    return np.asarray(x)
 
 
 def _encode_leaf(x: np.ndarray, kind: str, ratio: float) -> tuple[dict, bytes]:

@@ -8,14 +8,17 @@ result", the server averages and broadcasts the global result, for
 and the transport's smoke test (the reference's CI-script-framework.sh:
 16-24 launches exactly this).
 
-The JAX package's flight-dump broadcast and the strict-barrier warning of
-the other edge protocols belong to ROADMAP §1 items 12 and 11c.
+:func:`warn_strict_barrier` is the warning of the edge protocols that keep
+the strict all-participants barrier, :class:`OrderedStream` the in-order
+handling of the protocols whose messages form strict sequences. The JAX package's flight-dump
+broadcast (``broadcast_flight_dump``) belongs to ROADMAP §1 item 12.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import uuid
 from typing import List
 
 import numpy as np
@@ -24,6 +27,17 @@ from fedml_tpu_torch.comm import ClientManager, Message, ServerManager
 from fedml_tpu_torch.comm.local import run_ranks
 
 log = logging.getLogger(__name__)
+
+
+def warn_strict_barrier(config, proto: str) -> None:
+    """Log that ``straggler_deadline_sec`` has no effect for ``proto``:
+    unlike the FedAvg edge, this protocol keeps the strict all-participants
+    barrier and cannot drop a participant."""
+    if getattr(config, "straggler_deadline_sec", None) is not None:
+        logging.getLogger(proto).warning(
+            "straggler_deadline_sec ignored: %s keeps the strict all-participants barrier "
+            "(this protocol cannot drop participants)", proto)
+
 
 #: the control event injected into the server's own receive queue when the
 #: straggler deadline fires; it never crosses the wire and is handled in
@@ -70,6 +84,67 @@ class RoundDeadlineTimer:
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
+
+
+#: a stream message's place in its sender's stream to its receiver, and the
+#: stream's incarnation
+MSG_ARG_KEY_ORDER = "stream_seq"
+MSG_ARG_KEY_ORDER_INC = "stream_inc"
+
+
+class OrderedStream:
+    """Per-sender in-order handling over a wire that may reorder (the
+    reliable layer resends a dropped message late, behind later ones, and
+    the chaos layer delays and reorders): a sender stamps each message to a
+    receiver with its place in that stream and the stream's incarnation
+    (:meth:`stamp`), and the receiver handles each (sender, incarnation)'s
+    stamped messages in stamp order (:meth:`wrap` a handler), holding the
+    early ones. An unstamped message (a local control event) is handled at
+    once; a place already handled (a duplicate) is dropped; a restarted
+    sender's new stream (a new incarnation, places back at 0) is not taken
+    for its predecessor's duplicates. For the protocols whose messages form
+    strict sequences (VFL's guest, SplitNN's clients), where a reordered
+    pair would change what is computed.
+
+    The reliable layer's own sequence numbers cannot serve: they exist only
+    when ``wire_reliable`` is on, and that layer hands messages on in
+    arrival order on purpose. The protocols that count their messages
+    (FedAvg, FedBuff's arrival mode, TurboAggregate, FedGKT, the gossip
+    mix) would otherwise wait behind every retransmit, and a send whose
+    retries run out would stall its sender's later messages for good,
+    where these protocols' deadlines expect to lose only that message."""
+
+    def __init__(self):
+        self._inc = uuid.uuid4().hex[:12]
+        self._sent: dict[int, int] = {}
+        self._next: dict[tuple, int] = {}
+        self._held: dict[tuple, dict] = {}
+
+    def stamp(self, msg: Message) -> Message:
+        dest = msg.get_receiver_id()
+        n = self._sent.get(dest, 0)
+        self._sent[dest] = n + 1
+        msg.add_params(MSG_ARG_KEY_ORDER, n)
+        msg.add_params(MSG_ARG_KEY_ORDER_INC, self._inc)
+        return msg
+
+    def wrap(self, handler):
+        return lambda msg: self.deliver(msg, handler)
+
+    def deliver(self, msg: Message, handler) -> None:
+        seq = msg.get(MSG_ARG_KEY_ORDER)
+        if seq is None:
+            handler(msg)
+            return
+        stream = (msg.get_sender_id(), msg.get(MSG_ARG_KEY_ORDER_INC))
+        if int(seq) < self._next.get(stream, 0):
+            return
+        held = self._held.setdefault(stream, {})
+        held[int(seq)] = (handler, msg)
+        while self._next.get(stream, 0) in held:
+            h, m = held.pop(self._next.get(stream, 0))
+            self._next[stream] = self._next.get(stream, 0) + 1
+            h(m)
 
 
 MSG_TYPE_S2C_INIT = 1

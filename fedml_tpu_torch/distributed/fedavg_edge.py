@@ -110,12 +110,18 @@ MSG_ARG_KEY_MODEL_DELTA = "model_delta"
 class _DeviceThread:
     """``device_call(fn, *args, **kw)``: run ``fn`` on the one device thread
     and return its result (or raise its error) in the caller; a call from
-    the device thread itself runs in place."""
+    the device thread itself runs in place. The CPU's OpenMP team size is a
+    per-thread setting that a thread takes from the process's
+    (``torch.set_num_threads``) once, at its first parallel op, so each
+    call first brings the device thread's team to the process's current
+    size: it follows a later change of the setting as the caller's own
+    thread does."""
 
     def __init__(self):
         self._pool: Optional[ThreadPoolExecutor] = None
         self._ident: Optional[int] = None
         self._lock = threading.Lock()
+        self._team = 0
 
     def __call__(self, fn, *args, **kwargs):
         if threading.get_ident() == self._ident:
@@ -124,7 +130,13 @@ class _DeviceThread:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(1, thread_name_prefix="edge-device")
                 self._ident = self._pool.submit(threading.get_ident).result()
-        return self._pool.submit(fn, *args, **kwargs).result()
+        return self._pool.submit(self._run, torch.get_num_threads(), fn, args, kwargs).result()
+
+    def _run(self, team: int, fn, args, kwargs):
+        if team != self._team:
+            torch.set_num_threads(team)
+            self._team = team
+        return fn(*args, **kwargs)
 
 
 #: every device call of the edge runtime goes through it (module note)
@@ -139,6 +151,17 @@ def host_tree(tree: dict) -> Tree:
     the host; an array as it is)."""
     return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
             for k, v in tree.items()}
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host."""
+    return t.detach().cpu().numpy()
+
+
+def device_tensor(a, device: torch.device) -> torch.Tensor:
+    """A message's array as a tensor on ``device`` (copied: a received
+    array may be read-only)."""
+    return torch.from_numpy(np.array(a)).to(device)
 
 
 def _device_tree(tree: Tree, device: torch.device) -> dict:

@@ -77,7 +77,9 @@ def test_new_modules_are_covered():
                 "distributed/base_framework.py", "distributed/fedavg_edge.py",
                 "experiments/launch_edge.py", "experiments/main_fedavg_edge.py",
                 "comm/reliable.py", "comm/chaos.py", "algorithms/fedbuff.py",
-                "distributed/fedbuff_edge.py"):
+                "distributed/fedbuff_edge.py", "distributed/decentralized_framework.py",
+                "distributed/vfl_edge.py", "distributed/split_nn_edge.py",
+                "distributed/turboaggregate_edge.py", "distributed/fedgkt_edge.py"):
         assert f"fedml_tpu_torch/{mod}" in rels, mod
 
 
